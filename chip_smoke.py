@@ -10,14 +10,24 @@ Phases (any failure exits non-zero before the result line):
    one process per source, all at once;
 2. kernels at the bench geometry (uniform 2-D points, n=262144, k=16,
    Hilbert order): K1, K2 and K3 against their twins, f32 and bf16, at
-   d in {10, 128}, timed with CUDA events beside ``torch.sparse.mm``;
+   d in {10, 128}, timed with CUDA events beside ``torch.sparse.mm``; K7
+   (min-plus, Hopf-Lax, reciprocal, with and without the argmin) and K9
+   (C in {2, 10}, f32 and bf16) on the unpacked tiles, and K4 where the
+   rectangular band fits the budget;
 3. fits on two moons (n=65536, noise 0.1, k=10, 5 labels per class):
    Laplace, Poisson (CG) and Poisson (gradient descent) through the public
    entry points on the packed band path (K1 + K2), Laplace again on the
    unpacked fallback path (K1 + K3), and all of them on the plain ELL path
    for comparison; then the kernels against their twins at the fits' own
    shapes, and the time of one whole matvec (band kernel plus residual)
-   beside the plain ELL gather.
+   beside the plain ELL gather;
+4. the distance and Lipschitz path on the same graph: ``graph.dijkstra``
+   (plain, reciprocal) and ``dijkstra_hl`` on the band (K1 + K7),
+   ``ssl.plaplace`` and ``ssl.amle`` on the band (K2 warm start, K4 band,
+   block-Gauss-Seidel sweeps), ``AccelSpMM.lip_iterate_mc`` (K9), each
+   held to the plain ELL path; graph nearest neighbor and p-eikonal on the
+   plain path (no kernel); then K4, K7 and K9 against their twins at
+   these shapes.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -41,21 +51,55 @@ REPLACES = {
     "materialize_band_tiles": "graphlearning_tpu/ops/pallas_spmm.py:681",
     "band_tiles_spmm_packed": "graphlearning_tpu/ops/pallas_spmm.py:1099",
     "band_tiles_spmm": "graphlearning_tpu/ops/pallas_spmm.py:762",
+    "materialize_band": "graphlearning_tpu/ops/pallas_spmm.py:221",
+    "band_tiles_minplus": "graphlearning_tpu/ops/pallas_spmm.py:842",
+    "band_tiles_lip": "graphlearning_tpu/ops/pallas_spmm.py:915",
 }
 CU_FILE = {
     "materialize_band_tiles": SOURCE + "band_tiles_build.cu",
     "band_tiles_spmm_packed": SOURCE + "band_tiles_spmm.cu",
     "band_tiles_spmm": SOURCE + "band_tiles_spmm.cu",
+    "materialize_band": SOURCE + "band_rect_build.cu",
+    "band_tiles_minplus": SOURCE + "band_tiles_minplus.cu",
+    "band_tiles_lip": SOURCE + "band_tiles_lip.cu",
 }
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # of max|ref|, per band dtype
-# Accuracy (%) of the JAX package in float32 on the fit input below, from
+# Iteration caps of the Lipschitz and p-eikonal fits: each fit fails the
+# smoke when it reaches its cap, so a fit that does not converge stops
+# here instead of spinning.  On this input the Lipschitz fits take about
+# 2800 Jacobi rounds or 2100 block-Gauss-Seidel sweeps, p-eikonal about
+# 200 Jacobi rounds.
+LIP_MAX_NUM_IT = 20000
+PEIKONAL_MAX_NUM_IT = 5000
+K9_ROUNDS = 300          # lip_iterate_mc against the plain rounds, tol 0
+FITS = {
+    "laplace": lambda gl, W, **kw: gl.ssl.laplace(W, **kw),
+    "poisson_cg": lambda gl, W, **kw: gl.ssl.poisson(W, **kw),
+    "poisson_gd": lambda gl, W, **kw: gl.ssl.poisson(
+        W, solver="gradient_descent", **kw),
+    "graph_nn": lambda gl, W, **kw: gl.ssl.graph_nearest_neighbor(W, **kw),
+    "plaplace": lambda gl, W, **kw: gl.ssl.plaplace(
+        W, max_num_it=LIP_MAX_NUM_IT, **kw),
+    # tol 1e-5 (AMLE's own solver default; f32 floors it at 1.19e-5):
+    # at the SSL default 1e-3 the iteration stops far from its fixed
+    # point, and the band path's harmonic start and the plain path's
+    # Voronoi start agree on 0.8612 of the nodes (tools/lip_paths.py)
+    "amle": lambda gl, W, **kw: gl.ssl.amle(
+        W, max_num_it=LIP_MAX_NUM_IT, tol=1e-5, **kw),
+    "peikonal": lambda gl, W, **kw: gl.ssl.peikonal(
+        W, max_num_it=PEIKONAL_MAX_NUM_IT, **kw),
+}
+# Accuracy (%) of the JAX package in float32 on the fit input below (its
+# plain path, with the FITS settings), from
 # ``JAX_PLATFORMS=cpu python3 tools/moons_reference.py --float32``.  The
 # port must come within ACCURACY_MARGIN points of it.  Poisson stays under
 # 95 % on this input in the reference too, and its gradient descent scores
 # less in float32 than in float64 (91.84 %, the same script without
 # ``--float32``), in both packages.
 REFERENCE_ACCURACY = {"laplace": 99.1957, "poisson_cg": 94.2695,
-                      "poisson_gd": 89.1326}
+                      "poisson_gd": 89.1326, "graph_nn": 81.2532,
+                      "plaplace": 93.8391, "amle": 92.3069,
+                      "peikonal": 89.6926}
 ACCURACY_MARGIN = 1.0
 
 
@@ -179,6 +223,125 @@ def spmm_entry(torch, bs, name, label, band, plan, X, library):
                    "S": plan.S, "dtype": dname}})
 
 
+def _real_cells(plan):
+    return int(plan.slab_block.numel()) * plan.R * plan.WT
+
+
+def k4_entry(torch, bs, label, acc, dtype):
+    """K4 on ``acc``'s rectangular plan: exact in f32, one rounding in
+    bf16 (4e-3 of max|ref|, as K1)."""
+    winstart, _, _, Wr, kcap = acc._rect_plan
+    cols = acc.g.cols[:, :kcap].contiguous()
+    vals = acc.g.vals[:, :kcap].contiguous()
+    ws = torch.as_tensor(winstart, device=cols.device)
+    run = lambda: bs.materialize_band(cols, vals, ws, Wr, R=acc.R,
+                                      WT=acc.WT, out_dtype=dtype)
+    plain = lambda: bs._materialize_band_plain(cols, vals, ws, Wr, acc.R,
+                                               dtype)
+    out = run()
+    torch.cuda.synchronize()
+    dname = str(dtype).split(".")[-1]
+    err = compare(label, out, plain(), 0.0 if dname == "float32" else 4e-3)
+    del out
+    nbytes = (cols.numel() * 4 + vals.numel() * 4 + ws.numel() * 4
+              + acc.n_pad * Wr * torch.finfo(dtype).bits // 8)
+    b_ms, b_by = bound(nbytes, 0, dname)
+    return report({
+        "name": "materialize_band", "variant": label, "max_abs_err": err,
+        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shapes": {"ell": list(cols.shape), "R": acc.R, "Wr": int(Wr),
+                   "out": [acc.n_pad, int(Wr)], "dtype": dname}})
+
+
+def coo_of(torch, acc):
+    """Rows, columns and weights of the permuted graph's edges on the
+    card: the yardstick's inputs."""
+    Wp = acc.g.to_scipy().tocoo()
+    as_t = lambda a, dt: torch.as_tensor(a, device=acc.device).to(dt)
+    return (as_t(Wp.row.astype(np.int64), torch.int64),
+            as_t(Wp.col.astype(np.int64), torch.int64),
+            as_t(Wp.data, torch.float32))
+
+
+def k7_entry(torch, bs, label, band, plan, d, f, hopf, recip, track,
+             coo=None):
+    """K7 against its twin: min and argmin identical.  ``coo`` gives the
+    yardstick of plain min-plus: one ``addcmul`` forms the candidates of
+    the permuted COO edges (their d and f gathered beforehand) and one
+    ``scatter_reduce(amin)`` reduces them per row, timed together."""
+    run = lambda: bs.band_tiles_minplus(band, plan, d, f, hopf_lax=hopf,
+                                        track_arg=track, recip=recip)
+    plain = lambda: bs._tiles_minplus_plain(band, plan, d, f, hopf, track,
+                                            recip)
+    m, a = run()
+    torch.cuda.synchronize()
+    rm, ra = plain()
+    if not torch.equal(m, rm) or (track and not torch.equal(a, ra)):
+        raise SmokeFailure(f"{label}: K7 differs from its twin (min "
+                           f"{float((m - rm).abs().max()):.3e})")
+    reached = int((m < bs.MINPLUS_BIG).sum())
+    say(f"  {label}: min{' and argmin' if track else ''} identical to the "
+        f"twin ({reached} of {m.numel()} rows with a candidate)")
+    dname = str(band.dtype).split(".")[-1]
+    nnz_band = int((band != 0).sum())
+    G = int(plan.slab_block.numel())
+    nbytes = (_real_cells(plan) * band.element_size() + G * plan.WT * 8
+              + m.numel() * (8 if track else 4)
+              + (plan.slab_starts.numel() + plan.block_ptr.numel()) * 4)
+    b_ms, b_by = bound(nbytes, nnz_band * (8 if hopf else 3), "float32")
+    library = None
+    if coo is not None:
+        row, col, w = coo
+        dcol, fcol = d[col], f[col]
+        base = torch.full_like(d, bs.MINPLUS_BIG)
+        library = lambda: base.scatter_reduce(
+            0, row, torch.addcmul(dcol, w, fcol), "amin")
+    return report({
+        "name": "band_tiles_minplus", "variant": label, "max_abs_err": 0.0,
+        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(torch, library) if library else None,
+        "library": ("addcmul + scatter_reduce(amin) over the permuted COO "
+                    "edges" if library else None),
+        "shapes": {"band": list(band.shape), "tiles": G, "R": plan.R,
+                   "WT": plan.WT, "band_nnz": nnz_band, "hopf_lax": hopf,
+                   "recip": recip, "track_arg": track, "dtype": dname}})
+
+
+def k9_entry(torch, bs, label, band, plan, U, csr=None):
+    """K9 against its twin: sums within TOL of max|ref|, min and max
+    identical.  ``csr`` gives the yardstick of the sums:
+    ``torch.sparse.mm`` on the permuted graph."""
+    run = lambda: bs.band_tiles_lip(band, plan, U)
+    plain = lambda: bs._tiles_lip_plain(band, plan, U)
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    dname = str(band.dtype).split(".")[-1]
+    err = compare(label + "/sums", out[0], ref[0], TOL[dname])
+    if not (torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])):
+        raise SmokeFailure(f"{label}: K9 min or max differs from its twin")
+    say(f"  {label}: min and max identical to the twin")
+    C = U.shape[1]
+    nnz_band = int((band != 0).sum())
+    G = int(plan.slab_block.numel())
+    nbytes = (_real_cells(plan) * band.element_size() + G * plan.WT * C * 4
+              + 3 * plan.n * C * 4
+              + (plan.slab_starts.numel() + plan.block_ptr.numel()) * 4)
+    b_ms, b_by = bound(nbytes, 4 * nnz_band * C, "float32")
+    return report({
+        "name": "band_tiles_lip", "variant": label, "max_abs_err": err,
+        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": (time_ms(torch, lambda: torch.sparse.mm(csr, U))
+                       if csr is not None else None),
+        "library": "torch.sparse.mm (the sums)" if csr is not None else None,
+        "shapes": {"band": list(band.shape), "tiles": G, "R": plan.R,
+                   "WT": plan.WT, "C": C, "band_nnz": nnz_band,
+                   "dtype": dname}})
+
+
 def permuted_csr(torch, acc):
     """The permuted matrix of ``acc`` as a torch CSR on its device: the
     yardstick for a whole band-plus-residual SpMM."""
@@ -257,7 +420,68 @@ def kernel_phase(torch, accel, bs):
                     X.to(dt), lib))
             del band
             torch.cuda.empty_cache()
+    del acc
+    torch.cuda.empty_cache()
+
+    # the distance kernels on the unpacked tiles (acc_u's matvec band)
+    plan = acc_u.tiles_plan
+    n_pad = acc_u.n_pad
+    d = torch.rand(n_pad, generator=gen, device="cuda") * 3
+    d[torch.rand(n_pad, generator=gen, device="cuda") < 0.3] = bs.MINPLUS_BIG
+    f = torch.rand(n_pad, generator=gen, device="cuda") + 0.5
+    coo = coo_of(torch, acc_u)
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        band = acc_u.build_band(dt, tiles=True)
+        variants = ((False, False, False), (False, False, True),
+                    (True, False, True), (False, True, True))
+        if dt == torch.bfloat16:
+            variants = ((False, False, True),)
+        for hopf, recip, track in variants:
+            tag = ("hopf_lax" if hopf else "recip" if recip else "plain") \
+                + ("/arg" if track else "")
+            entries.append(k7_entry(
+                torch, bs, f"bench/{dname}/{tag}", band, plan, d, f, hopf,
+                recip, track, coo if not (hopf or recip) else None))
+        for C in (2, 10):
+            U = torch.randn((n_pad, C), generator=gen, device="cuda")
+            entries.append(k9_entry(torch, bs, f"bench/{dname}/C={C}", band,
+                                    plan, U, csr if dt == torch.float32
+                                    else None))
+        del band
+        torch.cuda.empty_cache()
+    del csr, coo
+    torch.cuda.empty_cache()
+    if acc_u.rect_band_ok():
+        for dt in (torch.float32, torch.bfloat16):
+            entries.append(k4_entry(torch, bs,
+                                    f"bench/{str(dt).split('.')[-1]}",
+                                    acc_u, dt))
+    else:
+        say(f"  K4 at the bench geometry: the rectangular band "
+            f"({acc_u.rect_band_bytes():.3g} B, Wr={acc_u._rect_plan[3]}) "
+            f"and the resident tiles ({acc_u.matvec_band_bytes:.3g} B) "
+            f"exceed the band budget ({acc_u._budget:.3g} B): K4 runs at "
+            "the fit geometry only")
     return entries
+
+
+def fitter(torch, gl, labels, ti):
+    """``fit(label, make) -> (pred, accuracy, model)``: one timed
+    ``fit_predict``, printed."""
+    def fit(label, make):
+        m = make()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred = m.fit_predict(ti, labels[ti])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        accuracy = gl.ssl.ssl_accuracy(pred, labels, ti)
+        path = getattr(m, "path", None)
+        say(f"  {label}: accuracy {accuracy:.4f} %, {m.iters} "
+            f"{'sweeps' if path == 'band' else 'iterations'}, {secs:.3f} s")
+        return pred, accuracy, m
+    return fit
 
 
 def fit_phase(torch, gl, accel, bs):
@@ -267,23 +491,9 @@ def fit_phase(torch, gl, accel, bs):
     W = gl.weightmatrix.knn(X, 10)
     say(f"  knn: {time.perf_counter() - t0:.2f} s, nnz {W.nnz}")
     ti = gl.trainsets.generate(labels, rate=5, seed=0)
-    models = {
-        "laplace": lambda: gl.ssl.laplace(W),
-        "poisson_cg": lambda: gl.ssl.poisson(W),
-        "poisson_gd": lambda: gl.ssl.poisson(W, solver="gradient_descent"),
-    }
-
-    def fit(label, make):
-        m = make()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        pred = m.fit_predict(ti, labels[ti])
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        accuracy = gl.ssl.ssl_accuracy(pred, labels, ti)
-        say(f"  {label}: accuracy {accuracy:.4f} %, {m.iters} iterations, "
-            f"{secs:.3f} s")
-        return pred, accuracy
+    models = {name: (lambda name=name: FITS[name](gl, W))
+              for name in ("laplace", "poisson_cg", "poisson_gd")}
+    fit = fitter(torch, gl, labels, ti)
 
     # The host-side reordering and tile plans, once per graph; the fits
     # below find them in the cache on W (K1 builds the band in the first
@@ -296,18 +506,18 @@ def fit_phase(torch, gl, accel, bs):
 
     # path A, the main path: packed band (K1 + K2)
     bs.reset_launches()
-    band_path = {name: fit(f"band/{name}", make)
+    band_path = {name: fit(f"band/{name}", make)[:2]
                  for name, make in models.items()}
     launches_a = bs.launches()
     say(f"  launches on the packed band path: {launches_a}")
     # path B, the fallback: unpacked tiles (K1 + K3)
     bs.reset_launches()
     with env("GLT_NO_PACKED", "1"):
-        tiles_pred, _ = fit("tiles/laplace", models["laplace"])
+        tiles_pred = fit("tiles/laplace", models["laplace"])[0]
     launches_b = bs.launches()
     say(f"  launches on the unpacked fallback path: {launches_b}")
     with env("GLT_NO_ACCEL", "1"):
-        plain = {name: fit(f"plain/{name}", make)
+        plain = {name: fit(f"plain/{name}", make)[:2]
                  for name, make in models.items()}
 
     if launches_a["materialize_band_tiles"] < 1 \
@@ -367,7 +577,181 @@ def fit_phase(torch, gl, accel, bs):
                 launches_a["materialize_band_tiles"],
                 "band_tiles_spmm_packed": launches_a["band_tiles_spmm_packed"],
                 "band_tiles_spmm": launches_b["band_tiles_spmm"]}
-    return entries, launches
+    return entries, launches, (W, labels, ti)
+
+
+def check_accuracy(name, accuracy):
+    floor = REFERENCE_ACCURACY[name] - ACCURACY_MARGIN
+    if accuracy < floor:
+        raise SmokeFailure(f"{name} accuracy {accuracy:.4f} % < {floor:.4f} %")
+
+
+def check_agreement(label, pred, ref, limit):
+    agree = float(np.mean(pred == ref))
+    say(f"  {label} agrees with the plain path on {agree:.4f}")
+    if agree < limit:
+        raise SmokeFailure(f"{label}: agreement {agree:.4f} < {limit}")
+
+
+def check_cap(label, m, cap):
+    if m.iters >= cap:
+        raise SmokeFailure(f"{label} reached its cap of {cap} iterations")
+
+
+def distance_phase(torch, gl, accel, bs, W, labels, ti):
+    """The distance and Lipschitz path (counts from 0 around it), then its
+    plain-path references and its kernels at these shapes."""
+    from graphlearning_tpu_torch.solvers import plaplace as pl
+
+    say("== distance and Lipschitz path (the same moons graph)")
+    fit = fitter(torch, gl, labels, ti)
+    G = gl.graph(W)
+    t = time.perf_counter()
+    # one f32 band plan serves the distances and the Lipschitz fits
+    acc = G._accel_exact()
+    say(f"  band plan (f32, host): {time.perf_counter() - t:.2f} s")
+    if acc is None:
+        raise SmokeFailure("the distance path has no band plan")
+    n = W.shape[0]
+    C = 2
+    mask = np.zeros(n, bool)
+    mask[ti] = True
+    gvals = np.zeros((n, C))
+    gvals[ti] = np.eye(C)[labels[ti]]
+    alpha = 1.0 / 9.0                          # p = 10, as ssl.plaplace
+    calls = {
+        "dijkstra": lambda G: G.dijkstra(ti, bdy_val=0, return_cp=True),
+        "dijkstra_recip": lambda G: G.dijkstra(ti, bdy_val=0, return_cp=True,
+                                               reciprocal_weights=True),
+        "dijkstra_hl": lambda G: G.dijkstra_hl(ti, bdy_val=0,
+                                               return_cp=True),
+    }
+
+    # the path of this slice, with the launch counts from 0
+    bs.reset_launches()
+    dist = {}
+    for label, call in calls.items():
+        n0 = bs.band_tiles_minplus.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dist[label] = call(G)
+        torch.cuda.synchronize()
+        say(f"  band/{label}: {time.perf_counter() - t:.3f} s, "
+            f"{bs.band_tiles_minplus.launches - n0} K7 launches "
+            "(rounds + 1)")
+    lip = {name: fit(f"band/{name}", lambda name=name: FITS[name](gl, W))
+           for name in ("plaplace", "amle")}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    u_k9, rounds = acc.lip_iterate_mc(np.zeros((n, C)), mask, gvals, alpha,
+                                      1.0 - alpha, 0.0, K9_ROUNDS)
+    torch.cuda.synchronize()
+    say(f"  band/lip_iterate_mc (K9, C={C}, from zeros): {rounds} rounds, "
+        f"{time.perf_counter() - t:.3f} s")
+    launches = bs.launches()
+    say(f"  launches on the distance and Lipschitz path: {launches}")
+    for name in ("materialize_band_tiles", "band_tiles_minplus",
+                 "band_tiles_spmm_packed", "materialize_band",
+                 "band_tiles_lip"):
+        if launches[name] < 1:
+            raise SmokeFailure(f"the distance and Lipschitz path did not "
+                               f"launch {name}: {launches}")
+    for name, (_, accuracy, m) in lip.items():
+        if m.path != "band":
+            raise SmokeFailure(f"{name} did not take the band path")
+        check_cap(name, m, LIP_MAX_NUM_IT)
+        check_accuracy(name, accuracy)
+        info = m.info
+        say(f"  {name}: warm start {info['init_iters']} CG iterations; "
+            f"block-Gauss-Seidel {info['iters']} sweeps in "
+            f"{info['sweep_seconds']:.3f} s, "
+            f"{info['sweep_seconds'] / info['iters'] * 1e3:.2f} ms a sweep")
+
+    # the plain path: the same calls with the band off
+    with env("GLT_NO_ACCEL", "1"):
+        G2 = gl.graph(W)
+        for label, call in calls.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            d_p, cp_p = call(G2)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            d_b, cp_b = dist[label]
+            if not (np.array_equal(np.isinf(d_b), np.isinf(d_p))
+                    and np.allclose(d_b, d_p, rtol=1e-5, atol=0)):
+                raise SmokeFailure(f"{label}: band distances differ from "
+                                   "the plain path beyond 1e-5 relative")
+            diff = np.nonzero(cp_b != cp_p)[0]
+            if len(diff):
+                # the two seeds must be equally close
+                seeds = np.unique(np.concatenate([cp_b[diff], cp_p[diff]]))
+                single = {s: call_single(G2, label, s) for s in seeds}
+                db = np.array([single[s][i] for s, i in zip(cp_b[diff], diff)])
+                dp = np.array([single[s][i] for s, i in zip(cp_p[diff], diff)])
+                if not np.allclose(db, dp, rtol=1e-5, atol=0):
+                    raise SmokeFailure(f"{label}: a closest point differs "
+                                       "and is farther")
+            say(f"  plain/{label}: {secs:.3f} s; band distances within "
+                f"1e-5 relative, {len(diff)} closest points differ between "
+                "equidistant seeds")
+        gnn_pred, gnn_acc, m = fit("plain/graph_nn",
+                                   lambda: FITS["graph_nn"](gl, W))
+        check_accuracy("graph_nn", gnn_acc)
+        check_agreement("band/dijkstra Voronoi labels (graph NN)",
+                        labels[dist["dijkstra"][1]], gnn_pred, 0.999)
+        for name in ("plaplace", "amle"):
+            pred, _, m = fit(f"plain/{name}",
+                             lambda name=name: FITS[name](gl, W))
+            check_cap(f"plain/{name}", m, LIP_MAX_NUM_IT)
+            check_agreement(f"band/{name}", lip[name][0], pred, 0.99)
+        _, peik_acc, m = fit("plain/peikonal",
+                             lambda: FITS["peikonal"](gl, W))
+        check_cap("plain/peikonal", m, PEIKONAL_MAX_NUM_IT)
+        check_accuracy("peikonal", peik_acc)
+    g = G.sparse
+    u_pl, _ = pl._lip_iterate_mc(
+        g, torch.zeros((n, C), device="cuda"),
+        torch.as_tensor(mask, device="cuda"),
+        torch.as_tensor(gvals, dtype=torch.float32, device="cuda"), alpha,
+        1.0 - alpha, 0.0, K9_ROUNDS)
+    if not np.allclose(u_k9.cpu().numpy(), u_pl.cpu().numpy(), rtol=2e-3,
+                       atol=2e-4):
+        raise SmokeFailure("lip_iterate_mc (K9) differs from the plain "
+                           "_lip_iterate_mc beyond rtol 2e-3, atol 2e-4")
+    say(f"  lip_iterate_mc agrees with plain _lip_iterate_mc after "
+        f"{K9_ROUNDS} rounds: max|diff| "
+        f"{float((u_k9 - u_pl).abs().max()):.3e}")
+
+    say("== K4, K7, K9 at the shapes of this path")
+    entries = []
+    d_p = acc.to_perm(torch.as_tensor(np.minimum(dist["dijkstra"][0], 1e30),
+                                      dtype=torch.float32, device="cuda"),
+                      fill=bs.MINPLUS_BIG)
+    f_p = acc.to_perm(torch.ones(n, device="cuda"))
+    band = acc.tiles_band()
+    entries.append(k7_entry(torch, bs, "fit/float32/plain/arg", band,
+                            acc.tiles_plan, d_p, f_p, False, False, True,
+                            coo_of(torch, acc)))
+    entries.append(k7_entry(torch, bs, "fit/float32/plain", band,
+                            acc.tiles_plan, d_p, f_p, False, False, False,
+                            coo_of(torch, acc)))
+    U = acc.to_perm(u_k9.contiguous())
+    entries.append(k9_entry(torch, bs, "fit/float32/C=2", band,
+                            acc.tiles_plan, U, permuted_csr(torch, acc)))
+    for dt in (torch.bfloat16, torch.float32):
+        entries.append(k4_entry(torch, bs, f"fit/{str(dt).split('.')[-1]}",
+                                acc, dt))
+    return entries, {k: launches[k] for k in ("materialize_band",
+                                              "band_tiles_minplus",
+                                              "band_tiles_lip")}
+
+
+def call_single(G, label, seed):
+    """Distances from one seed by the variant ``label`` of the calls."""
+    if label == "dijkstra_hl":
+        return G.dijkstra_hl([seed], bdy_val=0)
+    return G.dijkstra([seed], bdy_val=0,
+                      reciprocal_weights=label == "dijkstra_recip")
 
 
 def main():
@@ -394,8 +778,11 @@ def main():
                 say(f"  {name}: {line.strip()}")
 
     entries = kernel_phase(torch, accel, bs)
-    fit_entries, launches = fit_phase(torch, gl, accel, bs)
-    entries = fit_entries + entries
+    fit_entries, launches, (W, labels, ti) = fit_phase(torch, gl, accel, bs)
+    dist_entries, dist_launches = distance_phase(torch, gl, accel, bs, W,
+                                                 labels, ti)
+    launches.update(dist_launches)
+    entries = fit_entries + dist_entries + entries
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["route"] = "cuda"

@@ -1,11 +1,19 @@
 """graphlearning_tpu_torch: the PyTorch/CUDA port of graphlearning_tpu.
 
 The same flat namespace on torch tensors, running on an NVIDIA GPU by
-default (see :mod:`config`).  This slice ports the main path of
-semi-supervised learning on a kNN graph: ``weightmatrix.knn`` ->
-``trainsets.generate`` -> ``ssl.laplace`` / ``ssl.poisson`` /
-``ssl.randomwalk`` -> ``ssl.ssl_accuracy``, with the band SpMM on
-hand-written CUDA kernels (``ops/band_spmm.py``, ``csrc/``).
+default (see :mod:`config`).  Ported so far:
+
+* the main path of semi-supervised learning on a kNN graph:
+  ``weightmatrix.knn`` -> ``trainsets.generate`` -> ``ssl.laplace`` /
+  ``ssl.poisson`` / ``ssl.randomwalk`` -> ``ssl.ssl_accuracy``, with the
+  band SpMM on hand-written CUDA kernels (``ops/band_spmm.py``,
+  ``csrc/``);
+* graph distances and Lipschitz learning: ``graph.dijkstra`` /
+  ``dijkstra_hl`` / ``distance_matrix`` / ``peikonal`` / ``plaplace`` /
+  ``amle`` and ``ssl.graph_nearest_neighbor`` / ``ssl.plaplace`` /
+  ``ssl.amle`` / ``ssl.peikonal`` (``solvers/eikonal.py``,
+  ``solvers/plaplace.py``), on the band's min-plus and Lipschitz kernels
+  where it applies.
 
     import graphlearning_tpu_torch as gl
     W = gl.weightmatrix.knn(X, 10)
@@ -14,7 +22,7 @@ hand-written CUDA kernels (``ops/band_spmm.py``, ``csrc/``).
 """
 
 from graphlearning_tpu_torch import config
-from graphlearning_tpu_torch.core.sparse import SparseGraph
+from graphlearning_tpu_torch.core.sparse import BucketedELL, SparseGraph
 from graphlearning_tpu_torch.core.graphclass import graph
 from graphlearning_tpu_torch import ops, solvers, utils, weightmatrix
 from graphlearning_tpu_torch import ssl, trainsets
@@ -22,6 +30,7 @@ from graphlearning_tpu_torch import ssl, trainsets
 __version__ = "0.1.0"
 
 __all__ = [
+    "BucketedELL",
     "SparseGraph",
     "graph",
     "config",

@@ -1,15 +1,17 @@
 """``graph``: user-facing graph object (counterpart of
-``graphlearning_tpu/core/graphclass.py:24-206``).  The graph lives on a
-device as a padded-ELL :class:`SparseGraph`; the scipy matrix is kept for
-interop and for the caches attached to it."""
+``graphlearning_tpu/core/graphclass.py:24-233,369-497``).  The graph lives
+on a device as a padded-ELL :class:`SparseGraph`; the scipy matrix is kept
+for interop and for the caches attached to it.  The distance and
+Lipschitz methods run on the band (:mod:`ops.accel`) where it applies."""
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from graphlearning_tpu_torch import config
-from graphlearning_tpu_torch.core.sparse import SparseGraph
+from graphlearning_tpu_torch.core.sparse import BucketedELL, SparseGraph
 from graphlearning_tpu_torch.ops import graphops as _ops
 
 
@@ -92,3 +94,130 @@ class graph:
             return _ops.laplacian_matvec(g, X, normalization, deg=deg)
 
         return matvec, _ops.laplacian_diag(g, normalization, deg=deg)
+
+    def degree_matrix(self, p: float = 1.0):
+        d = self.degree_vector() ** p
+        return sp.spdiags(d, 0, self.num_nodes, self.num_nodes).tocsr()
+
+    def bucketed(self):
+        """ELL + COO hybrid view (:class:`BucketedELL`) for the gather-path
+        Lipschitz solvers on degree-skewed graphs; cached on the scipy
+        matrix per device and dtype."""
+        W0 = self.weight_matrix
+        key = (str(self.device), str(self.g.vals.dtype))
+        cache = getattr(W0, "_gltt_bucketed", None)
+        if not isinstance(cache, dict):
+            cache = W0._gltt_bucketed = {}
+        hit = cache.get(key)
+        if hit is None or hit.n != self.num_nodes:
+            hit = cache[key] = BucketedELL.from_scipy(
+                W0, dtype=self.g.vals.dtype, device=self.device)
+        return hit
+
+    # -- graph calculus (scipy, for interop) -----------------------------
+
+    def gradient(self, u, weighted: bool = False, p: float = 0.0):
+        """Sparse gradient matrix ``(grad u)_ij = w_ij^p (u_j - u_i)``; the
+        device form is ``ops.graphops.gradient``."""
+        u = np.asarray(u)
+        W = self.weight_matrix.tocoo()
+        if p != 0.0:
+            weighted = True
+        if weighted and p == 0.0:
+            p = 1.0
+        diff = u[W.col] - u[W.row]
+        vals = (W.data**p) * diff if weighted else diff
+        n = self.num_nodes
+        return sp.coo_matrix((vals, (W.row, W.col)), shape=(n, n)).tocsr()
+
+    def divergence(self, V, weighted: bool = True):
+        """Divergence of a sparse edge field: the row sums of ``w (V -
+        V^T) / 2``."""
+        V = V - V.T
+        if weighted:
+            V = V.multiply(self.weight_matrix)
+        return np.asarray(V @ np.ones(self.num_nodes)) / 2
+
+    def infinity_laplacian(self, u):
+        u = torch.as_tensor(np.asarray(u), device=self.device).to(
+            self.g.vals.dtype)
+        return _ops.infinity_laplacian(self.g, u).cpu().numpy()
+
+    # -- distance and Lipschitz solvers ---------------------------------
+
+    def _accel_exact(self):
+        """The f32-band accel of the distance solvers (cost-gated and
+        cached), or None off the band path."""
+        from graphlearning_tpu_torch.ops import accel as _accel
+
+        return _accel.maybe_build(self.weight_matrix, cache_obj=self,
+                                  attr="_accel_exact_cache",
+                                  device=self.device, mode="f32")
+
+    def dijkstra(self, bdy_set, bdy_val=None, f=1, max_dist=np.inf,
+                 return_cp=False, reciprocal_weights=False):
+        """Graph distance to ``bdy_set`` (see ``solvers.eikonal.dijkstra``),
+        on the band (K7) where it applies."""
+        from graphlearning_tpu_torch.solvers import eikonal as _eik
+
+        return _eik.dijkstra(self.g, bdy_set, bdy_val=bdy_val, f=f,
+                             max_dist=max_dist, return_cp=return_cp,
+                             reciprocal_weights=reciprocal_weights,
+                             accel=self._accel_exact())
+
+    def dijkstra_hl(self, bdy_set, bdy_val=None, f=1, max_dist=np.inf,
+                    return_cp=False):
+        """Hopf-Lax distance to ``bdy_set``, on the band (K7) where it
+        applies."""
+        from graphlearning_tpu_torch.solvers import eikonal as _eik
+
+        return _eik.dijkstra_hl(self.g, bdy_set, bdy_val=bdy_val, f=f,
+                                max_dist=max_dist, return_cp=return_cp,
+                                accel=self._accel_exact())
+
+    def distance(self, i, j):
+        return self.dijkstra([i])[j]
+
+    def distance_matrix(self, centered=False):
+        from graphlearning_tpu_torch.solvers import eikonal as _eik
+
+        return _eik.distance_matrix(self.g, centered=centered)
+
+    def peikonal(self, bdy_set, bdy_val=0, f=1, p=1, nl_bdy=False, u0=None,
+                 solver="fmm", max_num_it=10**5, tol=1e-3,
+                 num_bisection_it=30, prog=False):
+        """p-eikonal equation by Jacobi rounds.  ``solver`` ("fmm" or
+        "gauss-seidel") is accepted for API parity: both reach the same
+        viscosity solution.  ``nl_bdy`` dilates the boundary data to the
+        graph neighbors."""
+        from graphlearning_tpu_torch.solvers import eikonal as _eik
+
+        if nl_bdy:
+            n = self.num_nodes
+            bdy_set, bdy_val = _eik._boundary_handling(bdy_set, bdy_val)
+            D = self.degree_matrix(p=-1)
+            W = self.weight_matrix
+            bdy_mask = np.zeros(n)
+            bdy_mask[bdy_set] = 1
+            bdy_dilate = (D @ W @ bdy_mask) > 0
+            bdy_val_all = np.zeros(n)
+            bdy_val_all[bdy_mask == 1] = bdy_val
+            bdy_set = np.where(bdy_dilate)[0]
+            bdy_val = (D @ W @ bdy_val_all)[bdy_set]
+        return _eik.peikonal(self.g, bdy_set, bdy_val=bdy_val, f=f, p=p,
+                             max_num_it=max_num_it, tol=tol,
+                             num_bisection_it=num_bisection_it, u0=u0)
+
+    def plaplace(self, bdy_set, bdy_val, p, max_num_it=10**6, tol=1e-1,
+                 prog=False, fast=True):
+        from graphlearning_tpu_torch.solvers import plaplace as _pl
+
+        return _pl.plaplace(self.g, bdy_set, bdy_val, p,
+                            max_num_it=max_num_it, tol=tol, fast=fast)
+
+    def amle(self, bdy_set, bdy_val, tol=1e-5, max_num_it=10**5,
+             weighted=True, prog=False):
+        from graphlearning_tpu_torch.solvers import plaplace as _pl
+
+        return _pl.amle(self.g, bdy_set, bdy_val, tol=tol,
+                        max_num_it=max_num_it, weighted=weighted)

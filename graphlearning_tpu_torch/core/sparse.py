@@ -9,7 +9,8 @@ device as three tensors:
   * ``deg[i]``     -- number of valid entries of row i (valid slots first).
 
 ``from_ell_np`` takes the host arrays of ``ell_from_scipy`` unchanged, so
-the JAX package and this one compute on one ELL layout.
+the JAX package and this one compute on one ELL layout.  ``BucketedELL``
+splits a degree-skewed graph into a capped ELL plus a COO spill.
 """
 
 from __future__ import annotations
@@ -135,6 +136,102 @@ class SparseGraph:
                                       dtype=self.vals.dtype,
                                       device=self.device)
 
+    def with_vals(self, vals) -> "SparseGraph":
+        """Same sparsity pattern, new values (already 0 on padding)."""
+        return SparseGraph(self.cols, vals, self.deg, self.n, self.k)
+
     def __repr__(self):
         return (f"SparseGraph(n={self.n}, k={self.k}, nnz={self.nnz}, "
                 f"dtype={self.vals.dtype}, device={self.device})")
+
+
+def segment_reduce(out, index, src, kind: str, include_self: bool = True):
+    """Reduce rows of ``src`` into ``out`` in place at rows ``index``:
+    ``kind`` "sum", "min" or "max".  A min or max row that ``index``
+    reaches combines with its value in ``out`` only with
+    ``include_self``; the other rows keep theirs."""
+    if kind == "sum":
+        return out.index_add_(0, index, src)
+    idx = index.reshape((-1,) + (1,) * (src.dim() - 1)).expand_as(src)
+    return out.scatter_reduce_(0, idx, src,
+                               reduce={"min": "amin", "max": "amax"}[kind],
+                               include_self=include_self)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class BucketedELL:
+    """ELL+COO hybrid for degree-skewed graphs (counterpart of
+    ``graphlearning_tpu/core/sparse.py:193-270``): ``main`` holds the
+    first ``kcap`` slots of each row, and the tail of high-degree rows
+    spills into flat COO arrays reduced per row.  The spill is padded to
+    a multiple of 128 slots; padding slots carry row id ``n`` and reduce
+    into a discarded extra row."""
+
+    def __init__(self, main: SparseGraph, sp_rows, sp_cols, sp_vals,
+                 kcap: int, m: int):
+        self.main = main
+        self.sp_rows = sp_rows
+        self.sp_cols = sp_cols
+        self.sp_vals = sp_vals
+        self.kcap = kcap
+        self.m = m            # real (unpadded) spill count
+
+    @staticmethod
+    def from_ell_np(cols_np, vals_np, deg_np, kcap: int | None = None,
+                    dtype=None, device=None) -> "BucketedELL":
+        """Host-side split of the arrays of
+        :meth:`SparseGraph.ell_from_scipy`."""
+        dev = config.device(device)
+        dtype = dtype or config.float_dtype(dev)
+        n, k = cols_np.shape
+        if kcap is None:
+            # 95th-percentile degree, a multiple of 8: covers almost all
+            # rows; hub tails spill
+            kcap = int(np.percentile(deg_np, 95)) if n else 1
+            kcap = max(8, _round_up(max(kcap, 1), 8))
+        kcap = min(kcap, k)
+        main_deg = np.minimum(deg_np, kcap).astype(np.int32)
+        main = SparseGraph.from_ell_np(cols_np[:, :kcap], vals_np[:, :kcap],
+                                       main_deg, dtype=dtype, device=dev)
+        hub = np.nonzero(deg_np > kcap)[0]
+        tail = [(np.full(int(deg_np[r]) - kcap, r, np.int32),
+                 cols_np[r, kcap:int(deg_np[r])],
+                 vals_np[r, kcap:int(deg_np[r])]) for r in hub]
+        m = int(sum(len(t[0]) for t in tail))
+        mp = max(128, _round_up(m, 128))
+        sp_rows = np.full(mp, n, np.int64)          # pad -> row n (dropped)
+        sp_cols = np.zeros(mp, np.int64)
+        sp_vals = np.zeros(mp, np.float64)
+        if m:
+            sp_rows[:m] = np.concatenate([t[0] for t in tail])
+            sp_cols[:m] = np.concatenate([t[1] for t in tail])
+            sp_vals[:m] = np.concatenate([t[2] for t in tail])
+        return BucketedELL(main, torch.as_tensor(sp_rows, device=dev),
+                           torch.as_tensor(sp_cols, device=dev),
+                           torch.as_tensor(sp_vals, device=dev).to(dtype),
+                           kcap=int(kcap), m=m)
+
+    @staticmethod
+    def from_scipy(W, kcap: int | None = None, dtype=None,
+                   device=None) -> "BucketedELL":
+        cols_np, vals_np, deg_np = SparseGraph.ell_from_scipy(W)
+        return BucketedELL.from_ell_np(cols_np, vals_np, deg_np, kcap=kcap,
+                                       dtype=dtype, device=device)
+
+    @property
+    def n(self) -> int:
+        return self.main.n
+
+    def spill_reduce(self, slot_vals, kind: str, fill):
+        """Reduce per-spill-slot values into per-row values: (m_pad,) ->
+        (n,) or (m_pad, C) -> (n, C).  ``kind`` is sum, min or max; rows
+        with no spill get 0 for a sum and ``fill`` otherwise."""
+        n = self.main.n
+        init = 0.0 if kind == "sum" else fill
+        out = torch.full((n + 1,) + tuple(slot_vals.shape[1:]), init,
+                         dtype=slot_vals.dtype, device=slot_vals.device)
+        return segment_reduce(out, self.sp_rows, slot_vals, kind,
+                              include_self=False)[:n]

@@ -12,15 +12,26 @@ the default) or a :class:`~band_spmm.TilesPlan` (kernel K3, taken when the
 packed plan is switched off by ``GLT_NO_PACKED`` or does not fit the band
 budget).  The band is built once by K1.
 
+The distance and Lipschitz solvers stream other layouts:
+
+* :meth:`AccelSpMM.bellman_ford` (K7) and :meth:`AccelSpMM.lip_iterate_mc`
+  (K9) the unpacked tiles band, which K1 builds lazily from the
+  :class:`~band_spmm.TilesPlan` when the matvec plan is packed;
+* :meth:`AccelSpMM.lip_gs_mc` the rectangular ``(n_pad, Wr)`` band of the
+  ``plan_banded`` plan, which K4 builds lazily.
+
 Departures from the JAX package:
 
-* No rectangular-band route (its kernels K4-K6 are not ported yet): where
-  JAX would take it, :func:`maybe_build` returns None and says so.
+* No rectangular-band matvec route (its kernels K5, K6 and K8 are not
+  ported yet): where JAX would take it, :func:`maybe_build` returns None
+  and says so.
 * No gather fallback for band-hostile graphs yet (``ops/gather.py`` of the
   JAX package): :func:`maybe_build` returns None and the fit runs the
   plain ELL path on the same device.
 * Failures are not swallowed: a plan that cannot be used is reported.
-* The band budget covers the packed and the unpacked band together.
+* One band budget covers every band resident together: the packed and the
+  unpacked tiles, and in :meth:`AccelSpMM.rect_band_ok` the rectangular
+  band beside them (JAX budgets each band on its own).
 * The JAX modes f32 and bf16x3 are both exact f32 here (FFMA); ``bf16``
   keeps a bf16 band and bf16 X with f32 sums.
 
@@ -42,6 +53,8 @@ from graphlearning_tpu_torch import config
 from graphlearning_tpu_torch.core.sparse import SparseGraph
 from graphlearning_tpu_torch.ops import band_spmm as _bs
 from graphlearning_tpu_torch.solvers import cg as _cg
+from graphlearning_tpu_torch.solvers.eikonal import _fixed_point
+from graphlearning_tpu_torch.solvers.plaplace import _lip_loop
 
 log = logging.getLogger(__name__)
 
@@ -269,11 +282,18 @@ class AccelSpMM:
             cand2 = assemble(order2, pos2, n_raw2)
             if cand2[3] < cand[3]:
                 cand, order, pos = cand2, order2, pos2
-        (cols_np, vals_np, deg_np), _, self.n_pad, _ = cand
+        (cols_np, vals_np, deg_np), rect_plan, self.n_pad, _ = cand
         self.g = SparseGraph.from_ell_np(cols_np, vals_np, deg_np,
                                          dtype=self._val_dtype, device=dev)
         vals_host = vals_np.astype(np.float64 if self._val_dtype
                                    == torch.float64 else np.float32)
+        self._budget = budget
+        # the rectangular plan (winstart, rrows, rslots, Wr, kcap) of the
+        # block-Gauss-Seidel sweeps, and its residual edges
+        self._rect_plan = rect_plan
+        self._rect_resid_host = _bs.build_residual_ell(
+            rect_plan[1], rect_plan[2], cols_np, vals_host, self.n_pad)
+        self._rect = None
 
         tb, ts, _, rrows, rslots, kcap = _bs.plan_tiles(
             cols_np, R=self.R, WT=self.WT, deg=deg_np, kcap_max=_KCAP_MAX,
@@ -284,14 +304,30 @@ class AccelSpMM:
             raise BandPlanUnavailable(
                 f"tiled band of {tiles_bytes:.3g} B exceeds the budget of "
                 f"{budget:.3g} B; the JAX package would take the "
-                "rectangular band (K4/K5), not ported")
+                "rectangular band matvec (K5), not ported")
         # steady-state cost inputs of maybe_build (the unpacked band)
         self.band_bytes = tiles_bytes
         self.n_resid = len(rrows)
+        # the unpacked tiles of the distance and Lipschitz kernels
+        self.tiles_plan = _bs.TilesPlan.from_tiles(tb, ts, self.n_pad, self.R,
+                                                   self.WT, dev)
+        self._tiles_build_args = (tb, ts, kcap, self.R, self.WT, None)
+        self._tiles_resid = _bs.residual_to_device(
+            _bs.build_residual_ell(rrows, rslots, cols_np, vals_host,
+                                   self.n_pad),
+            dev, self._val_dtype)
+        self._tiles_band = None
+        self.matvec_band_bytes = tiles_bytes
 
         self.plan = None
+        pR, pWT, pS = _PACKED_R, _PACKED_WT, _PACKED_S
+        if packed and (self.n_pad % pR or self.n_pad % pWT):
+            warnings.warn(
+                f"n_pad={self.n_pad} is not a multiple of the packed "
+                f"geometry ({pR}, {pWT}): using the unpacked tiles (K3)",
+                RuntimeWarning, stacklevel=2)
+            packed = False
         if packed:
-            pR, pWT, pS = _PACKED_R, _PACKED_WT, _PACKED_S
             ptb, pts_, pbf, prr, prs, pkcap = _bs.plan_tiles(
                 cols_np, R=pR, WT=pWT, deg=deg_np, kcap_max=_KCAP_MAX,
                 min_edges_per_tile=_min_edges_per_tile(pR, pWT),
@@ -302,7 +338,11 @@ class AccelSpMM:
                 self.plan = _bs.PackedPlan.from_slabs(
                     psb, psts, psrc, self.n_pad, pR, pWT, dev)
                 self._build_args = (ptb, pts_, pkcap, pR, pWT, psrc)
-                rrows, rslots = prr, prs
+                self._resid = _bs.residual_to_device(
+                    _bs.build_residual_ell(prr, prs, cols_np, vals_host,
+                                           self.n_pad),
+                    dev, self._val_dtype)
+                self.matvec_band_bytes = pbytes
             else:
                 warnings.warn(
                     f"packed band ({pbytes:.3g} B) and unpacked band "
@@ -310,13 +350,9 @@ class AccelSpMM:
                     f"{budget:.3g} B together: using the "
                     "unpacked tiles (K3)", RuntimeWarning, stacklevel=2)
         if self.plan is None:
-            self.plan = _bs.TilesPlan.from_tiles(tb, ts, self.n_pad, self.R,
-                                                 self.WT, dev)
-            self._build_args = (tb, ts, kcap, self.R, self.WT, None)
-        self._resid = _bs.residual_to_device(
-            _bs.build_residual_ell(rrows, rslots, cols_np, vals_host,
-                                   self.n_pad),
-            dev, self._val_dtype)
+            self.plan = self.tiles_plan
+            self._build_args = self._tiles_build_args
+            self._resid = self._tiles_resid
 
         # original node order[i] lives at padded row pos[i]
         perm_ext = np.full(self.n_pad, -1, np.int64)
@@ -331,23 +367,26 @@ class AccelSpMM:
     def packed(self) -> bool:
         return isinstance(self.plan, _bs.PackedPlan)
 
-    def band_inputs(self):
-        """K1's arguments for the matvec plan's tiles:
+    def band_inputs(self, tiles: bool = False):
+        """K1's arguments for the matvec plan's tiles (the unpacked tiles
+        of the distance kernels with ``tiles``):
         ``(cols, vals, tile_block, tile_start, R, WT)``."""
-        tb, ts, kcap, R, WT, _ = self._build_args
+        tb, ts, kcap, R, WT, _ = (self._tiles_build_args if tiles
+                                  else self._build_args)
         dev = self.device
         return (self.g.cols[:, :kcap].contiguous(),
                 self.g.vals[:, :kcap].contiguous(),
                 torch.as_tensor(tb, device=dev),
                 torch.as_tensor(ts, device=dev), R, WT)
 
-    def build_band(self, dtype):
-        """The band of the matvec plan in ``dtype``: K1, then the re-layout
-        into slabs for the packed plan."""
-        cols, vals, tb, ts, R, WT = self.band_inputs()
+    def build_band(self, dtype, tiles: bool = False):
+        """The band of the matvec plan (the unpacked tiles with ``tiles``)
+        in ``dtype``: K1, then the re-layout into slabs for the packed
+        plan."""
+        cols, vals, tb, ts, R, WT = self.band_inputs(tiles)
         band = _bs.materialize_band_tiles(cols, vals, tb, ts, R=R, WT=WT,
                                           out_dtype=dtype)
-        src = self._build_args[5]
+        src = None if tiles else self._build_args[5]
         return band if src is None else _bs.pack_band(band, src, R=R, WT=WT)
 
     def band(self):
@@ -355,6 +394,16 @@ class AccelSpMM:
         if self._band is None:
             self._band = self.build_band(self.band_dtype)
         return self._band
+
+    def tiles_band(self):
+        """The unpacked tiles band of the distance and Lipschitz kernels:
+        the matvec band itself under the unpacked plan, else built by K1 on
+        first use (the budget admitted both at planning)."""
+        if not self.packed:
+            return self.band()
+        if self._tiles_band is None:
+            self._tiles_band = self.build_band(self.band_dtype, tiles=True)
+        return self._tiles_band
 
     # -- index maps (one gather each, outside the solver loop) ------------
 
@@ -451,6 +500,192 @@ class AccelSpMM:
         return U[:, :kcls], T
 
 
+    # -- distance rounds on the unpacked tiles (K7) -----------------------
+
+    def _minplus(self, d, f, hopf_lax, recip, track):
+        """One relaxation round: K7 over the tiles plus the residual
+        edges.  Returns ``(min, arg)`` in permuted space."""
+        bmin, barg = _bs.band_tiles_minplus(
+            self.tiles_band(), self.tiles_plan, d, f, hopf_lax=hopf_lax,
+            track_arg=track, recip=recip)
+        if self._tiles_resid is not None:
+            rmin, rarg = _bs.residual_minplus(d, f, self._tiles_resid,
+                                              hopf_lax=hopf_lax,
+                                              track_arg=track, recip=recip)
+            if track:
+                barg = torch.where(bmin <= rmin, barg, rarg)
+            bmin = torch.minimum(bmin, rmin)
+        return bmin, barg
+
+    def bellman_ford(self, d0, f, hopf_lax: bool = False,
+                     recip: bool = False, max_iter: int = 10**6):
+        """Distance iteration to the Dijkstra (or Hopf-Lax) fixed point on
+        the tiles band, then each node's closest seed: the parents of the
+        shortest-path tree at the fixed point, followed to the root by
+        pointer doubling.  ``d0`` holds the seeds' values and
+        ``_bs.MINPLUS_BIG`` elsewhere; every speed ``f`` must be positive
+        (a zero edge cost would make the parents ambiguous).  Takes and
+        returns original-order arrays: ``(d, cp, rounds)``, with ``cp``
+        -1 where unreached."""
+        dev, dt = self.device, self._val_dtype
+        big = _bs.MINPLUS_BIG
+        d0_p = self.to_perm(torch.as_tensor(d0, device=dev).to(dt), fill=big)
+        f_p = self.to_perm(torch.as_tensor(f, device=dev).to(dt))
+
+        def relax(d):
+            bmin, _ = self._minplus(d, f_p, hopf_lax, recip, False)
+            d_new = torch.minimum(d, bmin)
+            return d_new, (d_new < d).any()
+
+        d, rounds = _fixed_point(relax, d0_p, max_iter)
+        # a node that took a candidate equals its least candidate exactly
+        # (the same operations); a seed never improved parents to itself
+        pmin, parg = self._minplus(d, f_p, hopf_lax, recip, True)
+        own = torch.arange(self.n_pad, dtype=torch.int32, device=dev)
+        parent = torch.where(pmin <= d, parg,
+                             torch.where(d0_p < big, own, -1))
+        parent = torch.where(d >= 0.5 * big, -1, parent).long()
+        for _ in range(max(1, int(np.ceil(np.log2(max(2, self.n_pad)))))):
+            parent = torch.where(parent >= 0, parent[parent.clamp(min=0)], -1)
+        root = self.from_perm(parent)
+        cp = torch.where(root >= 0, self._perm_dev[root.clamp(min=0)], -1)
+        return self.from_perm(d), cp, rounds
+
+    # -- Lipschitz rounds -------------------------------------------------
+
+    def _lip_inputs(self, u0, bdy_mask, gvals):
+        """Permuted ``(u0, bdy, gvals, 1/wsum)``; padding rows are boundary
+        rows pinned to 0."""
+        dev, dt = self.device, self._val_dtype
+        as_t = lambda a: torch.as_tensor(a, device=dev)
+        u0_p = self.to_perm(as_t(u0).to(dt))
+        bdy_p = self.to_perm(as_t(bdy_mask).to(torch.int32), fill=1) > 0
+        gv_p = self.to_perm(as_t(gvals).to(dt))
+        wsum = torch.sum(self.g.vals, dim=1)
+        inv_wsum = torch.where(wsum > 0, 1.0 / torch.where(
+            wsum == 0, torch.ones_like(wsum), wsum), torch.zeros_like(wsum))
+        return u0_p, bdy_p, gv_p, inv_wsum
+
+    def lip_iterate_mc(self, u0, bdy_mask, gvals, alpha, beta, tol,
+                       max_iter: int):
+        """One-vs-rest p-Laplace / unweighted AMLE Jacobi rounds ``u <-
+        alpha avg + beta (min + max)/2`` on the tiles band: K9 gives the
+        three reductions of a round in one band pass.  Original-order
+        (n, C) in and out, C <= 32 on CUDA; the period-2 stop and the
+        21-round minimum of the plain iteration.  Returns ``(u, rounds)``."""
+        u0_p, bdy_p, gv_p, inv_wsum = self._lip_inputs(u0, bdy_mask, gvals)
+        band, resid = self.tiles_band(), self._tiles_resid
+
+        def step(u):
+            sumu, minu, maxu = _bs.band_tiles_lip(band, self.tiles_plan, u)
+            if resid is not None:
+                sa, mr, xr = _bs.residual_lip(u, resid, self.n_pad)
+                sumu = sumu + sa
+                minu = torch.minimum(minu, mr)
+                maxu = torch.maximum(maxu, xr)
+            return (alpha * sumu * inv_wsum[:, None]
+                    + beta * 0.5 * (minu + maxu))
+
+        u, rounds = _lip_loop(step, u0_p, bdy_p[:, None], gv_p, tol,
+                              int(max_iter))
+        return self.from_perm(u), rounds
+
+    def rect_band_bytes(self) -> int:
+        """Bytes of the rectangular ``(n_pad, Wr)`` band that
+        :meth:`lip_gs_mc` streams; far more than the tiles on a
+        band-hostile graph."""
+        return (self.n_pad * int(self._rect_plan[3])
+                * (torch.finfo(self.band_dtype).bits // 8))
+
+    def rect_band_ok(self) -> bool:
+        """Whether the rectangular band fits the band budget beside the
+        bands resident with it: the matvec band (the harmonic warm start
+        runs on it first) and the unpacked tiles band once built."""
+        resident = self.matvec_band_bytes
+        if self.packed and self._tiles_band is not None:
+            resident += self.band_bytes
+        return self.rect_band_bytes() + resident <= self._budget
+
+    def _rect_band(self):
+        """The rectangular band (K4), its window starts on the host and on
+        the device, its residual and its width, built on first use."""
+        if self._rect is None:
+            if not self.rect_band_ok():
+                raise ValueError(
+                    f"rectangular band of {self.rect_band_bytes():.3g} B does "
+                    f"not fit the band budget of {self._budget:.3g} B beside "
+                    "the resident bands: callers gate on rect_band_ok()")
+            winstart, _, _, Wr, kcap = self._rect_plan
+            dev = self.device
+            ws = torch.as_tensor(winstart, device=dev)
+            band = _bs.materialize_band(
+                self.g.cols[:, :kcap].contiguous(),
+                self.g.vals[:, :kcap].contiguous(), ws, int(Wr), R=self.R,
+                WT=self.WT, out_dtype=self.band_dtype)
+            resid = _bs.residual_to_device(self._rect_resid_host, dev,
+                                           self._val_dtype)
+            self._rect = (band, np.asarray(winstart).tolist(), resid, int(Wr))
+        return self._rect
+
+    def lip_gs_mc(self, u0, bdy_mask, gvals, alpha, beta, tol,
+                  max_iter: int):
+        """One-vs-rest p-Laplace / unweighted AMLE by block-Gauss-Seidel
+        sweeps over the row blocks of the rectangular band: each block
+        updates from the current ``u`` (earlier blocks already updated in
+        this sweep), so information crosses the whole band each sweep
+        instead of one ring of neighbors per Jacobi round.  The residual
+        edges contribute from the sweep's starting iterate; the fixed point
+        is the Jacobi one.  Original-order (n, C) in and out.  Returns
+        ``(u, sweeps)``.
+
+        The block loop runs on the host, one block after another by design
+        (forward Gauss-Seidel), as JAX's ``fori_loop`` does; each block's
+        ``(R, Wr) @ (Wr, C)`` product is ``torch.matmul`` in f32 (products
+        of a bf16 band and the bf16-rounded window are exact in f32, as
+        JAX's ``preferred_element_type``), and the masked min and max are
+        torch reductions."""
+        band, winstart, resid, Wr = self._rect_band()
+        u0_p, bdy_p, gv_p, inv_wsum = self._lip_inputs(u0, bdy_mask, gvals)
+        R = self.R
+        acc = torch.float64 if band.dtype == torch.float64 else torch.float32
+        big = _bs.LIP_BIG
+
+        def sweep(u):
+            if resid is not None:
+                rsum, rmin, rmax = _bs.residual_lip(u, resid, self.n_pad)
+            u = u.clone()
+            err = torch.zeros((), dtype=u.dtype, device=u.device)
+            for i, ws in enumerate(winstart):
+                r0 = i * R
+                uw = u[ws:ws + Wr]
+                A = band[r0:r0 + R]
+                s = torch.matmul(A.to(acc), uw.to(band.dtype).to(acc))
+                has = (A > 0)[:, :, None]
+                mn = torch.amin(torch.where(has, uw[None], big), dim=1)
+                mx = torch.amax(torch.where(has, uw[None], -big), dim=1)
+                if resid is not None:
+                    s = s + rsum[r0:r0 + R]
+                    mn = torch.minimum(mn, rmin[r0:r0 + R])
+                    mx = torch.maximum(mx, rmax[r0:r0 + R])
+                ub = u[r0:r0 + R]
+                ne = (alpha * s.to(u.dtype) * inv_wsum[r0:r0 + R, None]
+                      + beta * 0.5 * (mn + mx))
+                ne = torch.where(bdy_p[r0:r0 + R, None], ub, ne)
+                err = torch.maximum(err, torch.max(torch.abs(ne - ub)))
+                u[r0:r0 + R] = ne
+            return u, err
+
+        u = torch.where(bdy_p[:, None], gv_p, u0_p)
+        u_prev = u
+        err, it = float("inf"), 0
+        while (err > tol or it <= 20) and it < max_iter:
+            u_new, e = sweep(u)
+            err = min(float(e), float(torch.max(torch.abs(u_new - u_prev))))
+            u_prev, u = u, u_new
+            it += 1
+        return self.from_perm(u), it
+
+
 def _hybrid_estimate(acc: AccelSpMM) -> float:
     """Steady-state seconds of one band SpMM: stream the stored band plus
     gather the residual edges."""
@@ -480,6 +715,7 @@ def maybe_build(W, cache_obj=None, attr="_accel_cache", device=None, **kw):
         return None
     if kw.get("packed") is None:
         kw["packed"] = not os.environ.get("GLT_NO_PACKED")
+    kw.setdefault("mode", "f32")      # one cache entry per band config
     if cache_obj is not None:
         cached = getattr(cache_obj, attr, None)
         if cached is not None and cached.n == n and cached.nnz == W.nnz:

@@ -19,7 +19,17 @@ Kernels (CUDA C++ for sm_90a in ``graphlearning_tpu_torch/csrc``):
   over slabs of ``S`` same-block tiles;
 * K3 :func:`band_tiles_spmm` -- the same over single tiles (``S = 1``),
   taken when the packed plan is absent; ``X`` may have more or fewer rows
-  than the output.
+  than the output;
+* K4 :func:`materialize_band` -- the rectangular ``(n, W)`` band of the
+  block-Gauss-Seidel Lipschitz sweeps, built once per graph;
+* K7 :func:`band_tiles_minplus` -- one min-plus (Bellman-Ford or
+  Hopf-Lax) relaxation round over the unpacked tiles;
+* K9 :func:`band_tiles_lip` -- the weighted sum, min and max of C class
+  columns over each row's band neighbors, one Lipschitz round.
+
+The residual edges of the distance and Lipschitz rounds go through
+:func:`residual_minplus` and :func:`residual_lip` (plain torch; XLA in
+JAX).
 
 Each wrapper runs its plain torch twin for CPU tensors only; a CUDA tensor
 goes to the kernel or raises.  ``launches`` on each wrapper counts the
@@ -34,6 +44,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from graphlearning_tpu_torch.core.sparse import segment_reduce
 from graphlearning_tpu_torch.ops import _build
 
 # -- host planners (numpy copies of the JAX package's) ----------------------
@@ -386,8 +397,9 @@ class PackedPlan(_SlabPlan):
 # -- kernels ------------------------------------------------------------------
 
 _CUDA_BAND_DTYPES = (torch.float32, torch.bfloat16)
-_ROWS_PER_CTA = 128    # csrc/band_tiles_spmm.cu ROWS
-_COLS_PER_STEP = 32    # csrc/band_tiles_spmm.cu KC
+_ROWS_PER_CTA = 128    # csrc/band_tiles_spmm.cu, band_tiles_lip.cu ROWS
+_COLS_PER_STEP = 32    # csrc/band_tiles_spmm.cu, band_tiles_lip.cu KC
+_MINPLUS_ROWS = 64     # csrc/band_tiles_minplus.cu ROWS
 
 
 def _stream(t):
@@ -590,11 +602,379 @@ def band_tiles_spmm(band, plan: TilesPlan, X):
 
 band_tiles_spmm.launches = 0
 
+
+# -- K4: the rectangular band --------------------------------------------------
+
+
+def _materialize_band_plain(cols, vals, winstart, W, R, out_dtype):
+    """Plain twin of K4: scatter each row's in-window slots into a zeroed
+    (n, W) band, summing duplicate columns in f32 (f64 for an f64 band)
+    before one cast."""
+    acc = torch.float64 if out_dtype == torch.float64 else torch.float32
+    n = cols.shape[0]
+    dev = cols.device
+    lo = torch.repeat_interleave(winstart.long(), R)[:, None]
+    local = cols.long() - lo
+    ok = (local >= 0) & (local < W)
+    cell = (torch.arange(n, device=dev)[:, None] * W
+            + local.clamp(0, W - 1))
+    out = torch.zeros(n * W, dtype=acc, device=dev)
+    out.index_add_(0, cell[ok], vals.to(acc)[ok])
+    return out.reshape(n, W).to(out_dtype)
+
+
+def materialize_band(cols, vals, winstart, W: int, R: int, WT: int,
+                     out_dtype=torch.float32):
+    """K4: the rectangular ``(n, W)`` band, ``band[i, c] = sum of vals[i,
+    j]`` over the slots with ``cols[i, j] == winstart[i // R] + c``;
+    out-of-window slots are dropped (the caller's residual holds them).
+    ``cols``/``vals`` are ``(n, kcap)``; ``W`` is a multiple of ``WT``.
+
+    Replaces ``graphlearning_tpu/ops/pallas_spmm.py:197``
+    ``materialize_band`` (kernel ``_band_build_kernel``, :171).  On the
+    H100 it is bound by bytes: the wrapper zeroes the band, and the kernel
+    reads each row's slots once per ``WT``-wide window chunk and writes
+    only the nonzero cells.  One thread owns one (row, chunk), so it needs
+    no atomics; duplicate columns are summed in f32 in slot order and
+    rounded once, so a bf16 band rounds as JAX's does.  The TPU's k
+    compare/select passes over whole blocks and its (chunk, row) grid
+    order, a note about its DMA, are not carried over.  Runs once per
+    graph."""
+    n, k = cols.shape
+    if n % R or W % WT or winstart.shape != (n // R,):
+        raise ValueError(f"materialize_band: rows {n} must be a multiple of "
+                         f"R={R}, W={W} of WT={WT}, and winstart "
+                         f"{tuple(winstart.shape)} one per row block")
+    if _dispatch_device("materialize_band", cols, vals, winstart) == "cpu":
+        return _materialize_band_plain(cols, vals, winstart, W, R, out_dtype)
+    dev = cols.device
+    _require_cuda("materialize_band", dev, cols=cols, vals=vals,
+                  winstart=winstart)
+    _require(cols.dtype == torch.int32 and winstart.dtype == torch.int32,
+             "materialize_band: index tensors must be int32")
+    _require(vals.dtype == torch.float32 and vals.shape == cols.shape,
+             "materialize_band: vals must be float32, shaped like cols")
+    _require(out_dtype in _CUDA_BAND_DTYPES,
+             f"materialize_band: no CUDA kernel for {out_dtype}")
+    out = torch.zeros((n, W), dtype=out_dtype, device=dev)
+    lib = _build.load("band_rect_build")
+    rc = lib.glt_rect_build(
+        _ptr(cols), _ptr(vals), int(k), _ptr(winstart), int(n), int(R),
+        int(W), int(WT), _ptr(out), int(out_dtype == torch.bfloat16),
+        _stream(cols))
+    if rc:
+        raise RuntimeError(f"materialize_band: CUDA error {rc}")
+    materialize_band.launches += 1
+    return out
+
+
+materialize_band.launches = 0
+
+
+# -- K7: min-plus rounds over the tiles ----------------------------------------
+
+MINPLUS_BIG = 1e30       # min where a row has no candidate
+_NO_ARG = torch.iinfo(torch.int32).max
+_TWIN_CELLS = 1 << 24    # tile cells per chunk of the twins
+
+
+def _tile_chunks(plan: _SlabPlan, per_tile: int):
+    """Tile ranges ``[g0, g1)`` of a twin's chunks, at most
+    ``_TWIN_CELLS`` elements each when a tile costs ``per_tile``."""
+    G = plan.slab_block.shape[0]
+    step = max(1, _TWIN_CELLS // max(1, per_tile))
+    return [(g0, min(G, g0 + step)) for g0 in range(0, G, step)]
+
+
+def _minplus_cand(A, d, f, hopf_lax: bool, recip: bool):
+    """The relaxation candidates of band values ``A`` against the window
+    values ``d``, ``f``; ``MINPLUS_BIG`` where ``A`` holds no edge."""
+    if recip:
+        A = torch.where(A > 0, 1.0 / torch.where(A == 0, 1.0, A), 0.0)
+    if hopf_lax:
+        fw = A * f
+        cand = 0.5 * (fw + torch.sqrt(fw * fw + 4.0 * d * d))
+    else:
+        cand = d + A * f
+    return torch.where(A > 0, cand, MINPLUS_BIG)
+
+
+def _tiles_minplus_plain(band, plan: TilesPlan, d, f, hopf_lax: bool,
+                         track_arg: bool, recip: bool):
+    """Plain twin of K7, in f32 (f64 for an f64 band): per row the least
+    candidate over its tiles' cells, ``MINPLUS_BIG`` where none is
+    smaller; with ``track_arg`` the column of the first such cell, earlier
+    tiles first and the smallest column within a tile, else -1."""
+    acc = torch.float64 if band.dtype == torch.float64 else torch.float32
+    dev = band.device
+    R, WT = plan.R, plan.WT
+    tb = plan.slab_block.long()
+    starts = plan.slab_starts[:, 0].long()
+    d, f = d.to(acc), f.to(acc)
+    ms, cols = [], []
+    for g0, g1 in _tile_chunks(plan, R * WT):
+        idx = starts[g0:g1, None] + torch.arange(WT, device=dev)
+        A = band[g0 * R:g1 * R].to(acc).reshape(g1 - g0, R, WT)
+        cand = _minplus_cand(A, d[idx][:, None, :], f[idx][:, None, :],
+                             hopf_lax, recip)
+        m = torch.amin(cand, dim=2)
+        ms.append(m)
+        if track_arg:
+            hit = cand == m[:, :, None]
+            cols.append(torch.amin(torch.where(
+                hit, idx[:, None, :].to(torch.int32), _NO_ARG), dim=2))
+    nblocks = plan.n // R
+    best = torch.full((nblocks, R), MINPLUS_BIG, dtype=acc, device=dev)
+    if not ms:
+        return best.reshape(-1), (torch.full((plan.n,), -1, dtype=torch.int32,
+                                             device=dev) if track_arg else None)
+    m_all = torch.cat(ms)
+    segment_reduce(best, tb, m_all, "min")
+    if not track_arg:
+        return best.reshape(-1), None
+    # the first tile (in plan order) whose own minimum is the row's
+    take = (m_all == best[tb]) & (m_all < MINPLUS_BIG)
+    G = m_all.shape[0]
+    tile = torch.arange(G, device=dev)[:, None].expand(G, R)
+    first = torch.full((nblocks, R), G, dtype=torch.long, device=dev)
+    segment_reduce(first, tb, torch.where(take, tile, G), "min")
+    col_all = torch.cat(cols)
+    arg = torch.gather(torch.cat([col_all, torch.full_like(col_all[:1], -1)]),
+                       0, first)
+    return best.reshape(-1), arg.reshape(-1)
+
+
+def band_tiles_minplus(band, plan: TilesPlan, d, f, hopf_lax: bool = False,
+                       track_arg: bool = False, recip: bool = False):
+    """K7: one min-plus relaxation round over the unpacked tiles.  For each
+    output row, the least of ``d[c] + A f[c]`` (or the Hopf-Lax
+    ``(f A + sqrt((f A)^2 + 4 d[c]^2)) / 2``) over the tile cells ``c``
+    with ``A > 0``; ``recip`` uses ``1/A`` for ``A``.  Returns ``(min,
+    arg)``: ``min`` (plan.n,) float32 (f64 for the CPU twin on an f64
+    band), ``MINPLUS_BIG`` where no candidate is smaller; ``arg`` (plan.n,)
+    int32, the column of the least candidate (earlier tile, then smaller
+    column, on ties) or -1, and None without ``track_arg``.
+
+    Replaces ``graphlearning_tpu/ops/pallas_spmm.py:824``
+    ``band_tiles_minplus`` (kernel ``_tiles_minplus_kernel``, :781).  On
+    the H100 it is bound by the band's bytes (a few flops per cell).  One
+    CTA owns 64 rows of one row block and walks that block's tiles in
+    plan order through ``block_ptr``, so no atomics are needed and the
+    TPU's first-tile reset is implicit; each tile's ``WT`` window of
+    ``d`` and ``f`` is staged in shared memory, a warp reads each band
+    row coalesced and reduces (min, column) with shuffles.  The
+    candidates are formed with the same f32 operations as the twin, in
+    round-to-nearest without contraction, so the two agree exactly.  The
+    argmin comes back as int32, not as the TPU's float-coded lane, and
+    the output is (n,), not the TPU's 128 lanes."""
+    if not isinstance(plan, TilesPlan):
+        raise TypeError("band_tiles_minplus takes a TilesPlan")
+    if _dispatch_device("band_tiles_minplus", band, d, f,
+                        plan.slab_starts) == "cpu":
+        return _tiles_minplus_plain(band, plan, d, f, hopf_lax, track_arg,
+                                    recip)
+    dev = band.device
+    name = "band_tiles_minplus"
+    _require_cuda(name, dev, band=band, d=d, f=f,
+                  tile_start=plan.slab_starts, block_ptr=plan.block_ptr)
+    _require(band.dtype in _CUDA_BAND_DTYPES,
+             f"{name}: band must be float32 or bfloat16 on CUDA")
+    _require(d.dtype == torch.float32 and f.dtype == torch.float32,
+             f"{name}: d and f must be float32 on CUDA")
+    G = plan.slab_block.shape[0]
+    _require(band.shape == (G * plan.R, plan.WT),
+             f"{name}: band {tuple(band.shape)} does not match the plan "
+             f"({G * plan.R}, {plan.WT})")
+    _require(d.dim() == 1 and d.shape == f.shape
+             and d.shape[0] >= plan.x_rows,
+             f"{name}: d and f must be (>= {plan.x_rows},)")
+    _require(plan.R % _MINPLUS_ROWS == 0 and plan.WT * 8 <= 48 * 1024,
+             f"{name}: the kernel takes R a multiple of {_MINPLUS_ROWS} and "
+             "WT <= 6144")
+    out = torch.empty((plan.n,), dtype=torch.float32, device=dev)
+    arg = (torch.empty((plan.n,), dtype=torch.int32, device=dev)
+           if track_arg else None)
+    lib = _build.load("band_tiles_minplus")
+    rc = lib.glt_tiles_minplus(
+        _ptr(band), int(band.dtype == torch.bfloat16), int(plan.R),
+        int(plan.WT), _ptr(plan.block_ptr), _ptr(plan.slab_starts),
+        int(plan.n // plan.R), _ptr(d), _ptr(f), _ptr(out),
+        _ptr(arg) if track_arg else ctypes.c_void_p(0), int(hopf_lax),
+        int(recip), int(track_arg), _stream(band))
+    if rc:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+    band_tiles_minplus.launches += 1
+    return out, arg
+
+
+band_tiles_minplus.launches = 0
+
+
+def residual_minplus(d, f, resid, hopf_lax: bool = False,
+                     track_arg: bool = False, recip: bool = False):
+    """Min-plus contribution of the residual edges
+    (:func:`residual_to_device`; zero-valued slots are padding).  Returns
+    ``(min, arg)`` per row (``MINPLUS_BIG`` / -1 where none; ``arg`` None
+    without ``track_arg``).  Where several spill edges of a row tie for
+    its least candidate, the smallest column wins (the JAX package keeps
+    whichever scatter lands last)."""
+    urows, rcols, rvals, sp_r, sp_c, sp_v = resid
+    n = d.shape[0]
+    dev = d.device
+    best = torch.full((n,), MINPLUS_BIG, dtype=d.dtype, device=dev)
+    arg = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    rvals, sp_v = rvals.to(d.dtype), sp_v.to(d.dtype)
+    if rcols.shape[0]:
+        cand = _minplus_cand(rvals, d[rcols], f[rcols], hopf_lax, recip)
+        m, slot = torch.min(cand, dim=1)              # first slot on ties
+        best[urows] = m
+        a = torch.gather(rcols, 1, slot[:, None])[:, 0].to(torch.int32)
+        arg[urows] = torch.where(m < MINPLUS_BIG, a, -1)
+    if sp_r.shape[0]:
+        cand = _minplus_cand(sp_v, d[sp_c], f[sp_c], hopf_lax, recip)
+        prev = best[sp_r]
+        segment_reduce(best, sp_r, cand, "min")
+        if track_arg:
+            hit = (best[sp_r] < prev) & (cand <= best[sp_r])
+            first = torch.full((n,), _NO_ARG, dtype=torch.int32, device=dev)
+            segment_reduce(first, sp_r, torch.where(
+                hit, sp_c.to(torch.int32), _NO_ARG), "min")
+            arg = torch.where(first < _NO_ARG, first, arg)
+    return best, (arg if track_arg else None)
+
+
+# -- K9: the Lipschitz reductions over the tiles -------------------------------
+
+LIP_BIG = 3e38           # min / max identities of K9
+
+
+def _tiles_lip_plain(band, plan: TilesPlan, U):
+    """Plain twin of K9, in f32 (f64 for an f64 band): per row and class,
+    the band-weighted sum of ``U`` over the row's tile cells, and the min
+    and max of ``U`` over the cells with ``A > 0``."""
+    acc = torch.float64 if band.dtype == torch.float64 else torch.float32
+    dev = band.device
+    R, WT = plan.R, plan.WT
+    C = U.shape[1]
+    nblocks = plan.n // R
+    tb = plan.slab_block.long()
+    starts = plan.slab_starts[:, 0].long()
+    U = U.to(acc)
+    sums = torch.zeros((nblocks, R, C), dtype=acc, device=dev)
+    mins = torch.full((nblocks, R, C), LIP_BIG, dtype=acc, device=dev)
+    maxs = torch.full((nblocks, R, C), -LIP_BIG, dtype=acc, device=dev)
+    for g0, g1 in _tile_chunks(plan, R * WT * C):
+        idx = starts[g0:g1, None] + torch.arange(WT, device=dev)
+        Araw = band[g0 * R:g1 * R].reshape(g1 - g0, R, WT)
+        Uw = U[idx]                                       # (g, WT, C)
+        segment_reduce(sums, tb[g0:g1], torch.bmm(Araw.to(acc), Uw), "sum")
+        has = (Araw > 0)[:, :, :, None]
+        Ub = Uw[:, None, :, :]
+        segment_reduce(mins, tb[g0:g1], torch.amin(
+            torch.where(has, Ub, LIP_BIG), dim=2), "min")
+        segment_reduce(maxs, tb[g0:g1], torch.amax(
+            torch.where(has, Ub, -LIP_BIG), dim=2), "max")
+    return (sums.reshape(plan.n, C), mins.reshape(plan.n, C),
+            maxs.reshape(plan.n, C))
+
+
+def band_tiles_lip(band, plan: TilesPlan, U):
+    """K9: one pass of the Lipschitz-round reductions over the unpacked
+    tiles.  ``U`` is ``(>= plan.x_rows, C)``, C <= 32 on CUDA.  Returns
+    ``(sums, mins, maxs)``, each (plan.n, C) float32 (f64 for the CPU twin
+    on an f64 band): the band-weighted neighbor sum, and the neighbor min
+    and max (``LIP_BIG`` / ``-LIP_BIG`` where a row has no band edge).
+
+    Replaces ``graphlearning_tpu/ops/pallas_spmm.py:902``
+    ``band_tiles_lip`` (kernel ``_tiles_lip_kernel``, :861).  On the H100
+    it is bound by the band's bytes at small C and by f32 issue near
+    C = 32 (a multiply-add and a compare pair per cell and class).  One
+    CTA of 128 threads owns 128 rows of one row block and walks that
+    block's tiles in plan order (no atomics); it stages 32-column band
+    chunks and the matching ``(32, C)`` rows of ``U`` in shared memory,
+    and each thread keeps its row's C sums (exact f32 FFMA; a bf16 band is
+    widened on load), mins and maxes in registers and writes each output
+    once.  The min and max test ``A > 0`` on the stored value.  ``U`` is
+    not padded to the TPU's 128 lanes, and the three results are
+    separate arrays, not one (n, 384) block."""
+    if not isinstance(plan, TilesPlan):
+        raise TypeError("band_tiles_lip takes a TilesPlan")
+    if _dispatch_device("band_tiles_lip", band, U, plan.slab_starts) == "cpu":
+        return _tiles_lip_plain(band, plan, U)
+    dev = band.device
+    name = "band_tiles_lip"
+    _require_cuda(name, dev, band=band, U=U, tile_start=plan.slab_starts,
+                  block_ptr=plan.block_ptr)
+    _require(band.dtype in _CUDA_BAND_DTYPES and U.dtype == torch.float32,
+             f"{name}: band must be float32 or bfloat16 and U float32 on "
+             "CUDA")
+    G = plan.slab_block.shape[0]
+    _require(band.shape == (G * plan.R, plan.WT),
+             f"{name}: band {tuple(band.shape)} does not match the plan "
+             f"({G * plan.R}, {plan.WT})")
+    _require(U.dim() == 2 and 1 <= U.shape[1] <= 32
+             and U.shape[0] >= plan.x_rows,
+             f"{name}: U {tuple(U.shape)} must be (>= {plan.x_rows}, C) "
+             "with 1 <= C <= 32")
+    _require(plan.R % _ROWS_PER_CTA == 0 and plan.WT % _COLS_PER_STEP == 0,
+             f"{name}: the kernel takes R a multiple of {_ROWS_PER_CTA} and "
+             f"WT a multiple of {_COLS_PER_STEP}")
+    C = U.shape[1]
+    sums, mins, maxs = (torch.empty((plan.n, C), dtype=torch.float32,
+                                    device=dev) for _ in range(3))
+    lib = _build.load("band_tiles_lip")
+    rc = lib.glt_tiles_lip(
+        _ptr(band), int(band.dtype == torch.bfloat16), int(plan.R),
+        int(plan.WT), _ptr(plan.block_ptr), _ptr(plan.slab_starts),
+        int(plan.n // plan.R), _ptr(U), int(C), _ptr(sums), _ptr(mins),
+        _ptr(maxs), _stream(band))
+    if rc:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+    band_tiles_lip.launches += 1
+    return sums, mins, maxs
+
+
+band_tiles_lip.launches = 0
+
+
+def residual_lip(U, resid, n: int):
+    """Residual-edge contributions to the Lipschitz reductions: ``(sum_add,
+    min_r, max_r)``, each (n, C), with identities 0 / ``LIP_BIG`` /
+    ``-LIP_BIG`` (zero-valued slots are padding)."""
+    urows, rcols, rvals, sp_r, sp_c, sp_v = resid
+    C = U.shape[1]
+    dev = U.device
+    sum_add = torch.zeros((n, C), dtype=U.dtype, device=dev)
+    min_r = torch.full((n, C), LIP_BIG, dtype=U.dtype, device=dev)
+    max_r = torch.full((n, C), -LIP_BIG, dtype=U.dtype, device=dev)
+    rvals, sp_v = rvals.to(U.dtype), sp_v.to(U.dtype)
+    if rcols.shape[0]:
+        un = U[rcols]                                     # (u, rb, C)
+        valid = (rvals > 0)[:, :, None]
+        segment_reduce(sum_add, urows, torch.einsum("ur,urc->uc", rvals, un),
+                       "sum")
+        segment_reduce(min_r, urows, torch.amin(
+            torch.where(valid, un, LIP_BIG), dim=1), "min")
+        segment_reduce(max_r, urows, torch.amax(
+            torch.where(valid, un, -LIP_BIG), dim=1), "max")
+    if sp_r.shape[0]:
+        un = U[sp_c]                                      # (m, C)
+        valid = (sp_v > 0)[:, None]
+        segment_reduce(sum_add, sp_r,
+                       torch.where(valid, sp_v[:, None] * un, 0.0), "sum")
+        segment_reduce(min_r, sp_r, torch.where(valid, un, LIP_BIG), "min")
+        segment_reduce(max_r, sp_r, torch.where(valid, un, -LIP_BIG), "max")
+    return sum_add, min_r, max_r
+
+
 # name -> wrapper, for launch accounting
 KERNELS = {
     "materialize_band_tiles": materialize_band_tiles,
     "band_tiles_spmm_packed": band_tiles_spmm_packed,
     "band_tiles_spmm": band_tiles_spmm,
+    "materialize_band": materialize_band,
+    "band_tiles_minplus": band_tiles_minplus,
+    "band_tiles_lip": band_tiles_lip,
 }
 
 

@@ -1,12 +1,15 @@
 """Neighborhood aggregation over the padded-ELL graph, in plain torch.
 
-Counterpart of ``graphlearning_tpu/ops/graphops.py:30-153``.  Every op is a
+Counterpart of ``graphlearning_tpu/ops/graphops.py:30-225``.  Every op is a
 gather plus a reduction over the fixed ``k`` axis.  This is the path for
-graphs the band kernels do not take, and the CPU path.
+graphs the band kernels do not take, and the CPU path.  The graph calculus
+at the end (gradient, divergence, neighbor min/max, infinity Laplacian)
+serves the distance and Lipschitz solvers.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from graphlearning_tpu_torch.core.sparse import SparseGraph
@@ -96,3 +99,76 @@ def laplacian_diag(g: SparseGraph, normalization="combinatorial", deg=None):
         return torch.where(deg > 0, 1.0 - dW / torch.clamp(deg, min=1e-30),
                            one)
     raise ValueError(f"normalization must be one of {_NORMS}")
+
+
+# -- graph calculus -----------------------------------------------------------
+
+
+def _weights_p(g: SparseGraph, p: float):
+    """``w^p`` on valid slots (``g.vals`` itself for p = 1)."""
+    if p == 1.0:
+        return g.vals
+    return torch.where(g.mask(), torch.abs(g.vals) ** p, 0.0)
+
+
+def gradient(g: SparseGraph, u, weighted=True, p: float = 1.0):
+    """Edge field ``(grad u)_ij = w_ij^p (u_j - u_i)`` as an (n, k) tensor;
+    padding entries are exactly 0."""
+    diff = u[g.cols] - u[:, None]
+    if weighted:
+        diff = _weights_p(g, p) * diff
+    return torch.where(g.mask(), diff, 0.0)
+
+
+def build_mirror(g: SparseGraph):
+    """Host-side: flat index of the mirrored entry (j, i) of each stored
+    (i, j), and whether it exists.  Entries without a mirror map to
+    themselves.  Returns ``(mirror (n, k) int64, has (n, k) bool)`` on the
+    graph's device."""
+    cols = g.cols.cpu().numpy().astype(np.int64)
+    deg = g.deg.cpu().numpy()
+    n, k = g.n, g.k
+    rows = np.repeat(np.arange(n, dtype=np.int64)[:, None], k, axis=1)
+    valid = np.arange(k)[None, :] < deg[:, None]
+    # unique key per stored (i, j); invalid slots never match
+    key = np.where(valid, rows * n + cols, -1).reshape(-1)
+    mkey = np.where(valid, cols * n + rows, -2).reshape(-1)
+    order = np.argsort(key, kind="stable")
+    sorted_key = key[order]
+    pos = np.clip(np.searchsorted(sorted_key, mkey), 0, n * k - 1)
+    found = sorted_key[pos] == mkey
+    mirror = np.where(found, order[pos], np.arange(n * k)).reshape(n, k)
+    return (torch.as_tensor(mirror, device=g.device),
+            torch.as_tensor(found.reshape(n, k), device=g.device))
+
+
+def divergence(g: SparseGraph, V, mirror=None, weighted=True, p: float = 1.0):
+    """``div(V)_i = (1/2) sum_j w_ij^p (V_ij - V_ji)`` of an (n, k) edge
+    field; ``mirror`` from :func:`build_mirror`."""
+    if mirror is None:
+        raise ValueError("divergence requires mirror indices (build_mirror(g))")
+    mirror_idx, has = mirror
+    Vt = torch.where(has, V.reshape(-1)[mirror_idx], 0.0)
+    A = V - Vt
+    if weighted:
+        A = _weights_p(g, p) * A
+    return 0.5 * torch.sum(torch.where(g.mask(), A, 0.0), dim=1)
+
+
+def neighbor_min(g: SparseGraph, e):
+    """min over the valid entries of an (n, k) edge array (the dtype's
+    largest value where a row has none)."""
+    big = torch.finfo(e.dtype).max
+    return torch.amin(torch.where(g.mask(), e, big), dim=1)
+
+
+def neighbor_max(g: SparseGraph, e):
+    small = torch.finfo(e.dtype).min
+    return torch.amax(torch.where(g.mask(), e, small), dim=1)
+
+
+def infinity_laplacian(g: SparseGraph, u):
+    """``(L_inf u)_i = min_j w_ij (u_j - u_i) + max_j w_ij (u_j - u_i)``
+    over valid neighbors."""
+    e = g.vals * (u[g.cols] - u[:, None])
+    return neighbor_min(g, e) + neighbor_max(g, e)

@@ -1,1 +1,3 @@
-"""Iterative solvers of graphlearning_tpu_torch."""
+"""Iterative solvers of graphlearning_tpu_torch: conjugate gradients
+(``cg``), graph distances and p-eikonal (``eikonal``), p-Laplace and AMLE
+(``plaplace``)."""

@@ -1,12 +1,14 @@
 """Semi-supervised learning on graphs (counterpart of
-``graphlearning_tpu/ssl.py:36-345,507-964`` for Laplace, Poisson and
-random-walk learning).
+``graphlearning_tpu/ssl.py:36-345,507-964,1722-1952`` for Laplace, Poisson
+and random-walk learning, and the distance and Lipschitz models: graph
+nearest neighbor, AMLE, p-eikonal and p-Laplace).
 
 Each model's ``_fit`` moves the labels to the graph's device once and runs
 a matrix-free solver there.  On a large band-friendly graph on CUDA, every
 matvec goes through the band kernels (:mod:`ops.accel`); otherwise through
 the plain ELL gather (:mod:`ops.graphops`).  ``self.iters`` holds the
-solver's iteration count after a fit.
+solver's iteration (or sweep) count after a fit.  One-vs-rest models solve
+their C problems together (``_fit_onevsrest``) or one class at a time.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from graphlearning_tpu_torch.core.sparse import SparseGraph
 from graphlearning_tpu_torch.ops import accel as _accel
 from graphlearning_tpu_torch.ops import graphops as _ops
 from graphlearning_tpu_torch.solvers import cg as _cg
+from graphlearning_tpu_torch.solvers import eikonal as _eik
+from graphlearning_tpu_torch.solvers import plaplace as _pl
 
 
 def _cg_scaled_solve(g, s, b, c0, c1, tol, max_iter=10**5, x0=None):
@@ -104,6 +108,7 @@ class ssl:
         self.weights = 1
         self.class_priors_error = 1
         self.iters = None
+        self.onevsrest = False
 
     def set_graph(self, W):
         if isinstance(W, _graphmod.graph):
@@ -175,14 +180,29 @@ class ssl:
         train_ind = np.asarray(train_ind)
         train_labels = np.asarray(train_labels)
         self.fitted = True
-        u = self._fit(train_ind, train_labels, all_labels=all_labels)
-        self.prob = u.cpu().numpy()
+        if self.onevsrest:
+            unique_labels = np.unique(train_labels)
+            if hasattr(self, "_fit_onevsrest"):
+                # all C one-vs-rest problems in one batched solve
+                u = self._fit_onevsrest(train_ind, train_labels,
+                                        unique_labels)
+            else:
+                u = np.stack([_as_numpy(self._fit(train_ind,
+                                                  train_labels == l))
+                              for l in unique_labels], axis=1)
+        else:
+            u = self._fit(train_ind, train_labels, all_labels=all_labels)
+        self.prob = _as_numpy(u)
         if self.class_priors is not None:
             self.volume_label_projection()
         return self.prob
 
     def _fit(self, train_ind, train_labels, all_labels=None):
         raise NotImplementedError("Must override _fit")
+
+
+def _as_numpy(u):
+    return u.cpu().numpy() if torch.is_tensor(u) else np.asarray(u)
 
 
 def ssl_accuracy(pred_labels, true_labels, train_ind=None):
@@ -393,3 +413,171 @@ def _poisson_gradient_descent(g: SparseGraph, b, train_ind, min_iter,
         v = _ops.spmm_t(g, dinv * v)
         T += 1
     return u, T
+
+
+# -- distance and Lipschitz models --------------------------------------------
+
+
+def _density_speed(D, alpha):
+    """Eikonal speed ``(d / max d)^alpha`` from the kNN distance matrix
+    ``D`` (``d`` the distance to the farthest neighbor), or 1."""
+    if D is None:
+        return 1
+    d = np.asarray(D.max(axis=1).todense()).ravel()
+    return (d / np.max(d)) ** alpha
+
+
+class graph_nearest_neighbor(ssl):
+    """Geodesic nearest-neighbor classifier: each node takes the label of
+    its closest labeled node (Bellman-Ford closest points, on the plain
+    ELL path as in the JAX package), with an optional kNN-density speed.
+    With class priors, one-vs-rest distances instead."""
+
+    def __init__(self, W=None, class_priors=None, D=None, alpha=1,
+                 device=None):
+        super().__init__(W, class_priors, device=device)
+        self.alpha = alpha
+        if class_priors is not None:
+            self.onevsrest = True
+            self.similarity = False
+        self.f = _density_speed(D, alpha)
+        self.name = "Graph NN (alpha=%.2f)" % self.alpha
+
+    def _fit(self, train_ind, train_labels, all_labels=None):
+        g = self.graph.sparse
+        info = {}
+        if self.onevsrest:
+            u = _eik.dijkstra(g, train_ind[train_labels], bdy_val=0,
+                              f=self.f, info=info)
+            self.iters = info["iters"]
+            return u
+        _, cp = _eik.dijkstra(g, train_ind, bdy_val=np.zeros(len(train_ind)),
+                              f=self.f, return_cp=True, info=info)
+        self.iters = info["iters"]
+        lab_of = np.zeros(self.graph.num_nodes, dtype=int)
+        lab_of[train_ind] = train_labels
+        k = len(np.unique(train_labels))
+        return utils.labels_to_onehot(lab_of[cp], k)
+
+
+def _onehot_bdy(train_labels, unique_labels):
+    return (train_labels[:, None] == unique_labels[None, :]).astype(float)
+
+
+def _lip_accel(model):
+    """The band of the Lipschitz fits: an f32 band where JAX takes a bf16
+    one (``exact=False, fast=True``).  In bf16 the sweeps of the p-Laplace
+    fit round the window of u to 8 bits each block, stop much later and
+    move the prediction: on the 65536-node moons input 2602 sweeps against
+    2129, agreeing with the plain path on 0.9878 of the nodes against
+    0.9975 (``tools/lip_paths.py`` on an H100)."""
+    return _accel.maybe_build(model.graph.weight_matrix, cache_obj=model,
+                              attr="_accel_dist", device=model.graph.device,
+                              mode="f32")
+
+
+class amle(ssl):
+    """AMLE (infinity-Laplace) learning, one-vs-rest.  Unweighted, it takes
+    the band path where it applies (harmonic warm start on K2, then
+    block-Gauss-Seidel sweeps over the K4 band); otherwise a Voronoi warm
+    start and Jacobi rounds on the ELL.  ``self.path`` says which ran.
+    The two starts stop at different iterates unless ``tol`` is tight: at
+    the default 1e-3 they can disagree on a tenth of the nodes."""
+
+    def __init__(self, W=None, class_priors=None, tol=1e-3, max_num_it=10**5,
+                 weighted=False, prog=False, device=None):
+        super().__init__(W, class_priors, device=device)
+        self.tol = tol
+        self.max_num_it = max_num_it
+        self.weighted = weighted
+        self.onevsrest = True
+        self.name = "AMLE"
+
+    def _fit(self, train_ind, train_labels, all_labels=None):
+        return self.graph.amle(train_ind, train_labels.astype(float),
+                               tol=self.tol, max_num_it=self.max_num_it,
+                               weighted=self.weighted)
+
+    def _fit_onevsrest(self, train_ind, train_labels, unique_labels):
+        acc = _lip_accel(self)
+        info = {}
+        u = _pl.amle_mc(self.graph.sparse, train_ind,
+                        _onehot_bdy(train_labels, unique_labels),
+                        tol=self.tol, accel=acc,
+                        bucketed=self.graph.bucketed(),
+                        max_num_it=self.max_num_it, weighted=self.weighted,
+                        info=info)
+        self.iters, self.path, self.info = info["iters"], info["path"], info
+        return u
+
+
+class peikonal(ssl):
+    """p-eikonal learning: one-vs-rest distance scores (smaller is
+    closer), by the class-batched Jacobi solver on the ELL."""
+
+    def __init__(self, W=None, class_priors=None, D=None, p=1, alpha=1,
+                 max_num_it=10**5, tol=1e-3, num_bisection_it=30,
+                 eps_ball_graph=False, device=None):
+        super().__init__(W, class_priors, device=device)
+        self.p = p
+        self.alpha = alpha
+        self.max_num_it = max_num_it
+        self.tol = tol
+        self.num_bisection_it = num_bisection_it
+        self.onevsrest = True
+        self.similarity = False
+        if D is None and eps_ball_graph:
+            d = self.graph.degree_vector()
+            self.f = (d / np.max(d)) ** (-alpha)
+        else:
+            self.f = _density_speed(D, alpha)
+        self.name = "p-eikonal (p=%.2f, alpha=%.2f)" % (self.p, self.alpha)
+
+    def _fit(self, train_ind, train_labels, all_labels=None):
+        return self.graph.peikonal(train_ind[train_labels], bdy_val=0,
+                                   f=self.f, p=self.p,
+                                   max_num_it=self.max_num_it, tol=self.tol,
+                                   num_bisection_it=self.num_bisection_it)
+
+    def _fit_onevsrest(self, train_ind, train_labels, unique_labels):
+        info = {}
+        u = _eik.peikonal_mc(
+            self.graph.sparse,
+            [train_ind[train_labels == l] for l in unique_labels], f=self.f,
+            p=self.p, max_num_it=self.max_num_it, tol=self.tol,
+            num_bisection_it=self.num_bisection_it, info=info)
+        self.iters = info["iters"]
+        return u
+
+
+class plaplace(ssl):
+    """Game-theoretic p-Laplace learning, one-vs-rest.  The ``fast``
+    iteration takes the band path where it applies (as :class:`amle`);
+    otherwise a Voronoi warm start and Jacobi rounds on the ELL."""
+
+    def __init__(self, W=None, class_priors=None, p=10, max_num_it=10**6,
+                 tol=1e-1, fast=True, device=None):
+        super().__init__(W, class_priors, device=device)
+        self.p = p
+        self.max_num_it = max_num_it
+        self.tol = 1e-5 if fast else tol
+        self.onevsrest = True
+        self.fast = fast
+        self.name = "p-Laplace (p=%.2f)" % self.p
+
+    def _fit(self, train_ind, train_labels, all_labels=None):
+        return self.graph.plaplace(train_ind, train_labels.astype(float),
+                                   self.p, max_num_it=self.max_num_it,
+                                   tol=self.tol)
+
+    def _fit_onevsrest(self, train_ind, train_labels, unique_labels):
+        acc = _lip_accel(self) if self.fast else None
+        info = {}
+        u = _pl.plaplace_mc(self.graph.sparse, train_ind,
+                            _onehot_bdy(train_labels, unique_labels), self.p,
+                            max_num_it=self.max_num_it, tol=self.tol,
+                            fast=self.fast, accel=acc,
+                            bucketed=self.graph.bucketed(), info=info)
+        self.iters, self.path = info.get("iters"), info.get("path")
+        self.info = info
+        return u

@@ -225,3 +225,193 @@ def test_accel_band_budget_drops_packed_plan(knn_900, monkeypatch):
     with pytest.warns(RuntimeWarning, match="packed band"):
         acc2 = AccelSpMM(knn_900, device="cpu")
     assert not acc2.packed and acc2.band_bytes == acc.band_bytes
+
+
+# -- K4, K7, K9 and the residual rounds ------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k4_twin_matches_pallas(banded_ell, dtype):
+    """The rectangular band: exact in f32 and f64 (the same slot-order
+    sums)."""
+    cols, vals, deg, _ = banded_ell
+    R, WT = 128, 128
+    winstart, _, _, W, kcap = jps.plan_banded(cols, R=R, WT=WT, deg=deg,
+                                              kcap_max=32)
+    assert W < 1024
+    c, v = cols[:, :kcap], vals[:, :kcap].astype(dtype)
+    ref = jps.materialize_band(jnp.asarray(c), jnp.asarray(v),
+                               jnp.asarray(winstart), W, R=R, WT=WT,
+                               interpret=True, out_dtype=getattr(jnp, dtype))
+    out = bs.materialize_band(torch.as_tensor(c), torch.as_tensor(v),
+                              torch.as_tensor(winstart), W, R=R, WT=WT,
+                              out_dtype=getattr(torch, dtype))
+    assert out.dtype == getattr(torch, dtype) and out.shape == (1024, W)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def _minplus_inputs(banded_ell, dtype):
+    cols, vals, tb, ts, bf = _tiles(banded_ell, 128, 128)
+    band = bs.materialize_band_tiles(
+        torch.as_tensor(cols), torch.as_tensor(vals.astype(np.float32)),
+        torch.as_tensor(tb), torch.as_tensor(ts), R=128, WT=128,
+        out_dtype=dtype)
+    rs = np.random.RandomState(5)
+    d = (rs.rand(1024) * 3).astype(np.float32)
+    d[rs.rand(1024) < 0.3] = 1e30                  # unreached nodes
+    f = (rs.rand(1024) + 0.5).astype(np.float32)
+    plan = bs.TilesPlan.from_tiles(tb, ts, 1024, 128, 128, "cpu")
+    return band, plan, (tb, ts, bf), d, f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hopf_lax,recip", [(False, False), (True, False),
+                                            (False, True), (True, True)])
+def test_k7_twin_matches_pallas(banded_ell, dtype, hopf_lax, recip):
+    """Min within 1e-6 (relative), argmin identical where a candidate
+    exists; -1 where none (JAX carries a float-coded sentinel there)."""
+    band, plan, (tb, ts, bf), d, f = _minplus_inputs(banded_ell, dtype)
+    jband = jnp.asarray(band.float().numpy()).astype(
+        jnp.float32 if dtype == torch.float32 else jnp.bfloat16)
+    ref = np.asarray(jps.band_tiles_minplus(
+        jband, jnp.asarray(tb), jnp.asarray(ts), jnp.asarray(bf),
+        jnp.asarray(d), jnp.asarray(f), 1024, R=128, WT=128,
+        hopf_lax=hopf_lax, track_arg=True, recip=recip, interpret=True))
+    m, arg = bs.band_tiles_minplus(band, plan, torch.as_tensor(d),
+                                   torch.as_tensor(f), hopf_lax=hopf_lax,
+                                   track_arg=True, recip=recip)
+    assert m.dtype == torch.float32 and arg.dtype == torch.int32
+    np.testing.assert_allclose(m.numpy(), ref[:, 0], rtol=1e-6)
+    has = ref[:, 0] < 1e30
+    assert has.any() and (~has).any()
+    np.testing.assert_array_equal(arg.numpy()[has],
+                                  ref[has, 1].astype(np.int32))
+    assert np.all(arg.numpy()[~has] == -1)
+    m2, none = bs.band_tiles_minplus(band, plan, torch.as_tensor(d),
+                                     torch.as_tensor(f), hopf_lax=hopf_lax,
+                                     recip=recip)
+    assert none is None
+    np.testing.assert_array_equal(m2.numpy(), m.numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 3])
+def test_k9_twin_matches_pallas(banded_ell, dtype, C):
+    """Sums within 1e-5 of max|ref| (f32 sums in other orders), min and
+    max identical."""
+    band, plan, (tb, ts, bf), _, _ = _minplus_inputs(banded_ell, dtype)
+    U = np.random.RandomState(6).randn(1024, C).astype(np.float32)
+    jband = jnp.asarray(band.float().numpy()).astype(
+        jnp.float32 if dtype == torch.float32 else jnp.bfloat16)
+    ref = np.asarray(jps.band_tiles_lip(
+        jband, jnp.asarray(tb), jnp.asarray(ts), jnp.asarray(bf),
+        jnp.asarray(np.pad(U, ((0, 0), (0, 128 - C)))), 1024, C=C, R=128,
+        WT=128, interpret=True))
+    sums, mins, maxs = bs.band_tiles_lip(band, plan, torch.as_tensor(U))
+    np.testing.assert_allclose(sums.numpy(), ref[:, :C], rtol=0,
+                               atol=1e-5 * np.abs(ref[:, :C]).max())
+    np.testing.assert_array_equal(mins.numpy(), ref[:, 128:128 + C])
+    np.testing.assert_array_equal(maxs.numpy(), ref[:, 256:256 + C])
+
+
+@pytest.fixture(scope="module")
+def residual(banded_ell):
+    cols, vals, deg, _ = banded_ell
+    _, _, _, rrows, rslots, _ = jps.plan_tiles(
+        cols, R=128, WT=128, deg=deg, kcap_max=4, min_edges_per_tile=64)
+    vals32 = vals.astype(np.float32)
+    jres = jps.build_residual_ell(rrows, rslots, cols, vals32, 1024, rb=3)
+    tres = bs.residual_to_device(
+        bs.build_residual_ell(rrows, rslots, cols, vals32, 1024, rb=3),
+        "cpu", torch.float32)
+    return jres, tres
+
+
+@pytest.mark.parametrize("hopf_lax,recip", [(False, False), (True, True)])
+def test_residual_minplus_matches_jax(residual, hopf_lax, recip):
+    """Min within 1e-6 (XLA may fuse the Hopf-Lax products into
+    multiply-adds); the argmin equals JAX's on rows without spilled edges
+    and is a column that attains the min everywhere (JAX keeps the last of
+    several spilled edges, the port the smallest column)."""
+    jres, tres = residual
+    rs = np.random.RandomState(7)
+    d = (rs.rand(1024) * 3).astype(np.float32)
+    f = (rs.rand(1024) + 0.5).astype(np.float32)
+    jm, ja = jps.residual_minplus(jnp.asarray(d), jnp.asarray(f), jres,
+                                  hopf_lax=hopf_lax, track_arg=True,
+                                  recip=recip)
+    m, a = bs.residual_minplus(torch.as_tensor(d), torch.as_tensor(f), tres,
+                               hopf_lax=hopf_lax, track_arg=True,
+                               recip=recip)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), rtol=1e-6)
+    spilled = np.zeros(1024, bool)
+    spilled[np.asarray(jres[4])] = True
+    np.testing.assert_array_equal(a.numpy()[~spilled],
+                                  np.asarray(ja)[~spilled])
+    has = m.numpy() < 1e30
+    assert (spilled & has).any()
+    # the port's argmin attains the min on every row that has one
+    urows, rcols, rvals, sp_r, sp_c, sp_v = (t.numpy() for t in tres)
+    edges = {}
+    for r, cs, vs in zip(urows, rcols, rvals):
+        for c, v in zip(cs, vs):
+            if v > 0:
+                edges.setdefault(r, []).append((c, v))
+    for r, c, v in zip(sp_r, sp_c, sp_v):
+        edges.setdefault(r, []).append((c, v))
+    for r in np.nonzero(has)[0]:
+        ws = [v for c, v in edges[r] if c == a.numpy()[r]]
+        assert ws
+        w = np.float32(1.0) / ws[0] if recip else ws[0]
+        fw = np.float32(w * f[a[r]])
+        cand = (np.float32(0.5) * (fw + np.sqrt(fw * fw + np.float32(4.0)
+                                                * d[a[r]] * d[a[r]]))
+                if hopf_lax else d[a[r]] + w * f[a[r]])
+        assert np.isclose(cand, m.numpy()[r], rtol=1e-6)
+
+
+def test_residual_lip_matches_jax(residual):
+    jres, tres = residual
+    U = np.random.RandomState(8).randn(1024, 3).astype(np.float32)
+    ref = jps.residual_lip(jnp.asarray(U), jres, 1024)
+    out = bs.residual_lip(torch.as_tensor(U), tres, 1024)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]),
+                               rtol=1e-6, atol=1e-6)
+    for a, b in zip(out[1:], ref[1:]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_rect_plan_matches_jax(monkeypatch):
+    """The port's rectangular plan is JAX's on the same ordering and
+    geometry (the cost constant that sets its window growth aligned)."""
+    from graphlearning_tpu.ops import accel as jaccel
+    from graphlearning_tpu_torch.ops import accel
+
+    W, pts = _knn_csr(2000, 10, seed=9)
+    monkeypatch.setattr(accel, "_TILES_R", 256)
+    monkeypatch.setattr(accel, "_TILES_WT", 128)
+    monkeypatch.setattr(jaccel, "_HBM_BPS", accel._HBM_BPS)
+    acc = AccelSpMM(W, device="cpu")
+    jacc = JAccelSpMM(W, R=256, WT=128, max_residual=accel._MAX_RESIDUAL,
+                      interpret=True)
+    np.testing.assert_array_equal(acc._perm_dev.numpy(), jacc.perm)
+    for a, b in zip(acc._rect_plan, jacc._rect_plan):
+        _assert_same(a, b)
+    assert acc.rect_band_bytes() == acc.n_pad * jacc._rect_plan[3] * 8
+
+
+def test_packed_plan_needs_a_padded_size_it_divides(monkeypatch):
+    """With tiles smaller than the packed geometry, n_pad need not be a
+    multiple of it: the accel warns and keeps the unpacked tiles (it
+    raised from the planner before)."""
+    from graphlearning_tpu_torch.ops import accel
+
+    W, _ = _knn_csr(800, 10, seed=3)
+    monkeypatch.setattr(accel, "_TILES_R", 128)
+    monkeypatch.setattr(accel, "_TILES_WT", 128)
+    with pytest.warns(RuntimeWarning, match="packed geometry"):
+        acc = AccelSpMM(W, device="cpu")
+    assert acc.n_pad == 896 and not acc.packed
+    X = np.random.RandomState(5).randn(800, 2)
+    out = acc.from_perm(acc.spmm(acc.to_perm(torch.as_tensor(X)))).numpy()
+    np.testing.assert_allclose(out, W @ X, rtol=1e-10, atol=1e-10)

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K3 of graphlearning_tpu_torch against their plain
-torch twins, on a GPU.
+"""The CUDA kernels K1-K4, K7 and K9 of graphlearning_tpu_torch against
+their plain torch twins, on a GPU.
 
 Every test here needs the card: it carries the ``cuda`` marker and skips
 without one.  The file imports neither JAX nor the JAX package, so it runs
@@ -137,3 +137,132 @@ def test_cuda_accel_spmm_matches_scipy(cuda_device, packed):
     ref = W @ X
     np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=0,
                                atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rect_band_matches_twin(cuda_device, dtype):
+    """K4: exact in f32; in bf16 within one rounding (4e-3 of max|ref|),
+    as K1."""
+    W = _knn_csr(1000, 10, seed=0)
+    perm = np.asarray(reverse_cuthill_mckee(W, symmetric_mode=True))
+    Wp = W[perm][:, perm].tocsr()
+    Wp.resize((1024, 1024))
+    cols, vals, deg = SparseGraph.ell_from_scipy(Wp)
+    winstart, _, _, Wr, kcap = bs.plan_banded(cols, R=128, WT=128, deg=deg,
+                                              kcap_max=32)
+    dev = cuda_device
+    c = torch.as_tensor(cols[:, :kcap], device=dev).contiguous()
+    v = torch.as_tensor(vals[:, :kcap].astype(np.float32),
+                        device=dev).contiguous()
+    ws = torch.as_tensor(winstart, device=dev)
+    n0 = bs.materialize_band.launches
+    out = bs.materialize_band(c, v, ws, Wr, R=128, WT=128, out_dtype=dtype)
+    assert bs.materialize_band.launches == n0 + 1
+    ref = bs._materialize_band_plain(c, v, ws, Wr, 128, dtype)
+    tol = 0 if dtype == torch.float32 else 4e-3 * float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+
+
+def _minplus_case(banded_tiles, dev, dtype):
+    cols, vals, tb, ts, _, R, WT = banded_tiles
+    args = tuple(torch.as_tensor(a, device=dev) for a in (cols, vals, tb, ts))
+    band = bs.materialize_band_tiles(*args, R=R, WT=WT, out_dtype=dtype)
+    plan = bs.TilesPlan.from_tiles(tb, ts, 1024, R, WT, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d = torch.rand(1024, generator=gen, device=dev) * 3
+    d[torch.rand(1024, generator=gen, device=dev) < 0.3] = bs.MINPLUS_BIG
+    f = torch.rand(1024, generator=gen, device=dev) + 0.5
+    return band, plan, d, f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hopf_lax", [False, True])
+@pytest.mark.parametrize("recip", [False, True])
+@pytest.mark.parametrize("track_arg", [False, True])
+def test_cuda_minplus_matches_twin(banded_tiles, cuda_device, dtype,
+                                   hopf_lax, recip, track_arg):
+    """K7: min and argmin identical to the twin (the same f32
+    operations, no contraction)."""
+    band, plan, d, f = _minplus_case(banded_tiles, cuda_device, dtype)
+    n0 = bs.band_tiles_minplus.launches
+    m, arg = bs.band_tiles_minplus(band, plan, d, f, hopf_lax=hopf_lax,
+                                   track_arg=track_arg, recip=recip)
+    assert bs.band_tiles_minplus.launches == n0 + 1
+    rm, rarg = bs._tiles_minplus_plain(band, plan, d, f, hopf_lax,
+                                       track_arg, recip)
+    torch.testing.assert_close(m, rm, rtol=0, atol=0)
+    assert bool((m < bs.MINPLUS_BIG).any()) and bool(
+        (m == bs.MINPLUS_BIG).any())
+    if track_arg:
+        torch.testing.assert_close(arg, rarg, rtol=0, atol=0)
+    else:
+        assert arg is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 2, 3, 10, 32])
+def test_cuda_lip_matches_twin(banded_tiles, cuda_device, dtype, C):
+    """K9: sums within the K2 tolerance of max|ref|, min and max
+    identical."""
+    band, plan, _, _ = _minplus_case(banded_tiles, cuda_device, dtype)
+    U = torch.randn((1024, C), device=cuda_device)
+    n0 = bs.band_tiles_lip.launches
+    out = bs.band_tiles_lip(band, plan, U)
+    assert bs.band_tiles_lip.launches == n0 + 1
+    ref = bs._tiles_lip_plain(band, plan, U)
+    _close(out[0], ref[0], dtype)
+    torch.testing.assert_close(out[1], ref[1], rtol=0, atol=0)
+    torch.testing.assert_close(out[2], ref[2], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_distance_and_lip_wrappers_refuse(banded_tiles, cuda_device):
+    band, plan, d, f = _minplus_case(banded_tiles, cuda_device,
+                                     torch.float32)
+    with pytest.raises(ValueError):          # f64 distances on CUDA
+        bs.band_tiles_minplus(band, plan, d.double(), f.double())
+    with pytest.raises(ValueError):          # too many classes
+        bs.band_tiles_lip(band, plan, torch.zeros((1024, 33),
+                                                  device=cuda_device))
+    with pytest.raises(ValueError):          # U on another device
+        bs.band_tiles_lip(band, plan, torch.zeros((1024, 2)))
+
+
+@pytest.mark.cuda
+def test_cuda_accel_distance_and_lip_take_the_kernels(cuda_device):
+    """bellman_ford runs K1 + K7 and matches the plain Bellman-Ford;
+    lip_gs_mc builds its band with K4; lip_iterate_mc runs K9."""
+    from graphlearning_tpu_torch.solvers import eikonal, plaplace
+
+    W = _knn_csr(9000, 10, seed=1)
+    acc = AccelSpMM(W, device=cuda_device)
+    g = SparseGraph.from_scipy(W, device=cuda_device)
+    seeds = np.random.RandomState(0).choice(9000, 6, replace=False)
+    before = dict(bs.launches())
+    d_b, cp_b = eikonal.dijkstra(g, seeds, return_cp=True, accel=acc)
+    d_p, cp_p = eikonal.dijkstra(g, seeds, return_cp=True)
+    after = bs.launches()
+    assert after["band_tiles_minplus"] > before["band_tiles_minplus"]
+    np.testing.assert_allclose(d_b, d_p, rtol=1e-5, atol=1e-6)
+    assert np.mean(cp_b == cp_p) > 0.999
+    C = 2
+    mask = np.zeros(9000, bool)
+    mask[seeds] = True
+    gv = np.zeros((9000, C))
+    gv[seeds] = np.eye(C)[np.arange(6) % C]
+    u_k9, _ = acc.lip_iterate_mc(np.zeros((9000, C)), mask, gv, 0.0, 1.0,
+                                 0.0, 200)
+    u_pl, _ = plaplace._lip_iterate_mc(
+        g, torch.zeros((9000, C), device=cuda_device),
+        torch.as_tensor(mask, device=cuda_device),
+        torch.as_tensor(gv, dtype=torch.float32, device=cuda_device), 0.0,
+        1.0, 0.0, 200)
+    np.testing.assert_allclose(u_k9.cpu().numpy(), u_pl.cpu().numpy(),
+                               rtol=2e-3, atol=2e-4)
+    assert acc.rect_band_ok()
+    acc.lip_gs_mc(u_pl, mask, gv, 0.0, 1.0, 1e-3, 30)
+    assert bs.launches()["materialize_band"] == after["materialize_band"] + 1
+    assert bs.launches()["band_tiles_lip"] >= after["band_tiles_lip"] + 200

@@ -5,12 +5,18 @@ seed 0), on the CPU.
 
     JAX_PLATFORMS=cpu python3 tools/moons_reference.py            # float64
     JAX_PLATFORMS=cpu python3 tools/moons_reference.py --float32  # JAX only
+    JAX_PLATFORMS=cpu python3 tools/moons_reference.py --float32 amle
 
-In float64 it runs both packages and prints their accuracies and how often
-their predictions agree.  With ``--float32`` it runs the JAX package alone
-with x64 off, the working dtype of both packages on an accelerator: these
-are the reference accuracies that ``chip_smoke.py`` holds the port's GPU
-fits to.  Each run takes a few minutes.
+The fits are ``chip_smoke.FITS``: laplace, poisson (CG and gradient
+descent), graph nearest neighbor, p-Laplace, AMLE and p-eikonal, with the
+smoke's settings; names given on the command line select some.  In
+float64 it runs both packages and prints their accuracies, the port's
+iteration count (rounds or sweeps) and how often their predictions
+agree.  With ``--float32`` it runs the JAX package alone with x64 off,
+the working dtype of both packages on an accelerator: these are the
+reference accuracies that ``chip_smoke.py`` holds the port's GPU fits to.
+JAX takes its plain path here, since its band path runs only on a TPU.
+A run takes several minutes.
 """
 
 import os
@@ -29,22 +35,17 @@ def main(argv):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", x64)
     import graphlearning_tpu as jgl
-    from chip_smoke import two_moons
+    from chip_smoke import FITS, two_moons
 
     X, y = two_moons(65536, 0.1, seed=0)
     ti = jgl.trainsets.generate(y, rate=5, seed=0)
     W = jgl.weightmatrix.knn(X, 10)
-    fits = {
-        "laplace": lambda gl, W, **kw: gl.ssl.laplace(W, **kw),
-        "poisson_cg": lambda gl, W, **kw: gl.ssl.poisson(W, **kw),
-        "poisson_gd": lambda gl, W, **kw: gl.ssl.poisson(
-            W, solver="gradient_descent", **kw),
-    }
+    names = [a for a in argv if not a.startswith("--")]
+    fits = {name: FITS[name] for name in (names or FITS)}
     if not x64:
         for name, make in fits.items():
-            model = make(jgl, W)
-            pj = model.fit_predict(ti, y[ti])
-            print(f"{name}: jax ({model.prob.dtype}) "
+            pj = make(jgl, W).fit_predict(ti, y[ti])
+            print(f"{name}: jax (float32) "
                   f"{jgl.ssl.ssl_accuracy(pj, y, ti):.4f} %", flush=True)
         return
     import torch
@@ -55,9 +56,11 @@ def main(argv):
     Wt = tgl.weightmatrix.knn(X, 10, device="cpu")
     for name, make in fits.items():
         pj = make(jgl, W).fit_predict(ti, y[ti])
-        pt = make(tgl, Wt, device="cpu").fit_predict(ti, y[ti])
+        model = make(tgl, Wt, device="cpu")
+        pt = model.fit_predict(ti, y[ti])
         print(f"{name}: jax {jgl.ssl.ssl_accuracy(pj, y, ti):.4f} %, "
-              f"torch {tgl.ssl.ssl_accuracy(pt, y, ti):.4f} %, "
+              f"torch {tgl.ssl.ssl_accuracy(pt, y, ti):.4f} % "
+              f"({model.iters} iterations), "
               f"agreement {np.mean(pj == pt):.6f}", flush=True)
 
 
