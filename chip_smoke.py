@@ -27,7 +27,14 @@ Phases (any failure exits non-zero before the result line):
    block-Gauss-Seidel sweeps), ``AccelSpMM.lip_iterate_mc`` (K9), each
    held to the plain ELL path; graph nearest neighbor and p-eikonal on the
    plain path (no kernel); then K4, K7 and K9 against their twins at
-   these shapes.
+   these shapes;
+5. the rectangular route: the same graph under ``GLT_NO_BAND=1``
+   (Laplace and Poisson on the unstored band, K6; ``graph.dijkstra`` on
+   the plain path), then ``AccelSpMM(W, materialize=True)`` (K4 band; the
+   masked Laplace solve on K5, the distances on K8), then two moons with
+   n=1310720, over the size gate, where ``maybe_build`` itself takes the
+   unstored band (K6); each fit held to the plain ELL path; then K5, K6
+   and K8 against their twins at these shapes.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -54,6 +61,9 @@ REPLACES = {
     "materialize_band": "graphlearning_tpu/ops/pallas_spmm.py:221",
     "band_tiles_minplus": "graphlearning_tpu/ops/pallas_spmm.py:842",
     "band_tiles_lip": "graphlearning_tpu/ops/pallas_spmm.py:915",
+    "band_spmm": "graphlearning_tpu/ops/pallas_spmm.py:288",
+    "banded_spmm": "graphlearning_tpu/ops/pallas_spmm.py:136",
+    "band_minplus": "graphlearning_tpu/ops/pallas_spmm.py:384",
 }
 CU_FILE = {
     "materialize_band_tiles": SOURCE + "band_tiles_build.cu",
@@ -62,6 +72,9 @@ CU_FILE = {
     "materialize_band": SOURCE + "band_rect_build.cu",
     "band_tiles_minplus": SOURCE + "band_tiles_minplus.cu",
     "band_tiles_lip": SOURCE + "band_tiles_lip.cu",
+    "band_spmm": SOURCE + "band_rect_spmm.cu",
+    "banded_spmm": SOURCE + "band_ell_spmm.cu",
+    "band_minplus": SOURCE + "band_rect_minplus.cu",
 }
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # of max|ref|, per band dtype
 # Iteration caps of the Lipschitz and p-eikonal fits: each fit fails the
@@ -264,32 +277,25 @@ def coo_of(torch, acc):
             as_t(Wp.data, torch.float32))
 
 
-def k7_entry(torch, bs, label, band, plan, d, f, hopf, recip, track,
-             coo=None):
-    """K7 against its twin: min and argmin identical.  ``coo`` gives the
-    yardstick of plain min-plus: one ``addcmul`` forms the candidates of
-    the permuted COO edges (their d and f gathered beforehand) and one
-    ``scatter_reduce(amin)`` reduces them per row, timed together."""
-    run = lambda: bs.band_tiles_minplus(band, plan, d, f, hopf_lax=hopf,
-                                        track_arg=track, recip=recip)
-    plain = lambda: bs._tiles_minplus_plain(band, plan, d, f, hopf, track,
-                                            recip)
+def minplus_entry(torch, bs, name, label, run, plain, band, nbytes, d, f,
+                  hopf, track, coo, shapes):
+    """A min-plus kernel (K7 or K8) against its twin: min and argmin
+    identical.  ``coo`` gives the yardstick of plain min-plus: one
+    ``addcmul`` forms the candidates of the COO edges (their d and f
+    gathered beforehand) and one ``scatter_reduce(amin)`` reduces them per
+    row, timed together."""
     m, a = run()
     torch.cuda.synchronize()
     rm, ra = plain()
     if not torch.equal(m, rm) or (track and not torch.equal(a, ra)):
-        raise SmokeFailure(f"{label}: K7 differs from its twin (min "
+        raise SmokeFailure(f"{label}: {name} differs from its twin (min "
                            f"{float((m - rm).abs().max()):.3e})")
     reached = int((m < bs.MINPLUS_BIG).sum())
     say(f"  {label}: min{' and argmin' if track else ''} identical to the "
         f"twin ({reached} of {m.numel()} rows with a candidate)")
-    dname = str(band.dtype).split(".")[-1]
     nnz_band = int((band != 0).sum())
-    G = int(plan.slab_block.numel())
-    nbytes = (_real_cells(plan) * band.element_size() + G * plan.WT * 8
-              + m.numel() * (8 if track else 4)
-              + (plan.slab_starts.numel() + plan.block_ptr.numel()) * 4)
-    b_ms, b_by = bound(nbytes, nnz_band * (8 if hopf else 3), "float32")
+    b_ms, b_by = bound(nbytes + m.numel() * (8 if track else 4),
+                       nnz_band * (8 if hopf else 3), "float32")
     library = None
     if coo is not None:
         row, col, w = coo
@@ -298,15 +304,33 @@ def k7_entry(torch, bs, label, band, plan, d, f, hopf, recip, track,
         library = lambda: base.scatter_reduce(
             0, row, torch.addcmul(dcol, w, fcol), "amin")
     return report({
-        "name": "band_tiles_minplus", "variant": label, "max_abs_err": 0.0,
+        "name": name, "variant": label, "max_abs_err": 0.0,
         "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(torch, library) if library else None,
-        "library": ("addcmul + scatter_reduce(amin) over the permuted COO "
-                    "edges" if library else None),
-        "shapes": {"band": list(band.shape), "tiles": G, "R": plan.R,
-                   "WT": plan.WT, "band_nnz": nnz_band, "hopf_lax": hopf,
-                   "recip": recip, "track_arg": track, "dtype": dname}})
+        "library": ("addcmul + scatter_reduce(amin) over the COO edges"
+                    if library else None),
+        "shapes": dict(shapes, band=list(band.shape), band_nnz=nnz_band,
+                       track_arg=track,
+                       dtype=str(band.dtype).split(".")[-1])})
+
+
+def k7_entry(torch, bs, label, band, plan, d, f, hopf, recip, track,
+             coo=None):
+    """K7 against its twin (:func:`minplus_entry`); ``coo``: the permuted
+    graph's edges."""
+    G = int(plan.slab_block.numel())
+    nbytes = (_real_cells(plan) * band.element_size() + G * plan.WT * 8
+              + (plan.slab_starts.numel() + plan.block_ptr.numel()) * 4)
+    return minplus_entry(
+        torch, bs, "band_tiles_minplus", label,
+        lambda: bs.band_tiles_minplus(band, plan, d, f, hopf_lax=hopf,
+                                      track_arg=track, recip=recip),
+        lambda: bs._tiles_minplus_plain(band, plan, d, f, hopf, track,
+                                        recip),
+        band, nbytes, d, f, hopf, track, coo,
+        {"tiles": G, "R": plan.R, "WT": plan.WT, "hopf_lax": hopf,
+         "recip": recip})
 
 
 def k9_entry(torch, bs, label, band, plan, U, csr=None):
@@ -577,7 +601,8 @@ def fit_phase(torch, gl, accel, bs):
                 launches_a["materialize_band_tiles"],
                 "band_tiles_spmm_packed": launches_a["band_tiles_spmm_packed"],
                 "band_tiles_spmm": launches_b["band_tiles_spmm"]}
-    return entries, launches, (W, labels, ti)
+    return entries, launches, (W, labels, ti,
+                               {name: pred for name, (pred, _) in plain.items()})
 
 
 def check_accuracy(name, accuracy):
@@ -676,23 +701,9 @@ def distance_phase(torch, gl, accel, bs, W, labels, ti):
             d_p, cp_p = call(G2)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t
-            d_b, cp_b = dist[label]
-            if not (np.array_equal(np.isinf(d_b), np.isinf(d_p))
-                    and np.allclose(d_b, d_p, rtol=1e-5, atol=0)):
-                raise SmokeFailure(f"{label}: band distances differ from "
-                                   "the plain path beyond 1e-5 relative")
-            diff = np.nonzero(cp_b != cp_p)[0]
-            if len(diff):
-                # the two seeds must be equally close
-                seeds = np.unique(np.concatenate([cp_b[diff], cp_p[diff]]))
-                single = {s: call_single(G2, label, s) for s in seeds}
-                db = np.array([single[s][i] for s, i in zip(cp_b[diff], diff)])
-                dp = np.array([single[s][i] for s, i in zip(cp_p[diff], diff)])
-                if not np.allclose(db, dp, rtol=1e-5, atol=0):
-                    raise SmokeFailure(f"{label}: a closest point differs "
-                                       "and is farther")
+            ndiff = check_distances(label, dist[label], (d_p, cp_p), G2)
             say(f"  plain/{label}: {secs:.3f} s; band distances within "
-                f"1e-5 relative, {len(diff)} closest points differ between "
+                f"1e-5 relative, {ndiff} closest points differ between "
                 "equidistant seeds")
         gnn_pred, gnn_acc, m = fit("plain/graph_nn",
                                    lambda: FITS["graph_nn"](gl, W))
@@ -746,6 +757,337 @@ def distance_phase(torch, gl, accel, bs, W, labels, ti):
                                               "band_tiles_lip")}
 
 
+def window_coo(torch, acc):
+    """Rows, columns and weights of the in-window edges of ``acc``'s
+    rectangular plan (its first kcap slots whose column lies in the row's
+    window), row-major on the card: the yardsticks' inputs."""
+    p = acc.plan
+    cols = acc.g.cols[:, :p.kcap].long()
+    vals = acc.g.vals[:, :p.kcap].float()
+    lo = torch.repeat_interleave(p.winstart.long(), p.R)[:, None]
+    keep = (cols >= lo) & (cols < lo + p.W) & (vals != 0)
+    rows = torch.arange(p.n, device=cols.device)[:, None].expand_as(cols)
+    return rows[keep], cols[keep], vals[keep]
+
+
+def window_csr(torch, acc):
+    """The in-window edges of ``acc``'s plan as a torch CSR on the card."""
+    row, col, val = window_coo(torch, acc)
+    n = acc.plan.n
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=row.device)
+    crow[1:] = torch.cumsum(torch.bincount(row, minlength=n), 0)
+    return torch.sparse_csr_tensor(crow, col, val, size=(n, n))
+
+
+def k5_entry(torch, bs, label, band, plan, X, csr=None):
+    """K5 against its twin, within TOL of max|ref|; ``csr`` (the in-window
+    edges) gives the ``torch.sparse.mm`` yardstick."""
+    run = lambda: bs.band_spmm(band, plan, X)
+    plain = lambda: bs._rect_spmm_plain(band, plan, X)
+    out = run()
+    torch.cuda.synchronize()
+    dname = str(band.dtype).split(".")[-1]
+    err = compare(label, out, plain(), TOL[dname])
+    nnz_band = int((band != 0).sum())
+    d = X.shape[1]
+    nblocks = plan.n // plan.R
+    nbytes = (band.numel() * band.element_size()
+              + nblocks * plan.W * d * X.element_size() + out.numel() * 4
+              + nblocks * 4)
+    b_ms, b_by = bound(nbytes, 2 * nnz_band * d, dname)
+    return report({
+        "name": "band_spmm", "variant": label, "max_abs_err": err,
+        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": (time_ms(torch, lambda: torch.sparse.mm(csr, X))
+                       if csr is not None else None),
+        "library": ("torch.sparse.mm, in-window CSR" if csr is not None
+                    else None),
+        "shapes": {"band": list(band.shape), "X": list(X.shape),
+                   "R": plan.R, "W": plan.W, "band_nnz": nnz_band,
+                   "dtype": dname}})
+
+
+def k6_entry(torch, bs, label, cols, vals, plan, X, csr=None):
+    """K6 against its twin, within TOL of max|ref|; ``csr`` as for K5.
+    The bound counts the slots read once, X read once and ``out``."""
+    run = lambda: bs.banded_spmm(cols, vals, plan, X)
+    plain = lambda: bs._banded_spmm_plain(cols, vals, plan, X)
+    out = run()
+    torch.cuda.synchronize()
+    dname = str(vals.dtype).split(".")[-1]
+    err = compare(label, out, plain(), TOL[dname])
+    lo = torch.repeat_interleave(plan.winstart.long(), plan.R)[:, None]
+    slots = int(((cols >= lo) & (cols < lo + plan.W) & (vals != 0)).sum())
+    d = X.shape[1]
+    nbytes = (cols.numel() * 4 + vals.numel() * vals.element_size()
+              + X.numel() * X.element_size() + out.numel() * 4
+              + plan.winstart.numel() * 4)
+    b_ms, b_by = bound(nbytes, 2 * slots * d, dname)
+    return report({
+        "name": "banded_spmm", "variant": label, "max_abs_err": err,
+        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": (time_ms(torch, lambda: torch.sparse.mm(csr, X))
+                       if csr is not None else None),
+        "library": ("torch.sparse.mm, in-window CSR" if csr is not None
+                    else None),
+        "shapes": {"ell": list(cols.shape), "X": list(X.shape),
+                   "R": plan.R, "W": plan.W, "in_window_slots": slots,
+                   "dtype": dname}})
+
+
+def k8_entry(torch, bs, label, band, plan, d, f, hopf, recip, track,
+             coo=None):
+    """K8 against its twin (:func:`minplus_entry`); ``coo``: the
+    in-window edges."""
+    nblocks = plan.n // plan.R
+    nbytes = (band.numel() * band.element_size() + nblocks * plan.W * 8
+              + nblocks * 4)
+    return minplus_entry(
+        torch, bs, "band_minplus", label,
+        lambda: bs.band_minplus(band, plan, d, f, hopf_lax=hopf,
+                                track_arg=track, recip=recip),
+        lambda: bs._rect_minplus_plain(band, plan, d, f, hopf, track,
+                                       recip),
+        band, nbytes, d, f, hopf, track, coo,
+        {"R": plan.R, "W": plan.W, "hopf_lax": hopf, "recip": recip})
+
+
+def rect_phase(torch, gl, accel, bs, W, labels, ti, plain_pred):
+    """Phase 5, the rectangular route (counts from 0 around its three
+    steps), then K5, K6 and K8 against their twins at its shapes."""
+    from graphlearning_tpu_torch import ssl as tssl
+    from graphlearning_tpu_torch.solvers import eikonal, plaplace
+
+    say("== the rectangular route: the same moons graph, GLT_NO_BAND=1")
+    fit = fitter(torch, gl, labels, ti)
+    n = W.shape[0]
+    bs.reset_launches()
+    with env("GLT_NO_BAND", "1"):
+        t = time.perf_counter()
+        acc_b = accel.maybe_build(W, device="cuda")
+        if acc_b is None or not isinstance(acc_b.plan, bs.BandedPlan):
+            raise SmokeFailure(f"GLT_NO_BAND: expected a BandedPlan, got "
+                               f"{acc_b and type(acc_b.plan).__name__}")
+        say(f"  band plan (BandedPlan, host): {time.perf_counter() - t:.2f}"
+            f" s; n_pad {acc_b.n_pad}, W {acc_b.plan.W}, kcap "
+            f"{acc_b.plan.kcap}, {acc_b.n_resid} residual edges")
+        for name in ("laplace", "poisson_cg"):
+            pred, accuracy, m = fit(f"banded/{name}",
+                                    lambda name=name: FITS[name](gl, W))
+            if m._accel_cache is not acc_b:
+                raise SmokeFailure(f"banded/{name} did not take the "
+                                   "BandedPlan")
+            check_accuracy(name, accuracy)
+            check_agreement(f"banded/{name}", pred, plain_pred[name], 0.99)
+        step1 = bs.launches()
+        say(f"  launches: {step1}")
+        if step1["banded_spmm"] < 1 or step1["band_spmm"] \
+                or step1["band_minplus"]:
+            raise SmokeFailure(f"the BandedPlan fits did not run on K6 "
+                               f"alone: {step1}")
+        G = gl.graph(W)
+        t = time.perf_counter()
+        d_g, cp_g = G.dijkstra(ti, bdy_val=0, return_cp=True)
+        secs = time.perf_counter() - t
+        after = bs.launches()
+        if (after["band_tiles_minplus"] != step1["band_tiles_minplus"]
+                or after["band_minplus"] != step1["band_minplus"]):
+            raise SmokeFailure("graph.dijkstra on a BandedPlan graph "
+                               f"launched a min-plus kernel: {after}")
+        d_p, cp_p = eikonal.dijkstra(G.sparse, ti, bdy_val=0,
+                                     return_cp=True)
+        if not (np.array_equal(d_g, d_p) and np.array_equal(cp_g, cp_p)):
+            raise SmokeFailure("graph.dijkstra on a BandedPlan graph is "
+                               "not the plain path's")
+        say(f"  graph.dijkstra: plain path, {secs:.3f} s, no K7 or K8 "
+            "launch")
+
+        say("== AccelSpMM(W, materialize=True) under GLT_NO_BAND=1")
+        t = time.perf_counter()
+        acc_r = accel.AccelSpMM(W, device="cuda", materialize=True)
+        if not isinstance(acc_r.plan, bs.RectPlan):
+            raise SmokeFailure("materialize=True did not give a RectPlan")
+        say(f"  band plan (RectPlan, host): {time.perf_counter() - t:.2f} s;"
+            f" W {acc_r.plan.W}, band {acc_r.band_bytes:.4g} B, "
+            f"{acc_r.n_resid} residual edges")
+        g = G.sparse
+        mask = np.zeros(n, bool)
+        mask[ti] = True
+        bdy = np.zeros((n, 2))
+        bdy[ti] = np.eye(2)[labels[ti]]
+        tol = FITS["laplace"](gl, W).tol
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        u_r, iters = plaplace._laplace_init(acc_r, g, mask, bdy, tol=tol)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                         device="cuda")
+        u_p, iters_p = tssl._laplace_constrained(
+            g, as_t(np.zeros(n)), torch.as_tensor(mask, device="cuda"),
+            as_t(bdy), tol)
+        rel = float((u_r - u_p).abs().max() / u_p.abs().max())
+        say(f"  laplace_constrained on K5: {iters} iterations, {secs:.3f} "
+            f"s (plain {iters_p}); max|u - u_plain| / max|u_plain| "
+            f"{rel:.3e}")
+        check_agreement("rect/laplace_constrained",
+                        u_r.argmax(1).cpu().numpy(),
+                        u_p.argmax(1).cpu().numpy(), 0.99)
+        G2 = gl.graph(W)
+        with env("GLT_NO_ACCEL", "1"):
+            for label in ("dijkstra", "dijkstra_recip", "dijkstra_hl"):
+                recip = {"reciprocal_weights": True} \
+                    if label == "dijkstra_recip" else {}
+                solve = (eikonal.dijkstra_hl if label == "dijkstra_hl"
+                         else eikonal.dijkstra)
+                n8 = bs.band_minplus.launches
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = solve(g, ti, bdy_val=0, return_cp=True, accel=acc_r,
+                            **recip)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+                if bs.band_minplus.launches == n8:
+                    raise SmokeFailure(f"rect/{label} did not launch K8")
+                ndiff = check_distances(
+                    label, res, solve(g, ti, bdy_val=0, return_cp=True,
+                                      **recip), G2)
+                say(f"  rect/{label}: {secs:.3f} s, "
+                    f"{bs.band_minplus.launches - n8} K8 launches; within "
+                    f"1e-5 relative of the plain path, {ndiff} closest "
+                    "points differ between equidistant seeds")
+        step2 = bs.launches()
+        for name in ("materialize_band", "band_spmm", "band_minplus"):
+            if step2[name] < 1:
+                raise SmokeFailure(f"the RectPlan did not launch {name}: "
+                                   f"{step2}")
+
+    say("== two moons, n=1310720 (noise 0.1, k=10, 5 labels/class), no "
+        "knob")
+    X, y_big = two_moons(1310720, 0.1, seed=0)
+    t = time.perf_counter()
+    W_big = gl.weightmatrix.knn(X, 10)
+    say(f"  knn (host cKDTree): {time.perf_counter() - t:.2f} s, nnz "
+        f"{W_big.nnz}")
+    ti_big = gl.trainsets.generate(y_big, rate=5, seed=0)
+    t = time.perf_counter()
+    acc_big = accel.maybe_build(W_big, device="cuda")
+    if acc_big is None or not isinstance(acc_big.plan, bs.BandedPlan):
+        raise SmokeFailure(f"n=1310720: maybe_build gave "
+                           f"{acc_big and type(acc_big.plan).__name__}, "
+                           "not a BandedPlan")
+    say(f"  maybe_build (host): {time.perf_counter() - t:.2f} s; "
+        f"BandedPlan, n_pad {acc_big.n_pad}, W {acc_big.plan.W}, kcap "
+        f"{acc_big.plan.kcap}, {acc_big.n_resid} residual edges "
+        f"(n * 5120 * 4 = {1310720 * 5120 * 4:.4g} B over the budget of "
+        f"{acc_big._budget:.4g} B)")
+    fit_big = fitter(torch, gl, y_big, ti_big)
+    before = bs.launches()
+    big = {name: fit_big(f"banded/{name}",
+                         lambda name=name: FITS[name](gl, W_big))
+           for name in ("laplace", "poisson_cg")}
+    launches = bs.launches()
+    if (launches["banded_spmm"] == before["banded_spmm"]
+            or launches["band_spmm"] != before["band_spmm"]
+            or launches["band_minplus"] != before["band_minplus"]):
+        raise SmokeFailure(f"the n=1310720 fits did not run on K6 alone: "
+                           f"{before} -> {launches}")
+    say(f"  launches on the rectangular route: {launches}")
+    with env("GLT_NO_ACCEL", "1"):
+        for name, (pred, accuracy, _) in big.items():
+            ref, ref_acc, _ = fit_big(f"plain/{name}",
+                                      lambda name=name: FITS[name](gl, W_big))
+            check_agreement(f"banded/{name} (n=1310720)", pred, ref, 0.99)
+            if abs(accuracy - ref_acc) > ACCURACY_MARGIN:
+                raise SmokeFailure(f"{name} (n=1310720): accuracy "
+                                   f"{accuracy:.4f} % against the plain "
+                                   f"path's {ref_acc:.4f} %")
+    # the whole matvec (kernel plus residual) beside the plain ELL gather,
+    # after the launch counts of the path were read
+    from graphlearning_tpu_torch.ops import graphops
+    Xa = torch.randn((acc_b.n_pad, 2), device="cuda")
+    for a, tag in ((acc_b, "BandedPlan (K6)"), (acc_r, "RectPlan (K5)")):
+        ms = time_ms(torch, lambda a=a: a.spmm(Xa))
+        say(f"  whole matvec, d=2, n=65536, {tag} + residual: {ms:.4f} ms")
+    ms = time_ms(torch, lambda: graphops.spmm(acc_b.g, Xa))
+    say(f"  whole matvec, d=2, n=65536, plain ELL gather: {ms:.4f} ms")
+    Xa = torch.randn((acc_big.n_pad, 2), device="cuda")
+    ms = time_ms(torch, lambda: acc_big.spmm(Xa))
+    say(f"  whole matvec, d=2, n=1310720, K6 + residual: {ms:.4f} ms")
+    ms = time_ms(torch, lambda: graphops.spmm(acc_big.g, Xa))
+    say(f"  whole matvec, d=2, n=1310720, plain ELL gather: {ms:.4f} ms")
+    del X, Xa
+
+    say("== K5, K6, K8 at the shapes of the rectangular route")
+    entries = []
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    csr_r = window_csr(torch, acc_r)
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        band = acc_r.band() if dt == torch.float32 else acc_r.build_band(dt)
+        Xd = torch.randn((acc_r.n_pad, 2), generator=gen, device="cuda")
+        entries.append(k5_entry(
+            torch, bs, f"rect/laplace/{dname}/d=2", band, acc_r.plan,
+            Xd.to(dt), csr_r if dt == torch.float32 else None))
+        d_p = acc_r.to_perm(torch.as_tensor(
+            np.minimum(d_g, 1e30), dtype=torch.float32, device="cuda"),
+            fill=bs.MINPLUS_BIG)
+        f_p = acc_r.to_perm(torch.ones(n, device="cuda"))
+        coo = window_coo(torch, acc_r) if dt == torch.float32 else None
+        for hopf in (False, True):
+            for recip in (False, True):
+                for track in (False, True):
+                    tag = ("hopf_lax" if hopf else "plain") \
+                        + ("/recip" if recip else "") \
+                        + ("/arg" if track else "")
+                    entries.append(k8_entry(
+                        torch, bs, f"rect/{dname}/{tag}", band, acc_r.plan,
+                        d_p, f_p, hopf, recip, track,
+                        coo if not (hopf or recip) else None))
+        del band
+        torch.cuda.empty_cache()
+    del csr_r
+    for a, tag in ((acc_b, "n=65536"), (acc_big, "n=1310720")):
+        csr = window_csr(torch, a)
+        for dt, ds in ((torch.float32, (2, 3)), (torch.bfloat16, (2,))):
+            dname = str(dt).split(".")[-1]
+            cols, vals = a.ell_operands()
+            vals = vals.to(dt)
+            for d in ds:
+                Xd = torch.randn((a.n_pad, d), generator=gen, device="cuda")
+                entries.append(k6_entry(
+                    torch, bs, f"banded/{tag}/{dname}/d={d}", cols, vals,
+                    a.plan, Xd.to(dt),
+                    csr if dt == torch.float32 else None))
+        del csr
+        torch.cuda.empty_cache()
+    return entries, {k: launches[k] for k in ("band_spmm", "banded_spmm",
+                                              "band_minplus")}
+
+
+def check_distances(label, band, plain, G_plain):
+    """Distances within 1e-5 relative of the plain path's, unreached alike;
+    where the closest points differ, the two seeds are equally close.
+    Returns the number of closest points that differ."""
+    (d_b, cp_b), (d_p, cp_p) = band, plain
+    if not (np.array_equal(np.isinf(d_b), np.isinf(d_p))
+            and np.allclose(d_b, d_p, rtol=1e-5, atol=0)):
+        raise SmokeFailure(f"{label}: band distances differ from the plain "
+                           "path beyond 1e-5 relative")
+    diff = np.nonzero(cp_b != cp_p)[0]
+    if len(diff):
+        seeds = np.unique(np.concatenate([cp_b[diff], cp_p[diff]]))
+        single = {s: call_single(G_plain, label, s) for s in seeds}
+        db = np.array([single[s][i] for s, i in zip(cp_b[diff], diff)])
+        dp = np.array([single[s][i] for s, i in zip(cp_p[diff], diff)])
+        if not np.allclose(db, dp, rtol=1e-5, atol=0):
+            raise SmokeFailure(f"{label}: a closest point differs and is "
+                               "farther")
+    return len(diff)
+
+
 def call_single(G, label, seed):
     """Distances from one seed by the variant ``label`` of the calls."""
     if label == "dijkstra_hl":
@@ -778,11 +1120,15 @@ def main():
                 say(f"  {name}: {line.strip()}")
 
     entries = kernel_phase(torch, accel, bs)
-    fit_entries, launches, (W, labels, ti) = fit_phase(torch, gl, accel, bs)
+    fit_entries, launches, (W, labels, ti, plain_pred) = fit_phase(
+        torch, gl, accel, bs)
     dist_entries, dist_launches = distance_phase(torch, gl, accel, bs, W,
                                                  labels, ti)
     launches.update(dist_launches)
-    entries = fit_entries + dist_entries + entries
+    rect_entries, rect_launches = rect_phase(torch, gl, accel, bs, W, labels,
+                                             ti, plain_pred)
+    launches.update(rect_launches)
+    entries = fit_entries + dist_entries + rect_entries + entries
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["route"] = "cuda"

@@ -41,6 +41,15 @@ SIGNATURES = {
     "band_tiles_lip": (
         "glt_tiles_lip",
         [_P, _I, _I, _I, _P, _P, _L, _P, _I, _P, _P, _P, _P]),
+    "band_rect_spmm": (
+        "glt_rect_spmm",
+        [_P, _I, _I, _I, _P, _L, _P, _I, _P, _P]),
+    "band_ell_spmm": (
+        "glt_ell_spmm",
+        [_P, _P, _I, _I, _P, _L, _I, _I, _P, _I, _P, _P]),
+    "band_rect_minplus": (
+        "glt_rect_minplus",
+        [_P, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 _loaded: dict = {}

@@ -7,31 +7,45 @@ prefers), plans the compact tiled band, and exposes ``spmm`` in the
 permuted, padded space plus the ``to_perm`` / ``from_perm`` index maps.
 The solvers run entirely in permuted space.
 
-The matvec plan is explicit: a :class:`~band_spmm.PackedPlan` (kernel K2,
-the default) or a :class:`~band_spmm.TilesPlan` (kernel K3, taken when the
-packed plan is switched off by ``GLT_NO_PACKED`` or does not fit the band
-budget).  The band is built once by K1.
+The matvec plan is explicit, one of four, and dispatch goes by its type.
+On the tiled band (intended unless ``materialize=False``, ``GLT_NO_BAND``
+is set, or the graph is over the size gate, as in the JAX package):
+
+* a :class:`~band_spmm.PackedPlan` (kernel K2, the default) or a
+  :class:`~band_spmm.TilesPlan` (kernel K3, taken when the packed plan is
+  switched off by ``GLT_NO_PACKED`` or does not fit the band budget); the
+  band is built once by K1.
+
+Off it, on the rectangular route (RCM order only, the JAX package's
+non-band geometry):
+
+* a :class:`~band_spmm.RectPlan` with ``materialize=True``: the stored
+  ``(n_pad, Wr)`` band, built by K4, the matvec K5;
+* a :class:`~band_spmm.BandedPlan` otherwise: no stored band, the matvec
+  K6 straight from the ELL slots.
 
 The distance and Lipschitz solvers stream other layouts:
 
-* :meth:`AccelSpMM.bellman_ford` (K7) and :meth:`AccelSpMM.lip_iterate_mc`
-  (K9) the unpacked tiles band, which K1 builds lazily from the
-  :class:`~band_spmm.TilesPlan` when the matvec plan is packed;
+* :meth:`AccelSpMM.bellman_ford` K8 over a ``RectPlan``'s band, else K7
+  over the unpacked tiles band, which K1 builds lazily from the
+  :class:`~band_spmm.TilesPlan` when the matvec plan is packed; a
+  ``BandedPlan`` has none (``materialize`` is False) and the solvers take
+  the plain path;
+* :meth:`AccelSpMM.lip_iterate_mc` (K9) the unpacked tiles band only;
 * :meth:`AccelSpMM.lip_gs_mc` the rectangular ``(n_pad, Wr)`` band of the
-  ``plan_banded`` plan, which K4 builds lazily.
+  ``plan_banded`` plan, which K4 builds lazily (a ``RectPlan``'s own band).
 
 Departures from the JAX package:
 
-* No rectangular-band matvec route (its kernels K5, K6 and K8 are not
-  ported yet): where JAX would take it, :func:`maybe_build` returns None
-  and says so.
 * No gather fallback for band-hostile graphs yet (``ops/gather.py`` of the
   JAX package): :func:`maybe_build` returns None and the fit runs the
   plain ELL path on the same device.
 * Failures are not swallowed: a plan that cannot be used is reported.
 * One band budget covers every band resident together: the packed and the
   unpacked tiles, and in :meth:`AccelSpMM.rect_band_ok` the rectangular
-  band beside them (JAX budgets each band on its own).
+  band beside them (JAX budgets each band on its own).  A ``RectPlan``
+  whose band is over the budget raises :class:`BandPlanUnavailable`; JAX
+  allocates it all the same.
 * The JAX modes f32 and bf16x3 are both exact f32 here (FFMA); ``bf16``
   keeps a bf16 band and bf16 X with f32 sums.
 
@@ -66,6 +80,12 @@ _KCAP_MAX = 32          # ELL slots the band covers (hub tails -> residual)
 _TILES_R, _TILES_WT = 512, 1024
 _PACKED_R, _PACKED_WT, _PACKED_S = 256, 128, 12
 _MAX_RESIDUAL = 0.002
+# PLACEHOLDERS until the torch bench (P8) tunes them on the H100: the
+# geometry of the rectangular route, the JAX package's non-band defaults
+# (its _tuned_defaults(exact, band=False) and best_exact of
+# scripts/spmm_tuned.json).
+_RECT_R, _RECT_WT = 256, 512
+_RECT_MAX_RESIDUAL = 0.05
 
 # Cost model.  _HBM_BPS is the H100 SXM device memory rate (NVIDIA H100
 # data sheet).  The rest are PLACEHOLDERS carried over from the JAX
@@ -89,8 +109,7 @@ def _band_budget_bytes(device) -> float:
 
 
 class BandPlanUnavailable(ValueError):
-    """The graph has no tiled-band plan within the budget (the JAX package
-    would take the rectangular band, which is not ported)."""
+    """The band the plan would store does not fit the band budget."""
 
 
 def enabled(device) -> bool:
@@ -210,11 +229,17 @@ class AccelSpMM:
 
     ``mode``: "f32" (exact f32) or "bf16" (bf16 band and X, f32 sums).
     ``packed``: use the packed-slab plan (K2); None reads
-    ``GLT_NO_PACKED``.  Raises :class:`BandPlanUnavailable` when the graph
-    has no tiled band within the budget."""
+    ``GLT_NO_PACKED``.  ``materialize``, as in the JAX package: the tiled
+    band is intended unless it is False, ``GLT_NO_BAND`` is set or the
+    graph is over the size gate (``n * 5120 * 4`` bytes over the budget);
+    off the tiled band, True stores the rectangular band
+    (:class:`~band_spmm.RectPlan`) and None or False stores none
+    (:class:`~band_spmm.BandedPlan`).  Raises
+    :class:`BandPlanUnavailable` when the stored band does not fit the
+    budget."""
 
     def __init__(self, W, mode: str = "f32", packed: bool | None = None,
-                 device=None):
+                 device=None, materialize: bool | None = None):
         from scipy.sparse.csgraph import reverse_cuthill_mckee
 
         if mode not in ("f32", "bf16"):
@@ -222,7 +247,6 @@ class AccelSpMM:
         dev = config.device(device)
         self.device = dev
         self.mode = mode
-        self.R, self.WT = _TILES_R, _TILES_WT
         if packed is None:
             packed = not os.environ.get("GLT_NO_PACKED")
         self._val_dtype = config.float_dtype(dev)
@@ -238,46 +262,66 @@ class AccelSpMM:
         self.n = n
         self.nnz = int(W.nnz)
         budget = _band_budget_bytes(dev)
-        if n * 5120 * 4 > budget:
-            raise BandPlanUnavailable(
-                f"n={n}: a band this size exceeds the budget of "
-                f"{budget:.3g} B; the JAX package would take the "
-                "unmaterialized rectangular band (K6), not ported")
+        self._budget = budget
+        band_intent = (materialize is not False
+                       and not os.environ.get("GLT_NO_BAND")
+                       and n * 5120 * 4 <= budget)
+        if band_intent:
+            self.R, self.WT, max_residual = _TILES_R, _TILES_WT, _MAX_RESIDUAL
+        else:
+            self.R, self.WT = _RECT_R, _RECT_WT
+            max_residual = _RECT_MAX_RESIDUAL
         block = max(self.R, self.WT)
         perm_rcm = np.asarray(reverse_cuthill_mckee(W, symmetric_mode=True))
         inv_rcm = np.argsort(perm_rcm)
 
         def assemble(order, pos, n_raw):
             """Padded permuted ELL (host) + rectangular plan + the cost of
-            streaming its occupied tiles."""
+            streaming its occupied tiles (the tiled band only)."""
             n_pad = ((n_raw + block - 1) // block) * block
             Psel = sp.csr_matrix((np.ones(n), (pos, order)), shape=(n_pad, n))
             Wp = (Psel @ W @ Psel.T).tocsr()
             cols_np, vals_np, deg_np = SparseGraph.ell_from_scipy(Wp)
-            gain = int(n_pad * self.WT * 4 / _HBM_BPS / _RESID_NS)
+            if band_intent or materialize:
+                # a stored band streams n_pad * WT more cells for each WT
+                # of window: grow it while a WT absorbs more residual
+                # edges than that stream costs
+                gain = int(n_pad * self.WT * 4 / _HBM_BPS / _RESID_NS)
+            else:
+                # K6 reads each row's kcap slots once, whatever the window,
+                # and X through L2: one more WT of window moves no more
+                # device-memory bytes, so it costs nothing to weigh
+                # against the residual edges it absorbs.  The window grows
+                # until the residual is under max_residual.
+                gain = 0
             plan = _bs.plan_banded(
-                cols_np, R=self.R, WT=self.WT, max_residual=_MAX_RESIDUAL,
+                cols_np, R=self.R, WT=self.WT, max_residual=max_residual,
                 deg=deg_np, kcap_max=_KCAP_MAX, gain_per_tile=gain)
-            coo = Wp.tocoo()
-            _, counts = np.unique(
-                (coo.row // self.R).astype(np.int64)
-                * (n_pad // self.WT + 1) + coo.col // self.WT,
-                return_counts=True)
-            tile_c = (self.R * self.WT * bytes_per
-                      + self.WT * _D_EST * 4) / _HBM_BPS
-            cost = float(np.minimum(tile_c, counts * _RESID_NS).sum())
+            cost = 0.0
+            if band_intent:
+                coo = Wp.tocoo()
+                _, counts = np.unique(
+                    (coo.row // self.R).astype(np.int64)
+                    * (n_pad // self.WT + 1) + coo.col // self.WT,
+                    return_counts=True)
+                tile_c = (self.R * self.WT * bytes_per
+                          + self.WT * _D_EST * 4) / _HBM_BPS
+                cost = float(np.minimum(tile_c, counts * _RESID_NS).sum())
             return (cols_np, vals_np, deg_np), plan, n_pad, cost
 
         order, pos = perm_rcm, np.arange(n)
         cand = assemble(order, pos, n)
-        if (pts is not None and np.ndim(pts) == 2 and pts.shape[0] == n
-                and pts.shape[1] in (2, 3) and n >= 8192):
+        # off the tiled band only RCM is tried, as in the JAX package
+        if (band_intent and pts is not None and np.ndim(pts) == 2
+                and pts.shape[0] == n and pts.shape[1] in (2, 3)
+                and n >= 8192):
             order_h = (hilbert_order_2d(pts) if pts.shape[1] == 2
                        else morton_order_3d(pts))
             cand_h = assemble(order_h, np.arange(n), n)
             if cand_h[3] < cand[3]:
                 cand, order = cand_h, order_h
-        if n >= 8192 and len(cand[1][1]) / max(1, self.nnz) > 0.02:
+        if (band_intent and n >= 8192
+                and len(cand[1][1]) / max(1, self.nnz) > 0.02):
             order2, pos2, n_raw2 = _cluster_order(W, self.R, inv_rcm)
             cand2 = assemble(order2, pos2, n_raw2)
             if cand2[3] < cand[3]:
@@ -287,14 +331,58 @@ class AccelSpMM:
                                          dtype=self._val_dtype, device=dev)
         vals_host = vals_np.astype(np.float64 if self._val_dtype
                                    == torch.float64 else np.float32)
-        self._budget = budget
-        # the rectangular plan (winstart, rrows, rslots, Wr, kcap) of the
-        # block-Gauss-Seidel sweeps, and its residual edges
+        # the rectangular plan (winstart, rrows, rslots, Wr, kcap): the
+        # block-Gauss-Seidel sweeps' band beside the tiles, the matvec
+        # plan off them; and its residual edges
         self._rect_plan = rect_plan
         self._rect_resid_host = _bs.build_residual_ell(
             rect_plan[1], rect_plan[2], cols_np, vals_host, self.n_pad)
         self._rect = None
+        self._band = None
+        self._tiles_band = None
+        self._ell = None
+        if band_intent:
+            self._plan_tiles(cols_np, deg_np, vals_host, bytes_per, packed)
+        else:
+            self._plan_window(materialize)
+        self.materialize = not isinstance(self.plan, _bs.BandedPlan)
 
+        # original node order[i] lives at padded row pos[i]
+        perm_ext = np.full(self.n_pad, -1, np.int64)
+        perm_ext[pos] = order
+        pos_of = np.empty(n, np.int64)
+        pos_of[order] = pos
+        self._perm_dev = torch.as_tensor(perm_ext, device=dev)
+        self._inv_dev = torch.as_tensor(pos_of, device=dev)
+
+    def _plan_window(self, materialize):
+        """The rectangular route: a :class:`~band_spmm.RectPlan` (K4 band,
+        K5, K8) with ``materialize``, else a :class:`~band_spmm.BandedPlan`
+        (K6)."""
+        winstart, rrows, _, Wr, kcap = self._rect_plan
+        resid = _bs.residual_to_device(self._rect_resid_host, self.device,
+                                       self._val_dtype)
+        cls = _bs.RectPlan if materialize else _bs.BandedPlan
+        self.plan = cls.from_numpy(winstart, self.n_pad, self.R, self.WT, Wr,
+                                   kcap, self.device, resid=resid)
+        self._resid = resid
+        self.n_resid = len(rrows)
+        self.tiles_plan = self._tiles_resid = None
+        self._build_args = self._tiles_build_args = None
+        self.band_bytes = self.matvec_band_bytes = (
+            self.rect_band_bytes() if materialize else 0)
+        if self.band_bytes > self._budget:
+            # the JAX package allocates it all the same
+            raise BandPlanUnavailable(
+                f"rectangular band of {self.band_bytes:.3g} B (n_pad="
+                f"{self.n_pad}, W={Wr}) exceeds the band budget of "
+                f"{self._budget:.3g} B")
+
+    def _plan_tiles(self, cols_np, deg_np, vals_host, bytes_per, packed):
+        """The tiled band: the packed slabs (K2) or the unpacked tiles
+        (K3) for the matvec, the unpacked tiles for the distance and
+        Lipschitz kernels, one budget for all of them."""
+        dev, budget = self.device, self._budget
         tb, ts, _, rrows, rslots, kcap = _bs.plan_tiles(
             cols_np, R=self.R, WT=self.WT, deg=deg_np, kcap_max=_KCAP_MAX,
             min_edges_per_tile=_min_edges_per_tile(self.R, self.WT),
@@ -354,15 +442,6 @@ class AccelSpMM:
             self._build_args = self._tiles_build_args
             self._resid = self._tiles_resid
 
-        # original node order[i] lives at padded row pos[i]
-        perm_ext = np.full(self.n_pad, -1, np.int64)
-        perm_ext[pos] = order
-        pos_of = np.empty(n, np.int64)
-        pos_of[order] = pos
-        self._perm_dev = torch.as_tensor(perm_ext, device=dev)
-        self._inv_dev = torch.as_tensor(pos_of, device=dev)
-        self._band = None
-
     @property
     def packed(self) -> bool:
         return isinstance(self.plan, _bs.PackedPlan)
@@ -371,6 +450,8 @@ class AccelSpMM:
         """K1's arguments for the matvec plan's tiles (the unpacked tiles
         of the distance kernels with ``tiles``):
         ``(cols, vals, tile_block, tile_start, R, WT)``."""
+        if self.tiles_plan is None:
+            raise ValueError(f"a {type(self.plan).__name__} has no tiles")
         tb, ts, kcap, R, WT, _ = (self._tiles_build_args if tiles
                                   else self._build_args)
         dev = self.device
@@ -381,8 +462,16 @@ class AccelSpMM:
 
     def build_band(self, dtype, tiles: bool = False):
         """The band of the matvec plan (the unpacked tiles with ``tiles``)
-        in ``dtype``: K1, then the re-layout into slabs for the packed
-        plan."""
+        in ``dtype``: K4 for a rectangular plan; K1, then the re-layout into
+        slabs for the packed plan."""
+        plan = self.plan
+        if not tiles and isinstance(plan, _bs.BandedPlan):
+            raise ValueError("a BandedPlan stores no band")
+        if not tiles and isinstance(plan, _bs.RectPlan):
+            return _bs.materialize_band(
+                self.g.cols[:, :plan.kcap].contiguous(),
+                self.g.vals[:, :plan.kcap].contiguous(), plan.winstart,
+                plan.W, R=plan.R, WT=plan.WT, out_dtype=dtype)
         cols, vals, tb, ts, R, WT = self.band_inputs(tiles)
         band = _bs.materialize_band_tiles(cols, vals, tb, ts, R=R, WT=WT,
                                           out_dtype=dtype)
@@ -399,11 +488,23 @@ class AccelSpMM:
         """The unpacked tiles band of the distance and Lipschitz kernels:
         the matvec band itself under the unpacked plan, else built by K1 on
         first use (the budget admitted both at planning)."""
+        if self.tiles_plan is None:
+            raise ValueError(f"a {type(self.plan).__name__} has no tiles "
+                             "band")
         if not self.packed:
             return self.band()
         if self._tiles_band is None:
             self._tiles_band = self.build_band(self.band_dtype, tiles=True)
         return self._tiles_band
+
+    def ell_operands(self):
+        """K6's operands for a :class:`~band_spmm.BandedPlan`: the first
+        ``kcap`` ELL slots, the values in the band's dtype (built once)."""
+        if self._ell is None:
+            k = self.plan.kcap
+            self._ell = (self.g.cols[:, :k].contiguous(),
+                         self.g.vals[:, :k].to(self.band_dtype).contiguous())
+        return self._ell
 
     # -- index maps (one gather each, outside the solver loop) ------------
 
@@ -421,14 +522,18 @@ class AccelSpMM:
     # -- the matvec ----------------------------------------------------------
 
     def spmm(self, Xp):
-        """``Wp @ Xp`` in permuted padded space: the band kernel of the
-        plan plus the residual edges."""
-        band = self.band()
+        """``Wp @ Xp`` in permuted padded space: the kernel of the plan
+        (K2, K3, K5 or K6) plus the residual edges."""
+        plan = self.plan
         Xk = Xp.to(torch.bfloat16) if self.mode == "bf16" else Xp
-        if isinstance(self.plan, _bs.PackedPlan):
-            out = _bs.band_tiles_spmm_packed(band, self.plan, Xk)
+        if isinstance(plan, _bs.BandedPlan):
+            out = _bs.banded_spmm(*self.ell_operands(), plan, Xk)
+        elif isinstance(plan, _bs.RectPlan):
+            out = _bs.band_spmm(self.band(), plan, Xk)
+        elif isinstance(plan, _bs.PackedPlan):
+            out = _bs.band_tiles_spmm_packed(self.band(), plan, Xk)
         else:
-            out = _bs.band_tiles_spmm(band, self.plan, Xk)
+            out = _bs.band_tiles_spmm(self.band(), plan, Xk)
         out = _bs.apply_residual(out, Xp, self._resid)
         return out.to(Xp.dtype)
 
@@ -500,16 +605,25 @@ class AccelSpMM:
         return U[:, :kcls], T
 
 
-    # -- distance rounds on the unpacked tiles (K7) -----------------------
+    # -- distance rounds on the unpacked tiles (K7) or the rectangular band
+    # (K8) ------------------------------------------------------------------
 
     def _minplus(self, d, f, hopf_lax, recip, track):
-        """One relaxation round: K7 over the tiles plus the residual
-        edges.  Returns ``(min, arg)`` in permuted space."""
-        bmin, barg = _bs.band_tiles_minplus(
-            self.tiles_band(), self.tiles_plan, d, f, hopf_lax=hopf_lax,
-            track_arg=track, recip=recip)
-        if self._tiles_resid is not None:
-            rmin, rarg = _bs.residual_minplus(d, f, self._tiles_resid,
+        """One relaxation round: K8 over a rectangular plan's band, else K7
+        over the tiles, plus the residual edges.  Returns ``(min, arg)`` in
+        permuted space."""
+        if isinstance(self.plan, _bs.RectPlan):
+            resid = self.plan.resid
+            bmin, barg = _bs.band_minplus(
+                self.band(), self.plan, d, f, hopf_lax=hopf_lax,
+                track_arg=track, recip=recip)
+        else:
+            resid = self._tiles_resid
+            bmin, barg = _bs.band_tiles_minplus(
+                self.tiles_band(), self.tiles_plan, d, f, hopf_lax=hopf_lax,
+                track_arg=track, recip=recip)
+        if resid is not None:
+            rmin, rarg = _bs.residual_minplus(d, f, resid,
                                               hopf_lax=hopf_lax,
                                               track_arg=track, recip=recip)
             if track:
@@ -520,13 +634,17 @@ class AccelSpMM:
     def bellman_ford(self, d0, f, hopf_lax: bool = False,
                      recip: bool = False, max_iter: int = 10**6):
         """Distance iteration to the Dijkstra (or Hopf-Lax) fixed point on
-        the tiles band, then each node's closest seed: the parents of the
-        shortest-path tree at the fixed point, followed to the root by
-        pointer doubling.  ``d0`` holds the seeds' values and
-        ``_bs.MINPLUS_BIG`` elsewhere; every speed ``f`` must be positive
-        (a zero edge cost would make the parents ambiguous).  Takes and
-        returns original-order arrays: ``(d, cp, rounds)``, with ``cp``
-        -1 where unreached."""
+        the stored band (the tiles, or a rectangular plan's band), then
+        each node's closest seed: the parents of the shortest-path tree at
+        the fixed point, followed to the root by pointer doubling.  ``d0``
+        holds the seeds' values and ``_bs.MINPLUS_BIG`` elsewhere; every
+        speed ``f`` must be positive (a zero edge cost would make the
+        parents ambiguous).  Takes and returns original-order arrays:
+        ``(d, cp, rounds)``, with ``cp`` -1 where unreached.  Needs
+        ``materialize``: a :class:`~band_spmm.BandedPlan` stores no band."""
+        if not self.materialize:
+            raise ValueError("bellman_ford needs a stored band: this "
+                             "graph's plan is a BandedPlan")
         dev, dt = self.device, self._val_dtype
         big = _bs.MINPLUS_BIG
         d0_p = self.to_perm(torch.as_tensor(d0, device=dev).to(dt), fill=big)
@@ -572,7 +690,10 @@ class AccelSpMM:
         alpha avg + beta (min + max)/2`` on the tiles band: K9 gives the
         three reductions of a round in one band pass.  Original-order
         (n, C) in and out, C <= 32 on CUDA; the period-2 stop and the
-        21-round minimum of the plain iteration.  Returns ``(u, rounds)``."""
+        21-round minimum of the plain iteration.  Returns ``(u, rounds)``.
+        Needs the tiled band, as in the JAX package."""
+        if self.tiles_plan is None:
+            raise ValueError("lip_iterate_mc requires the tiled band")
         u0_p, bdy_p, gv_p, inv_wsum = self._lip_inputs(u0, bdy_mask, gvals)
         band, resid = self.tiles_band(), self._tiles_resid
 
@@ -600,7 +721,10 @@ class AccelSpMM:
     def rect_band_ok(self) -> bool:
         """Whether the rectangular band fits the band budget beside the
         bands resident with it: the matvec band (the harmonic warm start
-        runs on it first) and the unpacked tiles band once built."""
+        runs on it first) and the unpacked tiles band once built.  A
+        rectangular plan's matvec band is this band."""
+        if isinstance(self.plan, _bs.RectPlan):
+            return self.rect_band_bytes() <= self._budget
         resident = self.matvec_band_bytes
         if self.packed and self._tiles_band is not None:
             resident += self.band_bytes
@@ -615,6 +739,12 @@ class AccelSpMM:
                     f"rectangular band of {self.rect_band_bytes():.3g} B does "
                     f"not fit the band budget of {self._budget:.3g} B beside "
                     "the resident bands: callers gate on rect_band_ok()")
+            plan = self.plan
+            if isinstance(plan, _bs.RectPlan):
+                # the matvec band is the rectangular band: no second copy
+                self._rect = (self.band(), plan.winstart_host.tolist(),
+                              plan.resid, plan.W)
+                return self._rect
             winstart, _, _, Wr, kcap = self._rect_plan
             dev = self.device
             ws = torch.as_tensor(winstart, device=dev)
@@ -687,9 +817,21 @@ class AccelSpMM:
 
 
 def _hybrid_estimate(acc: AccelSpMM) -> float:
-    """Steady-state seconds of one band SpMM: stream the stored band plus
-    gather the residual edges."""
-    return acc.band_bytes / _HBM_BPS + acc.n_resid * _GATHER_NS
+    """Steady-state seconds of one band SpMM: stream the stored band (for
+    a :class:`~band_spmm.BandedPlan`, K6 reads the ``kcap`` ELL slots, an
+    int32 column and a value each, once instead) plus gather the residual
+    edges."""
+    stream = acc.band_bytes
+    if isinstance(acc.plan, _bs.BandedPlan):
+        stream = acc.n_pad * acc.plan.kcap * (
+            4 + torch.finfo(acc.band_dtype).bits // 8)
+    return stream / _HBM_BPS + acc.n_resid * _GATHER_NS
+
+
+_PLAN_NAMES = {_bs.PackedPlan: "packed tiles (K2)",
+               _bs.TilesPlan: "unpacked tiles (K3)",
+               _bs.RectPlan: "stored rectangular band (K5)",
+               _bs.BandedPlan: "unstored rectangular band (K6)"}
 
 
 class _Disabled:
@@ -703,7 +845,9 @@ def maybe_build(W, cache_obj=None, attr="_accel_cache", device=None, **kw):
     """An :class:`AccelSpMM` for ``W`` when the band path applies and its
     cost model predicts a gain over the plain gather; None otherwise, with
     the reason logged.  The result is memoized on ``cache_obj`` and on the
-    ``W`` object (repeated fits on one graph skip the host build)."""
+    ``W`` object (repeated fits on one graph skip the host build), keyed
+    by the band configuration, ``materialize`` and ``GLT_NO_BAND``
+    included."""
     dev = config.device(device)
     n = W.shape[0]
     if not enabled(dev):
@@ -716,20 +860,27 @@ def maybe_build(W, cache_obj=None, attr="_accel_cache", device=None, **kw):
     if kw.get("packed") is None:
         kw["packed"] = not os.environ.get("GLT_NO_PACKED")
     kw.setdefault("mode", "f32")      # one cache entry per band config
+    kw.setdefault("materialize", None)
+    gkey = ((str(dev), bool(os.environ.get("GLT_NO_BAND")))
+            + tuple(sorted(kw.items())))
+
+    def hit(cached):
+        return (cached is not None and getattr(cached, "cache_key", None)
+                == gkey and cached.n == n and cached.nnz == W.nnz)
+
     if cache_obj is not None:
         cached = getattr(cache_obj, attr, None)
-        if cached is not None and cached.n == n and cached.nnz == W.nnz:
+        if hit(cached):
             return None if isinstance(cached, _Disabled) else cached
-    gkey = (str(dev),) + tuple(sorted(kw.items()))
     gcache = getattr(W, "_gltt_accel_cache", None)
-    if isinstance(gcache, dict):
-        cached = gcache.get(gkey)
-        if cached is not None and cached.n == n and cached.nnz == W.nnz:
-            if cache_obj is not None:
-                setattr(cache_obj, attr, cached)
-            return None if isinstance(cached, _Disabled) else cached
+    if isinstance(gcache, dict) and hit(gcache.get(gkey)):
+        cached = gcache[gkey]
+        if cache_obj is not None:
+            setattr(cache_obj, attr, cached)
+        return None if isinstance(cached, _Disabled) else cached
 
     def keep(value):
+        value.cache_key = gkey
         if cache_obj is not None:
             setattr(cache_obj, attr, value)
         if not isinstance(getattr(W, "_gltt_accel_cache", None), dict):
@@ -750,8 +901,7 @@ def maybe_build(W, cache_obj=None, attr="_accel_cache", device=None, **kw):
         log.info("plain ELL path: the band cost model predicts no gain")
         return keep(_Disabled(n, int(W.nnz)))
     log.info("band path: %s plan, n_pad=%d, %d residual edges",
-             "packed (K2)" if acc.packed else "unpacked (K3)", acc.n_pad,
-             acc.n_resid)
+             _PLAN_NAMES[type(acc.plan)], acc.n_pad, acc.n_resid)
     return keep(acc)
 
 

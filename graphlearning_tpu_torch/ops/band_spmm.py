@@ -1,6 +1,7 @@
-"""Compact tiled band SpMM: host planners, device glue and kernels K1-K3.
+"""Band SpMM: host planners, device glue, explicit plans and kernels K1-K9.
 
-Counterpart of the tiled-band part of ``graphlearning_tpu/ops/pallas_spmm.py``.
+Counterpart of ``graphlearning_tpu/ops/pallas_spmm.py`` (all but its
+int8 bench kernels).
 A kNN graph in a locality-preserving order has, per block of ``R`` rows,
 its edges inside a few ``WT``-column windows ("tiles").  The band stores
 each kept tile as a dense ``(R, WT)`` block; an SpMM then streams the band
@@ -25,7 +26,11 @@ Kernels (CUDA C++ for sm_90a in ``graphlearning_tpu_torch/csrc``):
 * K7 :func:`band_tiles_minplus` -- one min-plus (Bellman-Ford or
   Hopf-Lax) relaxation round over the unpacked tiles;
 * K9 :func:`band_tiles_lip` -- the weighted sum, min and max of C class
-  columns over each row's band neighbors, one Lipschitz round.
+  columns over each row's band neighbors, one Lipschitz round;
+* K5 :func:`band_spmm` and K8 :func:`band_minplus` -- the matvec and the
+  min-plus round over the stored rectangular band of a :class:`RectPlan`;
+* K6 :func:`banded_spmm` -- the matvec of a :class:`BandedPlan`, straight
+  from the ELL slots, with no stored band.
 
 The residual edges of the distance and Lipschitz rounds go through
 :func:`residual_minplus` and :func:`residual_lip` (plain torch; XLA in
@@ -392,6 +397,48 @@ class PackedPlan(_SlabPlan):
         ntiles = (np.asarray(slab_src) >= 0).sum(axis=1)
         return cls.from_numpy(slab_block, slab_starts, ntiles, n, R, WT,
                               device)
+
+
+@dataclass(frozen=True)
+class _WindowPlan:
+    """Device-side plan of a rectangular band (:func:`plan_banded`): row
+    block ``b`` of ``R`` rows reads the ``W`` columns ``winstart[b] + [0,
+    W)`` of its first ``kcap`` ELL slots; ``resid`` (from
+    :func:`residual_to_device`, or None) holds every other edge."""
+
+    winstart: torch.Tensor     # (n // R,) int32, on the device
+    winstart_host: np.ndarray
+    n: int           # rows
+    x_rows: int      # least number of X rows the plan reads
+    R: int
+    WT: int
+    W: int
+    kcap: int
+    resid: tuple | None
+
+    @classmethod
+    def from_numpy(cls, winstart, n: int, R: int, WT: int, W: int,
+                   kcap: int, device, resid=None):
+        winstart = np.ascontiguousarray(winstart, np.int32)
+        if n % R or W % WT or winstart.shape != (n // R,):
+            raise ValueError(f"rows {n} must be a multiple of R={R}, W={W} "
+                             f"of WT={WT}, and winstart "
+                             f"{winstart.shape} one per row block")
+        if winstart.size and winstart.min() < 0:
+            raise ValueError("negative window start")
+        x_rows = int(winstart.max()) + W if winstart.size else 0
+        return cls(torch.as_tensor(winstart, device=torch.device(device)),
+                   winstart, int(n), x_rows, int(R), int(WT), int(W),
+                   int(kcap), resid)
+
+
+class RectPlan(_WindowPlan):
+    """A stored ``(n, W)`` band, built by K4: the matvec is K5 and the
+    distance rounds are K8."""
+
+
+class BandedPlan(_WindowPlan):
+    """No stored band: the matvec is K6, straight from the capped ELL."""
 
 
 # -- kernels ------------------------------------------------------------------
@@ -967,6 +1014,242 @@ def residual_lip(U, resid, n: int):
     return sum_add, min_r, max_r
 
 
+# -- the rectangular route: K5, K6 and K8 ---------------------------------------
+
+
+def _block_chunks(plan: _WindowPlan, per_block: int):
+    """Row-block ranges ``[b0, b1)`` of a twin's chunks, at most
+    ``_TWIN_CELLS`` elements each when a block costs ``per_block``."""
+    nb = plan.n // plan.R
+    step = max(1, _TWIN_CELLS // max(1, per_block))
+    return [(b0, min(nb, b0 + step)) for b0 in range(0, nb, step)]
+
+
+def _window_index(plan: _WindowPlan, b0: int, b1: int):
+    """(b1 - b0, W) absolute columns of the windows of blocks b0..b1-1."""
+    return (plan.winstart[b0:b1, None].long()
+            + torch.arange(plan.W, device=plan.winstart.device))
+
+
+def _rect_spmm_plain(band, plan: RectPlan, X):
+    """Plain twin of K5: each row block's (R, W) slice of the band times
+    its X window.  Exact products in f32 (f64 for an f64 band) for an f32
+    or a bf16 band."""
+    acc = torch.float64 if band.dtype == torch.float64 else torch.float32
+    R, W = plan.R, plan.W
+    d = X.shape[1]
+    X = X.to(acc)
+    out = []
+    for b0, b1 in _block_chunks(plan, R * W + W * d):
+        A = band[b0 * R:b1 * R].to(acc).reshape(b1 - b0, R, W)
+        out.append(torch.bmm(A, X[_window_index(plan, b0, b1)]))
+    if not out:
+        return torch.zeros((0, d), dtype=acc, device=band.device)
+    return torch.cat(out).reshape(plan.n, d)
+
+
+def band_spmm(band, plan: RectPlan, X):
+    """K5: ``out = rectangular band @ X``, row block ``b`` against the X
+    rows ``winstart[b] + [0, W)``; ``out`` is (plan.n, d) float32 (f64 for
+    the CPU twin on an f64 band).
+
+    Replaces ``graphlearning_tpu/ops/pallas_spmm.py:277`` ``band_spmm``
+    (kernel ``_band_matmul_kernel``, :240).  On the H100 it is bound by the
+    band's bytes at small d (it streams every cell, zero or not) and by f32
+    FMA issue at d near 128.  K3's CTA: 128 threads own 128 rows of one
+    block and up to 32 columns of d, walk the block's window in 32-column
+    steps with the band chunk and the X window rows staged in shared
+    memory, and accumulate in registers with FFMA; each output is written
+    once, so the TPU's zeroing step is implicit.  d is not padded to the
+    TPU's 128 lanes.  Modes as K2: an f32 band with f32 X computes exact
+    f32 (the TPU's f32 and bf16x3); a bf16 band with bf16 X multiplies
+    exactly and sums in f32."""
+    if not isinstance(plan, RectPlan):
+        raise TypeError("band_spmm takes a RectPlan")
+    if _dispatch_device("band_spmm", band, X, plan.winstart) == "cpu":
+        return _rect_spmm_plain(band, plan, X)
+    dev = band.device
+    name = "band_spmm"
+    _require_cuda(name, dev, band=band, X=X, winstart=plan.winstart)
+    _require(band.dtype in _CUDA_BAND_DTYPES and X.dtype == band.dtype,
+             f"{name}: band {band.dtype} and X {X.dtype} must both be "
+             "float32 or both bfloat16 on CUDA")
+    _require(band.shape == (plan.n, plan.W),
+             f"{name}: band {tuple(band.shape)} does not match the plan "
+             f"({plan.n}, {plan.W})")
+    _require(X.dim() == 2 and X.shape[1] >= 1 and X.shape[0] >= plan.x_rows,
+             f"{name}: X {tuple(X.shape)} needs >= {plan.x_rows} rows")
+    _require(plan.R % _ROWS_PER_CTA == 0 and plan.W % _COLS_PER_STEP == 0,
+             f"{name}: the kernel takes R a multiple of {_ROWS_PER_CTA} and "
+             f"W a multiple of {_COLS_PER_STEP}")
+    out = torch.empty((plan.n, X.shape[1]), dtype=torch.float32, device=dev)
+    lib = _build.load("band_rect_spmm")
+    rc = lib.glt_rect_spmm(
+        _ptr(band), int(band.dtype == torch.bfloat16), int(plan.W),
+        int(plan.R), _ptr(plan.winstart), int(plan.n // plan.R), _ptr(X),
+        int(X.shape[1]), _ptr(out), _stream(band))
+    if rc:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+    band_spmm.launches += 1
+    return out
+
+
+band_spmm.launches = 0
+
+
+def _banded_spmm_plain(cols, vals, plan: BandedPlan, X):
+    """Plain twin of K6: each row's in-window slots times the X rows they
+    name, summed in f32 (f64 for f64 values)."""
+    acc = torch.float64 if vals.dtype == torch.float64 else torch.float32
+    lo = torch.repeat_interleave(plan.winstart.long(), plan.R)[:, None]
+    c = cols.long()
+    w = torch.where((c >= lo) & (c < lo + plan.W), vals.to(acc), 0.0)
+    return torch.einsum("nk,nkd->nd", w, X.to(acc)[c])
+
+
+def banded_spmm(cols, vals, plan: BandedPlan, X):
+    """K6: the rectangular band's product with no stored band: ``out[i] =
+    sum_j vals[i, j] X[cols[i, j]]`` over the slots whose column lies in
+    row ``i``'s window ``winstart[i // R] + [0, W)``.  ``cols``/``vals``
+    are the first ``kcap`` ELL slots, ``(n, kcap)``; ``out`` is (plan.n,
+    d) float32 (f64 for the CPU twin on f64 values).
+
+    Replaces ``graphlearning_tpu/ops/pallas_spmm.py:109`` ``banded_spmm``
+    (kernel ``_banded_kernel``, :53).  On the H100 it is bound by bytes:
+    the slots read once and ``out`` written once, with X's rows through
+    L2.  The TPU kernel rebuilt a dense (R, WT) block per window tile by k
+    compare/select passes for its matrix unit (work n * W * k); here one
+    thread owns one (row, column of d) and sums the row's in-window slots
+    in slot order with FFMA (work n * k * d, whatever the window's
+    width).  Modes: f32 values with f32 X (the TPU's f32 and bf16x3), or
+    bf16 values with bf16 X, products exact in f32 and f32 sums."""
+    if not isinstance(plan, BandedPlan):
+        raise TypeError("banded_spmm takes a BandedPlan")
+    if _dispatch_device("banded_spmm", cols, vals, X, plan.winstart) == "cpu":
+        return _banded_spmm_plain(cols, vals, plan, X)
+    dev = cols.device
+    name = "banded_spmm"
+    _require_cuda(name, dev, cols=cols, vals=vals, X=X,
+                  winstart=plan.winstart)
+    _require(cols.dtype == torch.int32, f"{name}: cols must be int32")
+    _require(vals.dtype in _CUDA_BAND_DTYPES and X.dtype == vals.dtype,
+             f"{name}: vals {vals.dtype} and X {X.dtype} must both be "
+             "float32 or both bfloat16 on CUDA")
+    _require(cols.dim() == 2 and cols.shape == vals.shape
+             and cols.shape[0] == plan.n,
+             f"{name}: cols {tuple(cols.shape)} / vals "
+             f"{tuple(vals.shape)} must be ({plan.n}, k)")
+    _require(X.dim() == 2 and X.shape[1] >= 1 and X.shape[0] >= plan.x_rows,
+             f"{name}: X {tuple(X.shape)} needs >= {plan.x_rows} rows")
+    out = torch.empty((plan.n, X.shape[1]), dtype=torch.float32, device=dev)
+    lib = _build.load("band_ell_spmm")
+    rc = lib.glt_ell_spmm(
+        _ptr(cols), _ptr(vals), int(vals.dtype == torch.bfloat16),
+        int(cols.shape[1]), _ptr(plan.winstart), int(plan.n), int(plan.R),
+        int(plan.W), _ptr(X), int(X.shape[1]), _ptr(out), _stream(cols))
+    if rc:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+    banded_spmm.launches += 1
+    return out
+
+
+banded_spmm.launches = 0
+
+
+def _rect_minplus_plain(band, plan: RectPlan, d, f, hopf_lax: bool,
+                        track_arg: bool, recip: bool):
+    """Plain twin of K8, in f32 (f64 for an f64 band): per row the least
+    candidate over its window's cells, ``MINPLUS_BIG`` where none is
+    smaller; with ``track_arg`` the smallest column among the least
+    candidates, else -1."""
+    acc = torch.float64 if band.dtype == torch.float64 else torch.float32
+    R, W = plan.R, plan.W
+    d, f = d.to(acc), f.to(acc)
+    ms, args = [], []
+    for b0, b1 in _block_chunks(plan, R * W):
+        idx = _window_index(plan, b0, b1)
+        A = band[b0 * R:b1 * R].to(acc).reshape(b1 - b0, R, W)
+        cand = _minplus_cand(A, d[idx][:, None, :], f[idx][:, None, :],
+                             hopf_lax, recip)
+        m = torch.amin(cand, dim=2)
+        ms.append(m)
+        if track_arg:
+            hit = cand == m[:, :, None]
+            a = torch.amin(torch.where(hit, idx[:, None, :].to(torch.int32),
+                                       _NO_ARG), dim=2)
+            args.append(torch.where(m < MINPLUS_BIG, a, -1))
+    dev = band.device
+    if not ms:
+        return (torch.zeros((0,), dtype=acc, device=dev),
+                torch.zeros((0,), dtype=torch.int32, device=dev)
+                if track_arg else None)
+    m = torch.cat(ms).reshape(-1)
+    return m, (torch.cat(args).reshape(-1) if track_arg else None)
+
+
+def band_minplus(band, plan: RectPlan, d, f, hopf_lax: bool = False,
+                 track_arg: bool = False, recip: bool = False):
+    """K8: one min-plus relaxation round over the rectangular band: per row
+    the least of ``d[c] + A f[c]`` (or the Hopf-Lax ``(f A + sqrt((f A)^2
+    + 4 d[c]^2)) / 2``) over its window's cells ``c`` with ``A > 0``;
+    ``recip`` uses ``1/A`` for ``A``.  Returns ``(min, arg)``: ``min``
+    (plan.n,) float32 (f64 for the CPU twin on an f64 band),
+    ``MINPLUS_BIG`` where no candidate is smaller; ``arg`` (plan.n,) int32,
+    the smallest column among the least candidates, or -1, and None
+    without ``track_arg``.
+
+    Replaces ``graphlearning_tpu/ops/pallas_spmm.py:369`` ``band_minplus``
+    (kernel ``_band_minplus_kernel``, :320).  On the H100 it is bound by
+    the band's bytes (a few flops per cell).  K7's CTA: 8 warps own 64 rows
+    of one block and walk its window in ``WT``-column chunks with that
+    chunk of ``d`` and ``f`` in shared memory; a warp reads each band row
+    coalesced and reduces (min, column) with shuffles, the smaller column
+    on ties, and a later chunk wins only when strictly smaller: the
+    column JAX's smallest lane and strict ``<`` across tiles give.  The
+    candidates use the same f32 operations as the twin, rounded to nearest
+    without contraction, so the two agree exactly.  The argmin comes back
+    as int32, not the TPU's float-coded lane, and the output is (n,), not
+    the TPU's 128 lanes."""
+    if not isinstance(plan, RectPlan):
+        raise TypeError("band_minplus takes a RectPlan")
+    if _dispatch_device("band_minplus", band, d, f, plan.winstart) == "cpu":
+        return _rect_minplus_plain(band, plan, d, f, hopf_lax, track_arg,
+                                   recip)
+    dev = band.device
+    name = "band_minplus"
+    _require_cuda(name, dev, band=band, d=d, f=f, winstart=plan.winstart)
+    _require(band.dtype in _CUDA_BAND_DTYPES,
+             f"{name}: band must be float32 or bfloat16 on CUDA")
+    _require(d.dtype == torch.float32 and f.dtype == torch.float32,
+             f"{name}: d and f must be float32 on CUDA")
+    _require(band.shape == (plan.n, plan.W),
+             f"{name}: band {tuple(band.shape)} does not match the plan "
+             f"({plan.n}, {plan.W})")
+    _require(d.dim() == 1 and d.shape == f.shape
+             and d.shape[0] >= plan.x_rows,
+             f"{name}: d and f must be (>= {plan.x_rows},)")
+    _require(plan.R % _MINPLUS_ROWS == 0 and plan.WT * 8 <= 48 * 1024,
+             f"{name}: the kernel takes R a multiple of {_MINPLUS_ROWS} and "
+             "WT <= 6144")
+    out = torch.empty((plan.n,), dtype=torch.float32, device=dev)
+    arg = (torch.empty((plan.n,), dtype=torch.int32, device=dev)
+           if track_arg else None)
+    lib = _build.load("band_rect_minplus")
+    rc = lib.glt_rect_minplus(
+        _ptr(band), int(band.dtype == torch.bfloat16), int(plan.W),
+        int(plan.R), int(plan.WT), _ptr(plan.winstart),
+        int(plan.n // plan.R), _ptr(d), _ptr(f), _ptr(out),
+        _ptr(arg) if track_arg else ctypes.c_void_p(0), int(hopf_lax),
+        int(recip), int(track_arg), _stream(band))
+    if rc:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+    band_minplus.launches += 1
+    return out, arg
+
+
+band_minplus.launches = 0
+
+
 # name -> wrapper, for launch accounting
 KERNELS = {
     "materialize_band_tiles": materialize_band_tiles,
@@ -975,6 +1258,9 @@ KERNELS = {
     "materialize_band": materialize_band,
     "band_tiles_minplus": band_tiles_minplus,
     "band_tiles_lip": band_tiles_lip,
+    "band_spmm": band_spmm,
+    "banded_spmm": banded_spmm,
+    "band_minplus": band_minplus,
 }
 
 

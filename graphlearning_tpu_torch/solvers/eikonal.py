@@ -115,7 +115,8 @@ def _distance(g, bdy_set, bdy_val, f, max_dist, return_cp,
     bdy_set, bdy_val_arr = _boundary_handling(
         bdy_set, 0 if bdy_val is None else bdy_val)
     f_np = _speed(f, n)
-    if accel is not None and np.all(f_np > 0):
+    # the band rounds need a stored band (not a BandedPlan's)
+    if accel is not None and accel.materialize and np.all(f_np > 0):
         d0 = np.full((n,), MINPLUS_BIG)
         d0[bdy_set] = bdy_val_arr
         d, cp, rounds = accel.bellman_ford(
@@ -150,7 +151,8 @@ def dijkstra(g: SparseGraph, bdy_set, bdy_val=None, f=1, max_dist=np.inf,
     d(x, x_i)`` with edge cost ``w_ij f`` (``f / w_ij`` with
     ``reciprocal_weights``).  Nodes farther than ``max_dist`` get ``inf``
     (cp = -1).  ``accel`` (an :class:`AccelSpMM`) runs the relaxation on
-    the band when every speed is positive.  ``info``, a dict, receives the
+    its stored band when it has one (``accel.materialize``) and every
+    speed is positive.  ``info``, a dict, receives the
     rounds run and the path taken."""
     return _distance(g, bdy_set, bdy_val, f, max_dist, return_cp,
                      reciprocal_weights, max_iter, accel, False, info)

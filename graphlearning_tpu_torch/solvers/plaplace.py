@@ -348,7 +348,8 @@ def _band_lip(accel, g, bdy_mask, gvals, alpha, beta, tol, max_num_it, info):
 
 
 def _use_band(accel, C: int) -> bool:
-    return accel is not None and C <= 32 and accel.rect_band_ok()
+    return (accel is not None and accel.materialize and C <= 32
+            and accel.rect_band_ok())
 
 
 def plaplace_mc(g: SparseGraph, bdy_set, bdy_vals, p, max_num_it=10**6,

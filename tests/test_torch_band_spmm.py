@@ -1,7 +1,7 @@
 """The band SpMM of graphlearning_tpu_torch against graphlearning_tpu.
 
 Host planners must give identical arrays.  The plain torch twins of the
-kernels K1-K3 are held against the Pallas kernels in interpret mode; the
+kernels K1-K9 are held against the Pallas kernels in interpret mode; the
 CUDA kernels are held against the twins in ``test_torch_cuda_kernels.py``.
 """
 
@@ -264,12 +264,56 @@ def _minplus_inputs(banded_ell, dtype):
     return band, plan, (tb, ts, bf), d, f
 
 
+def _cand64(A, d, f, hopf_lax, recip):
+    """One relaxation candidate in f64 from f32 inputs."""
+    A = 1.0 / np.float64(A) if recip else np.float64(A)
+    fw = A * np.float64(f)
+    if hopf_lax:
+        return 0.5 * (fw + np.sqrt(fw * fw + 4.0 * np.float64(d) ** 2))
+    return np.float64(d) + fw
+
+
+def _assert_minplus_matches_jax(m, arg, ref_min, ref_arg, dense, d, f,
+                                hopf_lax, recip, rtol=1e-6):
+    """The port's min-plus round against JAX's on the CPU, tie-tolerant:
+    the min within ``rtol``; -1 where JAX finds no candidate; and where the
+    port's argmin differs from JAX's, the candidate at the port's column,
+    computed in f64 from the same band value ``dense[row, col]``, ``d`` and
+    ``f``, equals JAX's row minimum within ``rtol``.  The two frameworks
+    round the Hopf-Lax candidate in their own ways (XLA:CPU may contract
+    or vectorise it), so a near-tie between two columns may fall either
+    way; the exact argmin is held between kernel and twin on the card
+    (``test_torch_cuda_kernels.py``, ``chip_smoke.py``)."""
+    m, arg = m.numpy(), arg.numpy()
+    np.testing.assert_allclose(m, ref_min, rtol=rtol)
+    has = ref_min < 1e30
+    assert has.any() and (~has).any()
+    assert np.all(arg[~has] == -1)
+    ref_arg = np.where(has, ref_arg, -1).astype(np.int32)
+    for r in np.nonzero(has & (arg != ref_arg))[0]:
+        c = arg[r]
+        assert dense[r, c] > 0, (r, c)
+        np.testing.assert_allclose(
+            _cand64(dense[r, c], d[c], f[c], hopf_lax, recip), ref_min[r],
+            rtol=rtol, err_msg=f"row {r}: column {c} against {ref_arg[r]}")
+
+
+def _tiles_dense(band, tb, ts, n, R, WT):
+    """The (n, n) matrix of a tiles band's values."""
+    dense = np.zeros((n, n), np.float32)
+    tiles = band.float().numpy().reshape(-1, R, WT)
+    for g, (b, s) in enumerate(zip(tb, ts)):
+        dense[b * R:(b + 1) * R, s:s + WT] = tiles[g]
+    return dense
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hopf_lax,recip", [(False, False), (True, False),
                                             (False, True), (True, True)])
 def test_k7_twin_matches_pallas(banded_ell, dtype, hopf_lax, recip):
-    """Min within 1e-6 (relative), argmin identical where a candidate
-    exists; -1 where none (JAX carries a float-coded sentinel there)."""
+    """Min within 1e-6 (relative), argmin tie-tolerant
+    (:func:`_assert_minplus_matches_jax`) where a candidate exists; -1
+    where none (JAX carries a float-coded sentinel there)."""
     band, plan, (tb, ts, bf), d, f = _minplus_inputs(banded_ell, dtype)
     jband = jnp.asarray(band.float().numpy()).astype(
         jnp.float32 if dtype == torch.float32 else jnp.bfloat16)
@@ -281,12 +325,10 @@ def test_k7_twin_matches_pallas(banded_ell, dtype, hopf_lax, recip):
                                    torch.as_tensor(f), hopf_lax=hopf_lax,
                                    track_arg=True, recip=recip)
     assert m.dtype == torch.float32 and arg.dtype == torch.int32
-    np.testing.assert_allclose(m.numpy(), ref[:, 0], rtol=1e-6)
     has = ref[:, 0] < 1e30
-    assert has.any() and (~has).any()
-    np.testing.assert_array_equal(arg.numpy()[has],
-                                  ref[has, 1].astype(np.int32))
-    assert np.all(arg.numpy()[~has] == -1)
+    _assert_minplus_matches_jax(
+        m, arg, ref[:, 0], np.where(has, ref[:, 1], -1),
+        _tiles_dense(band, tb, ts, 1024, 128, 128), d, f, hopf_lax, recip)
     m2, none = bs.band_tiles_minplus(band, plan, torch.as_tensor(d),
                                      torch.as_tensor(f), hopf_lax=hopf_lax,
                                      recip=recip)
@@ -415,3 +457,129 @@ def test_packed_plan_needs_a_padded_size_it_divides(monkeypatch):
     X = np.random.RandomState(5).randn(800, 2)
     out = acc.from_perm(acc.spmm(acc.to_perm(torch.as_tensor(X)))).numpy()
     np.testing.assert_allclose(out, W @ X, rtol=1e-10, atol=1e-10)
+
+
+# -- K5, K6, K8: the rectangular route ----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def rect_plan(banded_ell):
+    """The rectangular plan of the banded ELL at R = WT = 128: its window
+    leaves edges out (a residual), so the window masks matter."""
+    cols, vals, deg, _ = banded_ell
+    winstart, rrows, _, W, kcap = jps.plan_banded(
+        cols, R=128, WT=128, deg=deg, kcap_max=32, max_residual=0.05)
+    assert W < 1024 and len(rrows) > 0
+    return winstart, W, kcap
+
+
+def _rect_inputs(banded_ell, rect_plan, dtype):
+    cols, vals, _, _ = banded_ell
+    winstart, W, kcap = rect_plan
+    c = torch.as_tensor(cols[:, :kcap].copy())
+    v = torch.as_tensor(vals[:, :kcap].astype(np.float32))
+    band = bs.materialize_band(c, v, torch.as_tensor(winstart), W, R=128,
+                               WT=128, out_dtype=dtype)
+    plan = bs.RectPlan.from_numpy(winstart, 1024, 128, 128, W, kcap, "cpu")
+    return c, v, band, plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_twin_matches_pallas(banded_ell, rect_plan, dtype):
+    """Within 1e-5 of max|ref| in f32 and in bf16: both packages multiply
+    the same values exactly in f32 (a bf16 band times bf16 X) and sum in
+    f32 in other orders."""
+    _, _, band, plan = _rect_inputs(banded_ell, rect_plan, dtype)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    X = np.random.RandomState(11).randn(1024, 5).astype(np.float32)
+    ref = np.asarray(jps.band_spmm(
+        jnp.asarray(band.float().numpy()).astype(jdt),
+        jnp.asarray(plan.winstart_host), jnp.asarray(np.pad(X, ((0, 0),
+                                                                (0, 123)))),
+        R=128, WT=128, interpret=True, mode="f32"))[:, :5]
+    out = bs.band_spmm(band, plan, torch.as_tensor(X).to(dtype))
+    assert out.dtype == torch.float32 and out.shape == (1024, 5)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_k6_twin_matches_pallas(banded_ell, rect_plan, mode):
+    """The unstored band: within 1e-5 of max|ref| (f32) and 1e-2 (bf16,
+    where JAX rounds the built block and X to bf16 and the port each value
+    and X)."""
+    c, v, _, _ = _rect_inputs(banded_ell, rect_plan, torch.float32)
+    winstart, W, kcap = rect_plan
+    plan = bs.BandedPlan.from_numpy(winstart, 1024, 128, 128, W, kcap, "cpu")
+    X = np.random.RandomState(12).randn(1024, 3).astype(np.float32)
+    ref = np.asarray(jps.banded_spmm(
+        jnp.asarray(c.numpy()), jnp.asarray(v.numpy()),
+        jnp.asarray(winstart), jnp.asarray(np.pad(X, ((0, 0), (0, 125)))),
+        W=W, R=128, WT=128, interpret=True, mode=mode))[:, :3]
+    tdt = torch.float32 if mode == "f32" else torch.bfloat16
+    out = bs.banded_spmm(c, v.to(tdt), plan, torch.as_tensor(X).to(tdt))
+    assert out.dtype == torch.float32 and out.shape == (1024, 3)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=(
+        1e-5 if mode == "f32" else 1e-2) * np.abs(ref).max())
+    # the window masks: the in-window part of W @ X, at f64
+    out64 = bs.banded_spmm(c, v.double(), plan, torch.as_tensor(X).double())
+    Wp = banded_ell[3]
+    lo = np.repeat(winstart, 128)[:, None]
+    cc = c.numpy()
+    keep = (cc >= lo) & (cc < lo + W)
+    Win = sp.csr_matrix((np.where(keep, v.numpy(), 0).ravel(),
+                         (np.repeat(np.arange(1024), kcap), cc.ravel())),
+                        shape=(1024, 1024))
+    np.testing.assert_allclose(out64.numpy(), Win @ X.astype(np.float64),
+                               rtol=1e-12, atol=1e-12)
+    assert abs(Win).sum() < abs(Wp).sum()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hopf_lax,recip", [(False, False), (True, False),
+                                            (False, True), (True, True)])
+def test_k8_twin_matches_pallas(banded_ell, rect_plan, dtype, hopf_lax,
+                                recip):
+    """Min within 1e-6 (relative), argmin tie-tolerant, -1 where no
+    candidate; without the argmin the same min."""
+    _, _, band, plan = _rect_inputs(banded_ell, rect_plan, dtype)
+    _, _, _, d, f = _minplus_inputs(banded_ell, torch.float32)
+    jband = jnp.asarray(band.float().numpy()).astype(
+        jnp.float32 if dtype == torch.float32 else jnp.bfloat16)
+    ref = np.asarray(jps.band_minplus(
+        jband, jnp.asarray(plan.winstart_host), jnp.asarray(d),
+        jnp.asarray(f), R=128, WT=128, hopf_lax=hopf_lax, track_arg=True,
+        recip=recip, interpret=True))
+    m, arg = bs.band_minplus(band, plan, torch.as_tensor(d),
+                             torch.as_tensor(f), hopf_lax=hopf_lax,
+                             track_arg=True, recip=recip)
+    assert m.dtype == torch.float32 and arg.dtype == torch.int32
+    dense = np.zeros((1024, 1024), np.float32)
+    for b, s in enumerate(plan.winstart_host):
+        dense[b * 128:(b + 1) * 128, s:s + plan.W] = \
+            band.float().numpy()[b * 128:(b + 1) * 128]
+    has = ref[:, 0] < 1e30
+    _assert_minplus_matches_jax(m, arg, ref[:, 0],
+                                np.where(has, ref[:, 1], -1), dense, d, f,
+                                hopf_lax, recip)
+    m2, none = bs.band_minplus(band, plan, torch.as_tensor(d),
+                               torch.as_tensor(f), hopf_lax=hopf_lax,
+                               recip=recip)
+    assert none is None
+    np.testing.assert_array_equal(m2.numpy(), m.numpy())
+
+
+def test_window_plans_refuse_what_they_do_not_describe():
+    with pytest.raises(ValueError):              # W not a multiple of WT
+        bs.RectPlan.from_numpy(np.zeros(8, np.int32), 1024, 128, 128, 200,
+                               10, "cpu")
+    with pytest.raises(ValueError):              # one start per row block
+        bs.BandedPlan.from_numpy(np.zeros(4, np.int32), 1024, 128, 128, 256,
+                                 10, "cpu")
+    plan = bs.BandedPlan.from_numpy(np.zeros(8, np.int32), 1024, 128, 128,
+                                    256, 10, "cpu")
+    with pytest.raises(TypeError):               # K5 and K8 take a RectPlan
+        bs.band_spmm(torch.zeros(1024, 256), plan, torch.zeros(1024, 2))
+    with pytest.raises(TypeError):
+        bs.band_minplus(torch.zeros(1024, 256), plan, torch.zeros(1024),
+                        torch.ones(1024))

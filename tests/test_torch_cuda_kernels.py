@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K4, K7 and K9 of graphlearning_tpu_torch against
-their plain torch twins, on a GPU.
+"""The CUDA kernels K1-K9 of graphlearning_tpu_torch against their plain
+torch twins, on a GPU.
 
 Every test here needs the card: it carries the ``cuda`` marker and skips
 without one.  The file imports neither JAX nor the JAX package, so it runs
@@ -266,3 +266,146 @@ def test_cuda_accel_distance_and_lip_take_the_kernels(cuda_device):
     acc.lip_gs_mc(u_pl, mask, gv, 0.0, 1.0, 1e-3, 30)
     assert bs.launches()["materialize_band"] == after["materialize_band"] + 1
     assert bs.launches()["band_tiles_lip"] >= after["band_tiles_lip"] + 200
+
+
+@pytest.fixture(scope="module")
+def rect_case():
+    """The RCM-ordered 1024-row kNN ELL and its rectangular plan at R = 128
+    and WT = 64: the window leaves edges out, so its masks matter."""
+    W = _knn_csr(1000, 10, seed=0)
+    perm = np.asarray(reverse_cuthill_mckee(W, symmetric_mode=True))
+    Wp = W[perm][:, perm].tocsr()
+    Wp.resize((1024, 1024))
+    cols, vals, deg = SparseGraph.ell_from_scipy(Wp)
+    winstart, rrows, _, Wr, kcap = bs.plan_banded(
+        cols, R=128, WT=64, deg=deg, kcap_max=32, max_residual=0.05)
+    assert Wr < 1024 and len(rrows) > 0
+    return (np.ascontiguousarray(cols[:, :kcap]),
+            vals[:, :kcap].astype(np.float32), winstart, Wr, kcap)
+
+
+def _rect(rect_case, dev, cls, dtype=torch.float32):
+    cols, vals, winstart, Wr, kcap = rect_case
+    c = torch.as_tensor(cols, device=dev)
+    v = torch.as_tensor(vals, device=dev)
+    plan = cls.from_numpy(winstart, 1024, 128, 64, Wr, kcap, dev)
+    band = None
+    if cls is bs.RectPlan:
+        band = bs.materialize_band(c, v, plan.winstart, Wr, R=128, WT=64,
+                                   out_dtype=dtype)
+    return c, v, band, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 2, 3, 10, 40])
+def test_cuda_rect_spmm_kernels_match_twins(rect_case, cuda_device, dtype,
+                                            d):
+    """K5 (stored band) and K6 (ELL slots) against their twins, f32 and
+    bf16, within the K2 tolerance of max|ref|."""
+    dev = cuda_device
+    _, _, band, plan = _rect(rect_case, dev, bs.RectPlan, dtype)
+    X = torch.randn((1024, d), device=dev).to(dtype)
+    n0 = bs.band_spmm.launches
+    out = bs.band_spmm(band, plan, X)
+    assert bs.band_spmm.launches == n0 + 1
+    _close(out, bs._rect_spmm_plain(band, plan, X), dtype)
+
+    c, v, _, bplan = _rect(rect_case, dev, bs.BandedPlan)
+    v = v.to(dtype)
+    n0 = bs.banded_spmm.launches
+    out = bs.banded_spmm(c, v, bplan, X)
+    assert bs.banded_spmm.launches == n0 + 1
+    _close(out, bs._banded_spmm_plain(c, v, bplan, X), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hopf_lax", [False, True])
+@pytest.mark.parametrize("recip", [False, True])
+@pytest.mark.parametrize("track_arg", [False, True])
+def test_cuda_rect_minplus_matches_twin(rect_case, cuda_device, dtype,
+                                        hopf_lax, recip, track_arg):
+    """K8: min and argmin identical to the twin (the same f32 operations,
+    no contraction)."""
+    dev = cuda_device
+    _, _, band, plan = _rect(rect_case, dev, bs.RectPlan, dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d = torch.rand(1024, generator=gen, device=dev) * 3
+    d[torch.rand(1024, generator=gen, device=dev) < 0.3] = bs.MINPLUS_BIG
+    f = torch.rand(1024, generator=gen, device=dev) + 0.5
+    n0 = bs.band_minplus.launches
+    m, arg = bs.band_minplus(band, plan, d, f, hopf_lax=hopf_lax,
+                             track_arg=track_arg, recip=recip)
+    assert bs.band_minplus.launches == n0 + 1
+    rm, rarg = bs._rect_minplus_plain(band, plan, d, f, hopf_lax, track_arg,
+                                      recip)
+    torch.testing.assert_close(m, rm, rtol=0, atol=0)
+    assert bool((m < bs.MINPLUS_BIG).any()) and bool(
+        (m == bs.MINPLUS_BIG).any())
+    if track_arg:
+        torch.testing.assert_close(arg, rarg, rtol=0, atol=0)
+    else:
+        assert arg is None
+
+
+@pytest.mark.cuda
+def test_cuda_rect_wrappers_refuse(rect_case, cuda_device):
+    dev = cuda_device
+    c, v, band, plan = _rect(rect_case, dev, bs.RectPlan)
+    _, _, _, bplan = _rect(rect_case, dev, bs.BandedPlan)
+    X = torch.zeros((1024, 2), device=dev)
+    with pytest.raises(ValueError):          # f64 has only the CPU twin
+        bs.band_spmm(band.double(), plan, X.double())
+    with pytest.raises(ValueError):          # X on another device
+        bs.band_spmm(band, plan, torch.zeros(1024, 2))
+    with pytest.raises(ValueError):          # band and X types differ
+        bs.band_spmm(band, plan, X.to(torch.bfloat16))
+    with pytest.raises(ValueError):          # too few X rows
+        bs.banded_spmm(c, v, bplan, torch.zeros((64, 2), device=dev))
+    with pytest.raises(ValueError):          # int64 columns
+        bs.banded_spmm(c.long(), v, bplan, X)
+    with pytest.raises(TypeError):           # K6 takes a BandedPlan
+        bs.banded_spmm(c, v, plan, X)
+    d = torch.zeros(1024, device=dev)
+    bs.band_minplus(band, plan, d, d + 1)    # what it takes
+    with pytest.raises(ValueError):          # f64 distances on CUDA
+        bs.band_minplus(band, plan, d.double(), d.double() + 1)
+    with pytest.raises(ValueError):          # a band of another width
+        bs.band_minplus(band[:, :64].contiguous(), plan, d, d + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("materialize", [None, True])
+def test_cuda_accel_rect_route_takes_the_kernels(cuda_device, monkeypatch,
+                                                  materialize):
+    """Under GLT_NO_BAND the matvec runs K6 (BandedPlan) or K4 + K5
+    (RectPlan), and bellman_ford on a RectPlan runs K8."""
+    from graphlearning_tpu_torch.solvers import eikonal
+
+    monkeypatch.setenv("GLT_NO_BAND", "1")
+    W = _knn_csr(9000, 10, seed=1)
+    acc = AccelSpMM(W, device=cuda_device, materialize=materialize)
+    assert isinstance(acc.plan, bs.RectPlan if materialize
+                      else bs.BandedPlan)
+    X = np.random.RandomState(2).randn(9000, 4)
+    before = dict(bs.launches())
+    out = acc.from_perm(acc.spmm(acc.to_perm(
+        torch.as_tensor(X, dtype=torch.float32, device=cuda_device))))
+    after = bs.launches()
+    kernels = (("materialize_band", "band_spmm") if materialize
+               else ("banded_spmm",))
+    for name in kernels:
+        assert after[name] == before[name] + 1, name
+    ref = W @ X
+    np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    if not materialize:
+        return
+    g = SparseGraph.from_scipy(W, device=cuda_device)
+    seeds = np.random.RandomState(0).choice(9000, 6, replace=False)
+    d_b, cp_b = eikonal.dijkstra(g, seeds, return_cp=True, accel=acc)
+    d_p, cp_p = eikonal.dijkstra(g, seeds, return_cp=True)
+    assert bs.launches()["band_minplus"] > after["band_minplus"]
+    np.testing.assert_allclose(d_b, d_p, rtol=1e-5, atol=1e-6)
+    assert np.mean(cp_b == cp_p) > 0.999
