@@ -34,7 +34,16 @@ Phases (any failure exits non-zero before the result line):
    masked Laplace solve on K5, the distances on K8), then two moons with
    n=1310720, over the size gate, where ``maybe_build`` itself takes the
    unstored band (K6); each fit held to the plain ELL path; then K5, K6
-   and K8 against their twins at these shapes.
+   and K8 against their twins at these shapes;
+6. the bench (``graphlearning_tpu_torch.bench``) at the JAX bench's
+   geometry: the 2-D spmm modes (n=262144, k=16, d=128: bf16 and f32 on
+   K2, rowq2_int8 and rowq1_int8 on K10, bf16i8 on K11, each held to its
+   error grade against the scipy f64 chain), the band-hostile 30-d graph
+   on the segmented gather (f32 and bf16 tables), and the Poisson fit at
+   n=70000 (20-d, ten clusters), which must take the gather and agree
+   with the scipy reference on >= 0.99 of the nodes, and again under
+   ``GLT_NO_GATHER`` on the plain ELL path; then K10 and K11
+   against their twins on the bench's packed plan at d in {10, 128}.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -51,7 +60,10 @@ import numpy as np
 
 HBM_BPS = 3.35e12                     # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12,         # f32 outside the tensor cores
-            "bfloat16": 989e12}       # dense bf16 tensor cores
+            "bfloat16": 989e12,       # dense bf16 tensor cores
+            # the exact grade (K10 planes=2, K11) on the bf16 tensor
+            # cores: three bf16 products per f32-grade product
+            "bfloat16x3": 989e12 / 3}
 REPS = 20
 SOURCE = "graphlearning_tpu_torch/csrc/"
 REPLACES = {
@@ -64,6 +76,8 @@ REPLACES = {
     "band_spmm": "graphlearning_tpu/ops/pallas_spmm.py:288",
     "banded_spmm": "graphlearning_tpu/ops/pallas_spmm.py:136",
     "band_minplus": "graphlearning_tpu/ops/pallas_spmm.py:384",
+    "band_tiles_spmm_packed_rowq": "graphlearning_tpu/ops/pallas_spmm.py:1324",
+    "band_tiles_spmm_packed_i8": "graphlearning_tpu/ops/pallas_spmm.py:1204",
 }
 CU_FILE = {
     "materialize_band_tiles": SOURCE + "band_tiles_build.cu",
@@ -75,6 +89,8 @@ CU_FILE = {
     "band_spmm": SOURCE + "band_rect_spmm.cu",
     "banded_spmm": SOURCE + "band_ell_spmm.cu",
     "band_minplus": SOURCE + "band_rect_minplus.cu",
+    "band_tiles_spmm_packed_rowq": SOURCE + "band_tiles_spmm_q.cu",
+    "band_tiles_spmm_packed_i8": SOURCE + "band_tiles_spmm_q.cu",
 }
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # of max|ref|, per band dtype
 # Iteration caps of the Lipschitz and p-eikonal fits: each fit fails the
@@ -1067,6 +1083,163 @@ def rect_phase(torch, gl, accel, bs, W, labels, ti, plain_pred):
                                               "band_minplus")}
 
 
+# The JAX bench's geometry; its 50 chained products cut to 10, since the
+# scipy f64 reference chains on the host took most of this phase's 340 s
+# at 50 (phase 6 alone, PERF.md).
+BENCH_N, BENCH_K, BENCH_D, BENCH_ITERS = 1 << 18, 16, 128, 10
+# Error grade of each bench mode against the scipy f64 chain, as
+# tests/test_pallas_spmm.py holds the JAX kernels.
+BENCH_GRADES = {"f32": ("rel_err_chain", 1e-4),
+                "rowq2_int8": ("rel_err_single", 1e-4),
+                "bf16i8": ("rel_err_single", 1e-4),
+                "rowq1_int8": ("rel_err_single", 2e-2),
+                "bf16": ("rel_err_single", 2e-2)}
+# The gather against scipy f64: (single product, chain of BENCH_ITERS).
+# The single product as tests/test_gather.py holds the JAX package's bf16
+# table.  Each product of the chain rounds the table to bf16 again, so its
+# error grows with the chain: 3.0e-3 at 10 products and 2.1e-2 at 50 on
+# the card (PERF.md); 1e-2 holds the 10-product chain.
+HIGHDIM_GRADES = {"f32": (1e-4, 1e-4), "bf16": (2e-2, 1e-2)}
+Q_KERNELS = ("band_tiles_spmm_packed_rowq", "band_tiles_spmm_packed_i8")
+
+
+def q_entry(torch, bs, label, kind, band, plan, X, csr):
+    """K10 (``kind`` rowq2 / rowq1) or K11 (i8) against its twin on the
+    bench's packed plan, within 1e-5 of max|ref|.  The bound: the real
+    cells at 1, 2 or 3 bytes, X once, ``out``, ``srow`` and the plan;
+    ``2 nnz d`` operations on the bf16 tensor cores, a third of their
+    rate for the exact grade."""
+    X32 = X
+    if kind == "i8":
+        hi, q = bs.quantize_band_i8(band)
+        name, cell, grade = "band_tiles_spmm_packed_i8", 3, "bfloat16x3"
+        run = lambda: bs.band_tiles_spmm_packed_i8(hi, q, plan, X)
+        plain = lambda: bs._tiles_spmm_i8_plain(hi, q, plan, X)
+        srow_bytes = 0
+    else:
+        planes = int(kind[-1])
+        qband, srow = bs.quantize_band_rowq(band, plan, plan.n, planes)
+        Xk = X if planes == 2 else X.to(torch.bfloat16)
+        name, cell = "band_tiles_spmm_packed_rowq", planes
+        grade = "bfloat16x3" if planes == 2 else "bfloat16"
+        run = lambda: bs.band_tiles_spmm_packed_rowq(qband, srow, plan, Xk,
+                                                     planes)
+        plain = lambda: bs._tiles_spmm_rowq_plain(qband, srow, plan, Xk,
+                                                  planes)
+        srow_bytes = srow.numel() * 4
+        X = Xk
+    out = run()
+    torch.cuda.synchronize()
+    err = compare(label, out, plain(), TOL["float32"])
+    nnz_band = int((band != 0).sum())
+    d = X.shape[1]
+    nbytes = (int(plan.slab_ntiles.sum()) * plan.R * plan.WT * cell
+              + X.numel() * X.element_size() + out.numel() * 4 + srow_bytes
+              + (plan.slab_starts.numel() + plan.slab_ntiles.numel()
+                 + plan.block_ptr.numel()) * 4)
+    b_ms, b_by = bound(nbytes, 2 * nnz_band * d, grade)
+    return report({
+        "name": name, "variant": label, "max_abs_err": err,
+        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, X32)),
+        "library": "torch.sparse.mm, permuted f32 CSR",
+        "shapes": {"band": list(band.shape), "X": list(X.shape),
+                   "slabs": int(plan.slab_block.numel()),
+                   "real_tiles": int(plan.slab_ntiles.sum()),
+                   "band_nnz": nnz_band, "R": plan.R, "WT": plan.WT,
+                   "S": plan.S, "bytes_per_cell": cell, "peak": grade}})
+
+
+def bench_phase(torch, accel, bs):
+    """Phase 6: the bench's three modes in-process (counts from 0 around
+    them), each held to its limits, then K10 and K11 against their twins
+    on the bench's packed plan."""
+    from graphlearning_tpu_torch import bench
+
+    say(f"== the bench: spmm 2-D (n={BENCH_N}, k={BENCH_K}, d={BENCH_D}, "
+        f"iters={BENCH_ITERS}), highdim (f32, bf16 tables), poisson "
+        "(n=70000)")
+    common = dict(n=BENCH_N, k=BENCH_K, d=BENCH_D, iters=BENCH_ITERS,
+                  dim=30, band_kernels=True, stored_band=True)
+    bs.reset_launches()
+    t = time.perf_counter()
+    line = bench.main(device="cuda", mode="spmm", geom="2d", prec=None,
+                      **common)
+    say(f"  spmm 2-D: {time.perf_counter() - t:.1f} s")
+    hd_cfg = bench.settings(mode="spmm", geom="highdim", **common)
+    t = time.perf_counter()
+    case = bench.highdim_case(hd_cfg, torch.device("cuda"))
+    say(f"  highdim graph and reference chain: "
+        f"{time.perf_counter() - t:.1f} s")
+    highdim = {}
+    for prec in HIGHDIM_GRADES:
+        t = time.perf_counter()
+        highdim[prec] = bench.highdim_bench(dict(hd_cfg, prec=prec),
+                                            torch.device("cuda"), case)
+        say(json.dumps(highdim[prec]))
+        say(f"  spmm highdim/{prec}: {time.perf_counter() - t:.1f} s")
+    del case
+    t = time.perf_counter()
+    pois = bench.main(device="cuda", mode="poisson", n=70000, k=10)
+    say(f"  poisson: {time.perf_counter() - t:.1f} s")
+    with env("GLT_NO_GATHER", "1"):
+        pois_plain = bench.main(device="cuda", mode="poisson", n=70000,
+                                k=10)
+    say(f"  poisson fit: {pois['value']} s on the gather, "
+        f"{pois_plain['value']} s on the plain ELL path (GLT_NO_GATHER)")
+    launches = bs.launches()
+    say(f"  launches on the bench: {launches}")
+
+    modes = line["config"]["modes"]
+    if set(modes) != set(bench.SPMM_MODES):
+        raise SmokeFailure(f"the bench ran modes {sorted(modes)}, not "
+                           f"{bench.SPMM_MODES}")
+    for mode, (key, limit) in BENCH_GRADES.items():
+        if not modes[mode][key] <= limit:
+            raise SmokeFailure(f"bench mode {mode}: {key} "
+                               f"{modes[mode][key]:.3e} > {limit:g}")
+    for prec, limits in HIGHDIM_GRADES.items():
+        for key, limit in zip(("rel_err_single", "rel_err"), limits):
+            err = highdim[prec]["config"][key]
+            if not err <= limit:
+                raise SmokeFailure(f"highdim/{prec}: {key} {err:.3e} > "
+                                   f"{limit:g}")
+    for fit, path in ((pois, "GatherAccel"), (pois_plain, "plain ELL")):
+        took = fit["config"]["path"]
+        agree = fit["config"]["agreement_with_reference_path"]
+        if path not in took:
+            raise SmokeFailure(f"the poisson fit took {took}, not {path}")
+        if agree < 0.99:
+            raise SmokeFailure(f"the poisson fit on {path} agrees with the "
+                               f"scipy reference on {agree} < 0.99 of the "
+                               "nodes")
+    for name in Q_KERNELS + ("band_tiles_spmm_packed",):
+        if launches[name] < 1:
+            raise SmokeFailure(f"the bench did not launch {name}: "
+                               f"{launches}")
+
+    say("== K10, K11 on the bench's packed plan")
+    W = bench.bench_graph_2d(BENCH_N, BENCH_K, np.random.RandomState(0))
+    acc = accel.AccelSpMM(W, device="cuda")
+    del W
+    if not acc.packed:
+        raise SmokeFailure("the bench graph did not give a packed plan")
+    band = acc.build_band(torch.float32)
+    csr = permuted_csr(torch, acc)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    entries = []
+    for d in (10, 128):
+        X = torch.randn((acc.n_pad, d), generator=gen, device="cuda")
+        for kind in ("rowq2", "rowq1", "i8"):
+            entries.append(q_entry(torch, bs, f"bench/{kind}/d={d}", kind,
+                                   band, acc.plan, X, csr))
+            torch.cuda.empty_cache()
+    del band, csr, acc
+    torch.cuda.empty_cache()
+    return entries, {k: launches[k] for k in Q_KERNELS}
+
+
 def check_distances(label, band, plain, G_plain):
     """Distances within 1e-5 relative of the plain path's, unreached alike;
     where the closest points differ, the two seeds are equally close.
@@ -1119,6 +1292,7 @@ def main():
             if "registers" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
 
+    t0 = time.perf_counter()
     entries = kernel_phase(torch, accel, bs)
     fit_entries, launches, (W, labels, ti, plain_pred) = fit_phase(
         torch, gl, accel, bs)
@@ -1128,7 +1302,11 @@ def main():
     rect_entries, rect_launches = rect_phase(torch, gl, accel, bs, W, labels,
                                              ti, plain_pred)
     launches.update(rect_launches)
-    entries = fit_entries + dist_entries + rect_entries + entries
+    say(f"== phases 2-5: {time.perf_counter() - t0:.1f} s")
+    bench_entries, bench_launches = bench_phase(torch, accel, bs)
+    launches.update(bench_launches)
+    entries = (fit_entries + dist_entries + rect_entries + bench_entries
+               + entries)
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["route"] = "cuda"

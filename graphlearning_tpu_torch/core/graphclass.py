@@ -147,12 +147,14 @@ class graph:
 
     def _accel_exact(self):
         """The f32-band accel of the distance solvers (cost-gated and
-        cached), or None off the band path."""
+        cached), or None off the band path.  They run only on a stored
+        band, so no gather is built for them."""
         from graphlearning_tpu_torch.ops import accel as _accel
 
         return _accel.maybe_build(self.weight_matrix, cache_obj=self,
                                   attr="_accel_exact_cache",
-                                  device=self.device, mode="f32")
+                                  device=self.device, mode="f32",
+                                  gather=False)
 
     def dijkstra(self, bdy_set, bdy_val=None, f=1, max_dist=np.inf,
                  return_cp=False, reciprocal_weights=False):

@@ -24,32 +24,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-# library -> (C function, argtypes); every function returns a cudaError_t.
+# library -> {C function: argtypes}; every function returns a cudaError_t.
 SIGNATURES = {
-    "band_tiles_build": (
-        "glt_tiles_build",
-        [_P, _P, _I, _P, _P, _L, _I, _I, _P, _I, _P]),
-    "band_tiles_spmm": (
-        "glt_tiles_spmm",
-        [_P, _I, _L, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _P]),
-    "band_rect_build": (
-        "glt_rect_build",
-        [_P, _P, _I, _P, _L, _I, _I, _I, _P, _I, _P]),
-    "band_tiles_minplus": (
-        "glt_tiles_minplus",
-        [_P, _I, _I, _I, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "band_tiles_lip": (
-        "glt_tiles_lip",
-        [_P, _I, _I, _I, _P, _P, _L, _P, _I, _P, _P, _P, _P]),
-    "band_rect_spmm": (
-        "glt_rect_spmm",
-        [_P, _I, _I, _I, _P, _L, _P, _I, _P, _P]),
-    "band_ell_spmm": (
-        "glt_ell_spmm",
-        [_P, _P, _I, _I, _P, _L, _I, _I, _P, _I, _P, _P]),
-    "band_rect_minplus": (
-        "glt_rect_minplus",
-        [_P, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "band_tiles_build": {
+        "glt_tiles_build": [_P, _P, _I, _P, _P, _L, _I, _I, _P, _I, _P]},
+    "band_tiles_spmm": {
+        "glt_tiles_spmm":
+            [_P, _I, _L, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _P]},
+    "band_rect_build": {
+        "glt_rect_build": [_P, _P, _I, _P, _L, _I, _I, _I, _P, _I, _P]},
+    "band_tiles_minplus": {
+        "glt_tiles_minplus":
+            [_P, _I, _I, _I, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "band_tiles_lip": {
+        "glt_tiles_lip":
+            [_P, _I, _I, _I, _P, _P, _L, _P, _I, _P, _P, _P, _P]},
+    "band_rect_spmm": {
+        "glt_rect_spmm": [_P, _I, _I, _I, _P, _L, _P, _I, _P, _P]},
+    "band_ell_spmm": {
+        "glt_ell_spmm": [_P, _P, _I, _I, _P, _L, _I, _I, _P, _I, _P, _P]},
+    "band_rect_minplus": {
+        "glt_rect_minplus":
+            [_P, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "band_tiles_spmm_q": {
+        "glt_tiles_spmm_rowq":
+            [_P, _I, _P, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _P],
+        "glt_tiles_spmm_i8":
+            [_P, _P, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _P]},
 }
 
 _loaded: dict = {}
@@ -112,9 +113,9 @@ def load(name: str):
     if lib is None:
         build((name,))
         lib = ctypes.CDLL(str(library_path(name)))
-        fname, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fname)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fname, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fname)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib

@@ -35,12 +35,15 @@ The distance and Lipschitz solvers stream other layouts:
 * :meth:`AccelSpMM.lip_gs_mc` the rectangular ``(n_pad, Wr)`` band of the
   ``plan_banded`` plan, which K4 builds lazily (a ``RectPlan``'s own band).
 
+Off the band, :func:`maybe_build` takes the segmented gather
+(:class:`~graphlearning_tpu_torch.ops.gather.GatherAccel`) where the JAX
+package does: a band-hostile graph, a band over the budget, or a band its
+cost model rejects.
+
 Departures from the JAX package:
 
-* No gather fallback for band-hostile graphs yet (``ops/gather.py`` of the
-  JAX package): :func:`maybe_build` returns None and the fit runs the
-  plain ELL path on the same device.
-* Failures are not swallowed: a plan that cannot be used is reported.
+* Failures are not swallowed: only :class:`BandPlanUnavailable` leads to
+  the gather, and a plan that cannot be used is reported.
 * One band budget covers every band resident together: the packed and the
   unpacked tiles, and in :meth:`AccelSpMM.rect_band_ok` the rectangular
   band beside them (JAX budgets each band on its own).  A ``RectPlan``
@@ -66,7 +69,8 @@ import torch
 from graphlearning_tpu_torch import config
 from graphlearning_tpu_torch.core.sparse import SparseGraph
 from graphlearning_tpu_torch.ops import band_spmm as _bs
-from graphlearning_tpu_torch.solvers import cg as _cg
+from graphlearning_tpu_torch.ops.gather import GatherAccel
+from graphlearning_tpu_torch.ops.solver_entries import SpmmSolvers
 from graphlearning_tpu_torch.solvers.eikonal import _fixed_point
 from graphlearning_tpu_torch.solvers.plaplace import _lip_loop
 
@@ -224,7 +228,7 @@ def _min_edges_per_tile(R: int, WT: int) -> int:
     return max(8, int(R * WT * 4 / _HBM_BPS / _RESID_NS))
 
 
-class AccelSpMM:
+class AccelSpMM(SpmmSolvers):
     """Band SpMM in permuted, padded space for one symmetric graph.
 
     ``mode``: "f32" (exact f32) or "bf16" (bf16 band and X, f32 sums).
@@ -537,74 +541,6 @@ class AccelSpMM:
         out = _bs.apply_residual(out, Xp, self._resid)
         return out.to(Xp.dtype)
 
-    # -- solver entries in permuted space -------------------------------------
-
-    def cg_scaled(self, s_p, b, c0=1.0, c1=1.0, tol=1e-10, max_iter=10**5,
-                  x0=None):
-        """CG solve of ``(c0 I - c1 diag(s) Wp diag(s)) x = b``.  Returns
-        ``(x, iters)``."""
-        def A(X):
-            return c0 * X - c1 * s_p[:, None] * self.spmm(s_p[:, None] * X)
-
-        x, iters, _ = _cg.conjgrad(A, b, x0=x0, tol=tol, max_iter=max_iter)
-        return x, iters
-
-    def laplace_constrained(self, deg_p, diag_p, tau_p, mask_p, bdy_p, tol,
-                            normalization="combinatorial", order=1,
-                            max_iter=10**5, u0_p=None):
-        """Masked CG solve of ``(tau + L)^order u = 0`` with ``u = bdy`` on
-        ``mask``.  Returns ``(u, iters)``."""
-        zero = torch.zeros((), dtype=deg_p.dtype, device=deg_p.device)
-        if normalization == "combinatorial":
-            matvec = lambda X: deg_p[:, None] * X - self.spmm(X)
-        elif normalization == "randomwalk":
-            dinv = torch.where(deg_p > 0, 1.0 / torch.where(
-                deg_p == 0, torch.ones_like(deg_p), deg_p), zero)
-            matvec = lambda X: X - dinv[:, None] * self.spmm(X)
-        elif normalization == "normalized":
-            s = torch.where(deg_p > 0, torch.where(
-                deg_p == 0, torch.ones_like(deg_p), deg_p) ** -0.5, zero)
-            matvec = lambda X: X - s[:, None] * self.spmm(s[:, None] * X)
-        else:
-            raise ValueError(f"unsupported normalization {normalization!r}")
-
-        def L(X):
-            Y = X
-            for _ in range(order):
-                Y = tau_p[:, None] * Y + matvec(Y)
-            return Y
-
-        u, iters, _ = _cg.constrained_solve(
-            L, (tau_p + diag_p) ** order, mask_p, bdy_p, tol=tol,
-            max_iter=max_iter, u0=u0_p)
-        return u, iters
-
-    def poisson_gd(self, deg_p, Db_p, v0_p, min_iter: int, max_iter: int,
-                   n_true: int):
-        """Poisson gradient descent ``u <- Db + D^-1 W u`` until the random
-        walk from the labels mixes (``max|v - v_inf| <= 1/n``), at least
-        ``min_iter`` and at most ``max_iter`` steps.  ``u`` and the walker
-        share one SpMM per step: the extra column holds ``D^-1 v``.
-        Symmetric graphs only.  Returns ``(u, iters)``."""
-        zero = torch.zeros((), dtype=deg_p.dtype, device=deg_p.device)
-        dinv = torch.where(deg_p > 0, 1.0 / torch.where(
-            deg_p == 0, torch.ones_like(deg_p), deg_p), zero)
-        vinf = deg_p / torch.sum(deg_p)
-        kcls = Db_p.shape[1]
-        U = torch.cat([torch.zeros_like(Db_p), (dinv * v0_p)[:, None]], dim=1)
-        T = 0
-        while T < max_iter:
-            if T >= min_iter:
-                v = deg_p * U[:, kcls]
-                if not bool(torch.max(torch.abs(v - vinf)) > 1.0 / n_true):
-                    break
-            WU = self.spmm(U)
-            u = Db_p + dinv[:, None] * WU[:, :kcls]
-            U = torch.cat([u, (dinv * WU[:, kcls])[:, None]], dim=1)
-            T += 1
-        return U[:, :kcls], T
-
-
     # -- distance rounds on the unpacked tiles (K7) or the rectangular band
     # (K8) ------------------------------------------------------------------
 
@@ -834,20 +770,50 @@ _PLAN_NAMES = {_bs.PackedPlan: "packed tiles (K2)",
                _bs.BandedPlan: "unstored rectangular band (K6)"}
 
 
+def path_name(acc) -> str:
+    """The path a fit takes with the accel ``acc`` (from
+    :func:`maybe_build`): the band plan, the gather, or the plain ELL
+    gather when ``acc`` is None (or a cached refusal)."""
+    if acc is None or isinstance(acc, _Disabled):
+        return "plain ELL"
+    if isinstance(acc, GatherAccel):
+        return f"segmented gather (GatherAccel, prec {acc.prec})"
+    return _PLAN_NAMES[type(acc.plan)]
+
+
 class _Disabled:
-    """Negative-decision cache entry (graph rejected for the band path)."""
+    """Negative-decision cache entry (graph rejected for the band path).
+    ``gather_reason`` is set when the gather applies but was not built
+    (the caller passed ``gather=False``)."""
 
-    def __init__(self, n, nnz):
+    def __init__(self, n, nnz, gather_reason=None):
         self.n, self.nnz = n, nnz
+        self.gather_reason = gather_reason
 
 
-def maybe_build(W, cache_obj=None, attr="_accel_cache", device=None, **kw):
-    """An :class:`AccelSpMM` for ``W`` when the band path applies and its
-    cost model predicts a gain over the plain gather; None otherwise, with
-    the reason logged.  The result is memoized on ``cache_obj`` and on the
-    ``W`` object (repeated fits on one graph skip the host build), keyed
-    by the band configuration, ``materialize`` and ``GLT_NO_BAND``
-    included."""
+def maybe_build(W, cache_obj=None, attr="_accel_cache", device=None,
+                gather=True, **kw):
+    """The accel of ``W`` for the fits, as the JAX package chooses it: an
+    :class:`AccelSpMM` when the band path applies and its cost model
+    predicts a gain over the gather; else the segmented gather
+    (:class:`~graphlearning_tpu_torch.ops.gather.GatherAccel`) for a
+    band-hostile graph, a band over the budget
+    (:class:`BandPlanUnavailable`) or a band the cost model rejects; None
+    (the plain ELL path) off CUDA, under ``_MIN_N`` nodes, or under
+    ``GLT_NO_GATHER`` where the gather would be taken.  The gather keeps
+    f32 tables unless the caller asked for the bf16 band (``mode="bf16"``:
+    prec "auto", as JAX's inexact mode).  ``gather=False`` is for callers
+    that run only on a stored band (the distance and Lipschitz solvers):
+    they get None where the gather would be taken, and no gather is built
+    for them (the JAX package builds it and leaves it unused).
+
+    The choice is logged and memoized on ``cache_obj`` and on the ``W``
+    object (repeated fits on one graph skip the host build), keyed by the
+    band configuration, ``materialize``, ``GLT_NO_BAND`` and
+    ``GLT_NO_GATHER`` included; a later ``gather=True`` call on a graph
+    refused for a ``gather=False`` one builds the gather then.  Any error
+    other than :class:`BandPlanUnavailable` raises (JAX falls back on
+    every exception)."""
     dev = config.device(device)
     n = W.shape[0]
     if not enabled(dev):
@@ -861,23 +827,13 @@ def maybe_build(W, cache_obj=None, attr="_accel_cache", device=None, **kw):
         kw["packed"] = not os.environ.get("GLT_NO_PACKED")
     kw.setdefault("mode", "f32")      # one cache entry per band config
     kw.setdefault("materialize", None)
-    gkey = ((str(dev), bool(os.environ.get("GLT_NO_BAND")))
+    gkey = ((str(dev), bool(os.environ.get("GLT_NO_BAND")),
+             bool(os.environ.get("GLT_NO_GATHER")))
             + tuple(sorted(kw.items())))
 
     def hit(cached):
         return (cached is not None and getattr(cached, "cache_key", None)
                 == gkey and cached.n == n and cached.nnz == W.nnz)
-
-    if cache_obj is not None:
-        cached = getattr(cache_obj, attr, None)
-        if hit(cached):
-            return None if isinstance(cached, _Disabled) else cached
-    gcache = getattr(W, "_gltt_accel_cache", None)
-    if isinstance(gcache, dict) and hit(gcache.get(gkey)):
-        cached = gcache[gkey]
-        if cache_obj is not None:
-            setattr(cache_obj, attr, cached)
-        return None if isinstance(cached, _Disabled) else cached
 
     def keep(value):
         value.cache_key = gkey
@@ -886,22 +842,53 @@ def maybe_build(W, cache_obj=None, attr="_accel_cache", device=None, **kw):
         if not isinstance(getattr(W, "_gltt_accel_cache", None), dict):
             W._gltt_accel_cache = {}
         W._gltt_accel_cache[gkey] = value
-        return None if isinstance(value, _Disabled) else value
+        return use(value)
+
+    def use(value):
+        if isinstance(value, _Disabled):
+            if gather and value.gather_reason:
+                return fallback(value.gather_reason)
+            return None
+        if not gather and isinstance(value, GatherAccel):
+            return None
+        return value
+
+    def fallback(reason):
+        if os.environ.get("GLT_NO_GATHER"):
+            log.info("plain ELL path: %s, and GLT_NO_GATHER is set", reason)
+            return keep(_Disabled(n, int(W.nnz)))
+        if not gather:
+            log.info("plain ELL path: %s; the caller runs only on a stored "
+                     "band, so the gather is not built", reason)
+            return keep(_Disabled(n, int(W.nnz), gather_reason=reason))
+        acc = GatherAccel(W, prec="auto" if kw["mode"] == "bf16" else "f32",
+                          device=dev)
+        log.info("%s: %s, %d segments, %d slots for %d edges",
+                 path_name(acc), reason, len(acc.segs), acc.slots, acc.nnz)
+        return keep(acc)
+
+    if cache_obj is not None:
+        cached = getattr(cache_obj, attr, None)
+        if hit(cached):
+            return use(cached)
+    gcache = getattr(W, "_gltt_accel_cache", None)
+    if isinstance(gcache, dict) and hit(gcache.get(gkey)):
+        cached = gcache[gkey]
+        if cache_obj is not None:
+            setattr(cache_obj, attr, cached)
+        return use(cached)
 
     if _band_hostile(W):
-        log.warning("plain ELL path: graph is band-hostile (p95 RCM "
-                    "bandwidth > n/4) and the gather fallback is not ported")
-        return keep(_Disabled(n, int(W.nnz)))
+        return fallback("the graph is band-hostile (p95 RCM bandwidth > "
+                        "n/4)")
     try:
         acc = AccelSpMM(W, device=dev, **kw)
     except BandPlanUnavailable as e:
-        log.warning("plain ELL path: %s", e)
-        return keep(_Disabled(n, int(W.nnz)))
+        return fallback(str(e))
     if _hybrid_estimate(acc) > 0.7 * W.nnz * _GATHER_NS:
-        log.info("plain ELL path: the band cost model predicts no gain")
-        return keep(_Disabled(n, int(W.nnz)))
+        return fallback("the band cost model predicts no gain")
     log.info("band path: %s plan, n_pad=%d, %d residual edges",
-             _PLAN_NAMES[type(acc.plan)], acc.n_pad, acc.n_resid)
+             path_name(acc), acc.n_pad, acc.n_resid)
     return keep(acc)
 
 

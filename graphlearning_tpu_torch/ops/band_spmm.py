@@ -1,7 +1,6 @@
 """Band SpMM: host planners, device glue, explicit plans and kernels K1-K9.
 
-Counterpart of ``graphlearning_tpu/ops/pallas_spmm.py`` (all but its
-int8 bench kernels).
+Counterpart of ``graphlearning_tpu/ops/pallas_spmm.py``.
 A kNN graph in a locality-preserving order has, per block of ``R`` rows,
 its edges inside a few ``WT``-column windows ("tiles").  The band stores
 each kept tile as a dense ``(R, WT)`` block; an SpMM then streams the band
@@ -30,7 +29,12 @@ Kernels (CUDA C++ for sm_90a in ``graphlearning_tpu_torch/csrc``):
 * K5 :func:`band_spmm` and K8 :func:`band_minplus` -- the matvec and the
   min-plus round over the stored rectangular band of a :class:`RectPlan`;
 * K6 :func:`banded_spmm` -- the matvec of a :class:`BandedPlan`, straight
-  from the ELL slots, with no stored band.
+  from the ELL slots, with no stored band;
+* K10 :func:`band_tiles_spmm_packed_rowq` and K11
+  :func:`band_tiles_spmm_packed_i8` -- K2 on a quantized packed band
+  (:func:`quantize_band_rowq`, :func:`quantize_band_i8`, plain torch as
+  XLA in JAX); the bench (``graphlearning_tpu_torch/bench.py``) is their
+  only caller, as in the JAX package.
 
 The residual edges of the distance and Lipschitz rounds go through
 :func:`residual_minplus` and :func:`residual_lip` (plain torch; XLA in
@@ -550,22 +554,41 @@ def materialize_band_tiles(cols, vals, tile_block, tile_start, R: int,
 materialize_band_tiles.launches = 0
 
 
+def _slab_windows(plan: _SlabPlan, X, acc):
+    """Each slab's S stacked X windows in ``acc``: (G, S*WT, d)."""
+    G = plan.slab_block.shape[0]
+    rows = (plan.slab_starts.long()[:, :, None]
+            + torch.arange(plan.WT, device=X.device)).reshape(-1)
+    return X.to(acc)[rows].reshape(G, plan.S * plan.WT, X.shape[1])
+
+
+def _block_sums(plan: _SlabPlan, prod):
+    """Sum the slabs' (G, R, d) products into their output row blocks:
+    (plan.n, d)."""
+    R = plan.R
+    out = prod.new_zeros((plan.n // R, R, prod.shape[2]))
+    out.index_add_(0, plan.slab_block.long(), prod)
+    return out.reshape(plan.n, prod.shape[2])
+
+
 def _tiles_spmm_plain(band, plan: _SlabPlan, X):
     """Plain twin of K2/K3: each slab's (R, S*WT) block times its stacked
     X windows, summed into the slab's output block.  Exact products in
     f32 (f64 for an f64 band) for an f32 or a bf16 band."""
     acc = torch.float64 if band.dtype == torch.float64 else torch.float32
-    dev = band.device
     G = plan.slab_block.shape[0]
-    R, WT, S = plan.R, plan.WT, plan.S
-    d = X.shape[1]
-    rows = (plan.slab_starts.long()[:, :, None]
-            + torch.arange(WT, device=dev)).reshape(-1)
-    Xw = X.to(acc)[rows].reshape(G, S * WT, d)
-    prod = torch.bmm(band.to(acc).reshape(G, R, S * WT), Xw)
-    out = torch.zeros((plan.n // R, R, d), dtype=acc, device=dev)
-    out.index_add_(0, plan.slab_block.long(), prod)
-    return out.reshape(plan.n, d)
+    A = band.to(acc).reshape(G, plan.R, plan.S * plan.WT)
+    return _block_sums(plan, torch.bmm(A, _slab_windows(plan, X, acc)))
+
+
+def _require_slab_launch(name, plan: _SlabPlan, X):
+    """The checks every slab kernel (K2, K3, K10, K11) shares: X's rows
+    and the CTA geometry."""
+    _require(X.dim() == 2 and X.shape[1] >= 1 and X.shape[0] >= plan.x_rows,
+             f"{name}: X {tuple(X.shape)} needs >= {plan.x_rows} rows")
+    _require(plan.R % _ROWS_PER_CTA == 0 and plan.WT % _COLS_PER_STEP == 0,
+             f"{name}: the kernel takes R a multiple of {_ROWS_PER_CTA} and "
+             f"WT a multiple of {_COLS_PER_STEP}")
 
 
 def _tiles_spmm_cuda(name, band, plan: _SlabPlan, X):
@@ -579,11 +602,7 @@ def _tiles_spmm_cuda(name, band, plan: _SlabPlan, X):
     _require(band.shape == (G * plan.R, plan.S * plan.WT),
              f"{name}: band {tuple(band.shape)} does not match the plan "
              f"({G * plan.R}, {plan.S * plan.WT})")
-    _require(X.dim() == 2 and X.shape[1] >= 1 and X.shape[0] >= plan.x_rows,
-             f"{name}: X {tuple(X.shape)} needs >= {plan.x_rows} rows")
-    _require(plan.R % _ROWS_PER_CTA == 0 and plan.WT % _COLS_PER_STEP == 0,
-             f"{name}: the kernel takes R a multiple of {_ROWS_PER_CTA} and "
-             f"WT a multiple of {_COLS_PER_STEP}")
+    _require_slab_launch(name, plan, X)
     out = torch.empty((plan.n, X.shape[1]), dtype=torch.float32, device=dev)
     lib = _build.load("band_tiles_spmm")
     rc = lib.glt_tiles_spmm(
@@ -648,6 +667,217 @@ def band_tiles_spmm(band, plan: TilesPlan, X):
 
 
 band_tiles_spmm.launches = 0
+
+
+# -- K10 and K11: quantized packed bands -----------------------------------------
+
+
+def packed_row_of(plan: PackedPlan):
+    """The graph row of each packed band row: row ``r`` of slab ``g`` is
+    ``slab_block[g] * R + r``."""
+    R = plan.R
+    dev = plan.slab_block.device
+    G = plan.slab_block.shape[0]
+    return (plan.slab_block.long().repeat_interleave(R) * R
+            + torch.arange(R, device=dev).repeat(G))
+
+
+def quantize_band_rowq(band, plan: PackedPlan, n: int, planes: int = 2):
+    """Row-quantize a packed f32 band ``(G*R, S*WT)`` into ``(qband,
+    srow)``: ``qband`` int8 ``(G*R, planes*S*WT)`` with the planes side by
+    side in each row, ``srow`` (n,) f32, and ``band[i] ~ srow[row] *
+    (q_hi[i] + q_lo[i] / 254)`` for the graph row ``row`` of band row
+    ``i`` (:func:`packed_row_of`), so slabs of one row block share their
+    rows' scales.  ``srow`` is the least power of two with ``127 * srow >=
+    rowmax`` (1 where a row holds no weight), so rescaling is exact.
+
+    JAX's ``quantize_band_rowq`` (``pallas_spmm.py:1239``) in plain torch,
+    rounding half to even as ``jnp.round``.  Two departures: the exponent
+    is exact (``frexp``; JAX takes ``ceil(log2(rowmax / 127))`` in f32,
+    which can be off by one where ``log2`` rounds across an integer),
+    and it is clamped to ``>= -126``, so a row of subnormal weights gets
+    a normal scale where JAX's underflows to 0 on a device that flushes
+    subnormals."""
+    if planes not in (1, 2):
+        raise ValueError(f"planes must be 1 or 2, not {planes}")
+    _require(band.dtype == torch.float32 and band.dim() == 2,
+             "quantize_band_rowq: the band must be a 2-D float32 tensor")
+    row_of = packed_row_of(plan)
+    rowmax = torch.zeros(n, dtype=torch.float32, device=band.device)
+    rowmax = rowmax.scatter_reduce(0, row_of, band.abs().amax(dim=1), "amax")
+    has = rowmax > 0
+    mant, ex = torch.frexp(torch.where(has, rowmax, 1.0) / 127.0)
+    e = (ex - (mant == 0.5).to(ex.dtype)).clamp(min=-126)
+    s = torch.where(has, torch.ldexp(torch.ones_like(rowmax), e), 1.0)
+    s = torch.where(rowmax > 127.0 * s, 2.0 * s, s)
+    t = band / s[row_of][:, None]                     # |t| <= 127
+    q_hi = torch.round(t)
+    if planes == 1:
+        return q_hi.clamp(-127, 127).to(torch.int8), s
+    q_lo = torch.round((t - q_hi) * 254.0).clamp(-127, 127)
+    return torch.cat([q_hi.clamp(-127, 127), q_lo], dim=1).to(torch.int8), s
+
+
+def quantize_band_i8(band):
+    """Split an f32 band into ``(hi, q)``: ``hi`` bf16 and ``q`` int8, with
+    ``band ~ hi + q * ulp(hi) * 2**-8`` per cell.  ``ulp(hi) * 2**-8 =
+    2**(e - 15)`` comes from ``hi``'s exponent bits, so no scale is
+    stored.  JAX's ``quantize_band_i8`` (``pallas_spmm.py:1129``) in plain
+    torch (eager torch needs no barrier against folding the round
+    trip)."""
+    _require(band.dtype == torch.float32,
+             "quantize_band_i8: the band must be float32")
+    hi = band.to(torch.bfloat16)
+    r = band - hi.to(torch.float32)
+    u = (hi.view(torch.int16) & 0x7F80).view(torch.bfloat16).to(
+        torch.float32)
+    s = u * 2.0 ** -15
+    q = torch.where(s > 0, torch.round(r / torch.where(s > 0, s, 1.0)), 0.0)
+    return hi, q.clamp(-127, 127).to(torch.int8)
+
+
+def _dequantize_i8(hi, q, acc):
+    """``hi + q * 2**(e - 15)`` in ``acc``: exact in f32, since both terms
+    fit in 16 significant bits at ``hi``'s exponent."""
+    u = (hi.view(torch.int16) & 0x7F80).view(torch.bfloat16).to(acc)
+    return hi.to(acc) + q.to(acc) * (u * 2.0 ** -15)
+
+
+def _tiles_spmm_rowq_plain(qband, srow, plan: PackedPlan, X, planes: int):
+    """Plain twin of K10: per slab the int8 planes (exact in f32) times the
+    X windows, the planes summed apart over each block's slabs, then
+    ``srow * (acc_hi + acc_lo / 254)``; in f32, f64 for f64 X."""
+    acc = torch.float64 if X.dtype == torch.float64 else torch.float32
+    G = plan.slab_block.shape[0]
+    SW = plan.S * plan.WT
+    Q = qband.reshape(G, plan.R, planes * SW)
+    Xw = _slab_windows(plan, X, acc)
+    out = _block_sums(plan, torch.bmm(Q[:, :, :SW].to(acc), Xw))
+    if planes == 2:
+        out = out + _block_sums(plan, torch.bmm(Q[:, :, SW:].to(acc),
+                                                Xw)) / 254.0
+    return srow.to(acc)[:, None] * out
+
+
+def _tiles_spmm_i8_plain(hi, q, plan: PackedPlan, X):
+    """Plain twin of K11: the band rebuilt exactly from ``hi`` and ``q``,
+    times the X windows; in f32, f64 for f64 X."""
+    acc = torch.float64 if X.dtype == torch.float64 else torch.float32
+    G = plan.slab_block.shape[0]
+    A = _dequantize_i8(hi, q, acc).reshape(G, plan.R, plan.S * plan.WT)
+    return _block_sums(plan, torch.bmm(A, _slab_windows(plan, X, acc)))
+
+
+def _require_packed_plan(name, plan):
+    if not isinstance(plan, PackedPlan):
+        raise TypeError(f"{name} takes a PackedPlan")
+
+
+def band_tiles_spmm_packed_rowq(qband, srow, plan: PackedPlan, X,
+                                planes: int = 2):
+    """K10: ``out = srow * (q_hi + q_lo / 254) @ X`` on the packed slabs of
+    a :func:`quantize_band_rowq` band; ``out`` is (plan.n, d) float32
+    (f64 for the CPU twin on f64 X), already scaled by ``srow``.
+    ``planes=2`` (exact grade) takes f32 X, ``planes=1`` bf16 X.
+
+    Replaces ``graphlearning_tpu/ops/pallas_spmm.py:1301``
+    ``band_tiles_spmm_packed_rowq`` (kernel ``_tiles_packed_rowq_kernel``,
+    :1267).  On the H100 it is bound by the band's bytes at small d (1 or
+    2 bytes a cell) and by FFMA issue at d near 128; the exact-grade
+    floor is the tensor cores' (bf16 operands hold int8 exactly), a later
+    PR's.  K2's CTA: 128 rows of one block by up to 32 columns of d walk
+    the block's slabs; each 32-column step stages both planes' int8
+    chunks, widened to f32, and the X window rows through shared memory,
+    and FFMA accumulates ``acc_hi`` and ``acc_lo`` apart.  The epilogue
+    writes ``srow[row] * (acc_hi + acc_lo / 254)`` once: the row's scale
+    is fused there, where JAX scaled after the kernel.  The TPU's bf16
+    hi/lo split of X is dropped: f32 FFMA takes X whole, so planes=2
+    keeps the ``q_lo * x_lo`` term that JAX drops."""
+    name = "band_tiles_spmm_packed_rowq"
+    _require_packed_plan(name, plan)
+    if planes not in (1, 2):
+        raise ValueError(f"{name}: planes must be 1 or 2, not {planes}")
+    if _dispatch_device(name, qband, srow, X, plan.slab_starts) == "cpu":
+        return _tiles_spmm_rowq_plain(qband, srow, plan, X, planes)
+    dev = qband.device
+    _require_cuda(name, dev, qband=qband, srow=srow, X=X,
+                  slab_starts=plan.slab_starts, slab_ntiles=plan.slab_ntiles,
+                  block_ptr=plan.block_ptr)
+    x_dtype = torch.float32 if planes == 2 else torch.bfloat16
+    _require(qband.dtype == torch.int8 and srow.dtype == torch.float32
+             and X.dtype == x_dtype,
+             f"{name}: planes={planes} takes an int8 band, float32 srow and "
+             f"{x_dtype} X, not {qband.dtype}, {srow.dtype}, {X.dtype}")
+    G = plan.slab_block.shape[0]
+    SW = plan.S * plan.WT
+    _require(qband.shape == (G * plan.R, planes * SW),
+             f"{name}: band {tuple(qband.shape)} does not match the plan "
+             f"({G * plan.R}, {planes * SW})")
+    _require(srow.shape == (plan.n,),
+             f"{name}: srow {tuple(srow.shape)} must be ({plan.n},)")
+    _require_slab_launch(name, plan, X)
+    out = torch.empty((plan.n, X.shape[1]), dtype=torch.float32, device=dev)
+    lib = _build.load("band_tiles_spmm_q")
+    rc = lib.glt_tiles_spmm_rowq(
+        _ptr(qband), int(planes), _ptr(srow), int(plan.R),
+        _ptr(plan.block_ptr), _ptr(plan.slab_starts), _ptr(plan.slab_ntiles),
+        int(plan.S), int(plan.WT), int(plan.n // plan.R), _ptr(X),
+        int(X.shape[1]), _ptr(out), _stream(qband))
+    if rc:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+    band_tiles_spmm_packed_rowq.launches += 1
+    return out
+
+
+band_tiles_spmm_packed_rowq.launches = 0
+
+
+def band_tiles_spmm_packed_i8(hi, q, plan: PackedPlan, X):
+    """K11: ``out = (hi + q * 2**(e_hi - 15)) @ X`` on the packed slabs of
+    a :func:`quantize_band_i8` band (``hi`` bf16 and ``q`` int8, both
+    (G*R, S*WT)); X float32, ``out`` (plan.n, d) float32 (f64 for the CPU
+    twin on f64 X).
+
+    Replaces ``graphlearning_tpu/ops/pallas_spmm.py:1184``
+    ``band_tiles_spmm_packed_i8`` (kernel ``_tiles_packed_i8_kernel``,
+    :1152).  On the H100 it is bound by the band's 3 bytes a cell at small
+    d and by FFMA issue at d near 128 (the exact grade's tensor-core floor
+    is a later PR's).  K2's CTA; each 32-column step stages ``hi`` and
+    ``q`` and rebuilds the cell ``hi + q * 2**(e - 15)`` exactly in f32
+    from ``hi``'s exponent bits before it goes to shared memory, then
+    FFMA against f32 X.  The TPU's bf16 hi/lo split of X is dropped, as
+    in K10."""
+    name = "band_tiles_spmm_packed_i8"
+    _require_packed_plan(name, plan)
+    if _dispatch_device(name, hi, q, X, plan.slab_starts) == "cpu":
+        return _tiles_spmm_i8_plain(hi, q, plan, X)
+    dev = hi.device
+    _require_cuda(name, dev, hi=hi, q=q, X=X, slab_starts=plan.slab_starts,
+                  slab_ntiles=plan.slab_ntiles, block_ptr=plan.block_ptr)
+    _require(hi.dtype == torch.bfloat16 and q.dtype == torch.int8
+             and X.dtype == torch.float32,
+             f"{name}: takes bfloat16 hi, int8 q and float32 X, not "
+             f"{hi.dtype}, {q.dtype}, {X.dtype}")
+    G = plan.slab_block.shape[0]
+    shape = (G * plan.R, plan.S * plan.WT)
+    _require(hi.shape == shape and q.shape == shape,
+             f"{name}: hi {tuple(hi.shape)} and q {tuple(q.shape)} must be "
+             f"{shape}")
+    _require_slab_launch(name, plan, X)
+    out = torch.empty((plan.n, X.shape[1]), dtype=torch.float32, device=dev)
+    lib = _build.load("band_tiles_spmm_q")
+    rc = lib.glt_tiles_spmm_i8(
+        _ptr(hi), _ptr(q), int(plan.R), _ptr(plan.block_ptr),
+        _ptr(plan.slab_starts), _ptr(plan.slab_ntiles), int(plan.S),
+        int(plan.WT), int(plan.n // plan.R), _ptr(X), int(X.shape[1]),
+        _ptr(out), _stream(hi))
+    if rc:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+    band_tiles_spmm_packed_i8.launches += 1
+    return out
+
+
+band_tiles_spmm_packed_i8.launches = 0
 
 
 # -- K4: the rectangular band --------------------------------------------------
@@ -1261,6 +1491,8 @@ KERNELS = {
     "band_spmm": band_spmm,
     "banded_spmm": banded_spmm,
     "band_minplus": band_minplus,
+    "band_tiles_spmm_packed_rowq": band_tiles_spmm_packed_rowq,
+    "band_tiles_spmm_packed_i8": band_tiles_spmm_packed_i8,
 }
 
 

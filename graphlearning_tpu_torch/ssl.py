@@ -470,10 +470,11 @@ def _lip_accel(model):
     fit round the window of u to 8 bits each block, stop much later and
     move the prediction: on the 65536-node moons input 2602 sweeps against
     2129, agreeing with the plain path on 0.9878 of the nodes against
-    0.9975 (``tools/lip_paths.py`` on an H100)."""
+    0.9975 (``tools/lip_paths.py`` on an H100).  The fits run only on a
+    stored band, so no gather is built for them."""
     return _accel.maybe_build(model.graph.weight_matrix, cache_obj=model,
                               attr="_accel_dist", device=model.graph.device,
-                              mode="f32")
+                              mode="f32", gather=False)
 
 
 class amle(ssl):

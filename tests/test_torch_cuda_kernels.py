@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K9 of graphlearning_tpu_torch against their plain
+"""The CUDA kernels K1-K11 of graphlearning_tpu_torch against their plain
 torch twins, on a GPU.
 
 Every test here needs the card: it carries the ``cuda`` marker and skips
@@ -409,3 +409,114 @@ def test_cuda_accel_rect_route_takes_the_kernels(cuda_device, monkeypatch,
     assert bs.launches()["band_minplus"] > after["band_minplus"]
     np.testing.assert_allclose(d_b, d_p, rtol=1e-5, atol=1e-6)
     assert np.mean(cp_b == cp_p) > 0.999
+
+
+@pytest.fixture(scope="module")
+def packed_q_case():
+    """The packed (256, 128, 12) geometry on an RCM-ordered kNN graph of
+    4096 rows, every edge in a tile; row block 3 loses its slabs (an
+    empty row block) and rows 10-19 of block 0 are zero in every slab."""
+    W = _knn_csr(4000, 10, seed=3)
+    perm = np.asarray(reverse_cuthill_mckee(W, symmetric_mode=True))
+    Wp = W[perm][:, perm].tocsr()
+    Wp.resize((4096, 4096))
+    cols, vals, deg = SparseGraph.ell_from_scipy(Wp)
+    R, WT, S = 256, 128, 12
+    tb, ts, bf, rr, _, _ = bs.plan_tiles(
+        cols, R=R, WT=WT, deg=deg, kcap=cols.shape[1], min_edges_per_tile=1,
+        hbm_budget_bytes=float("inf"))
+    assert len(rr) == 0
+    sb, sts, _, src = bs.pack_tiles(tb, ts, bf, S)
+    band = bs._materialize_band_tiles_plain(
+        *(torch.as_tensor(a) for a in (cols, vals.astype(np.float32), tb,
+                                       ts)), R, WT, torch.float32)
+    packed = bs.pack_band(band, src, R=R, WT=WT).reshape(len(sb), R, -1)
+    packed[sb == 0, 10:20] = 0.0
+    keep = sb != 3
+    assert (sb == 3).any() and keep.sum() > 8
+    return (packed[torch.as_tensor(keep)].reshape(-1, S * WT), sb[keep],
+            sts[keep], src[keep], R, WT)
+
+
+def _packed_q(packed_q_case, dev):
+    band, sb, sts, src, R, WT = packed_q_case
+    plan = bs.PackedPlan.from_slabs(sb, sts, src, 4096, R, WT, dev)
+    return band.to(dev), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rowq2", "rowq1", "i8"])
+@pytest.mark.parametrize("d", [1, 10, 33, 128])
+def test_cuda_quantized_kernels_match_twins(packed_q_case, cuda_device, kind,
+                                            d):
+    """K10 (planes 2 and 1) and K11 against their twins, within 1e-5 of
+    max|ref| (exact cells, f32 sums in another order); the empty row
+    block and the all-zero rows come out 0."""
+    band, plan = _packed_q(packed_q_case, cuda_device)
+    X = torch.randn((4096, d), device=cuda_device)
+    if kind == "i8":
+        hi, q = bs.quantize_band_i8(band)
+        wrapper = bs.band_tiles_spmm_packed_i8
+        run = lambda: wrapper(hi, q, plan, X)
+        ref = bs._tiles_spmm_i8_plain(hi, q, plan, X)
+    else:
+        planes = int(kind[-1])
+        qband, srow = bs.quantize_band_rowq(band, plan, plan.n, planes)
+        Xk = X if planes == 2 else X.to(torch.bfloat16)
+        wrapper = bs.band_tiles_spmm_packed_rowq
+        run = lambda: wrapper(qband, srow, plan, Xk, planes)
+        ref = bs._tiles_spmm_rowq_plain(qband, srow, plan, Xk, planes)
+    n0 = wrapper.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    assert out.shape == (4096, d) and out.dtype == torch.float32
+    _close(out, ref, torch.float32)
+    assert not out[3 * 256:4 * 256].any()           # the empty row block
+    assert not out[10:20].any()                     # the all-zero rows
+
+
+@pytest.mark.cuda
+def test_cuda_quantized_wrappers_refuse(packed_q_case, cuda_device):
+    dev = cuda_device
+    band, plan = _packed_q(packed_q_case, dev)
+    qband, srow = bs.quantize_band_rowq(band, plan, plan.n, 2)
+    hi, q = bs.quantize_band_i8(band)
+    X = torch.zeros((4096, 4), device=dev)
+    with pytest.raises(ValueError):          # X on the CPU, band on CUDA
+        bs.band_tiles_spmm_packed_rowq(qband, srow, plan, X.cpu(), 2)
+    with pytest.raises(ValueError):          # planes=1 takes bf16 X
+        bs.band_tiles_spmm_packed_rowq(qband[:, :plan.S * plan.WT]
+                                       .contiguous(), srow, plan, X, 1)
+    with pytest.raises(ValueError):          # planes=2 takes an int8 band
+        bs.band_tiles_spmm_packed_rowq(band.repeat(1, 2), srow, plan, X, 2)
+    with pytest.raises(ValueError):          # too few X rows
+        bs.band_tiles_spmm_packed_rowq(qband, srow, plan, X[:64], 2)
+    with pytest.raises(ValueError):          # q on the CPU
+        bs.band_tiles_spmm_packed_i8(hi, q.cpu(), plan, X)
+    with pytest.raises(ValueError):          # K11 takes f32 X
+        bs.band_tiles_spmm_packed_i8(hi, q, plan, X.double())
+    with pytest.raises(TypeError):           # a TilesPlan is not K11's
+        bs.band_tiles_spmm_packed_i8(hi, q, bs.TilesPlan.from_tiles(
+            [0], [0], 4096, 256, 128, dev), X)
+
+
+@pytest.mark.cuda
+def test_cuda_bench_runs_every_mode(cuda_device):
+    """The bench's 2-D spmm on the card runs the five modes, each within
+    its grade of the scipy f64 chain, and launches K10 and K11."""
+    from graphlearning_tpu_torch import bench
+
+    bs.reset_launches()
+    line = bench.main(device=cuda_device, mode="spmm", geom="2d", n=16384,
+                      k=16, d=16, iters=5, prec=None, band_kernels=True,
+                      stored_band=True)
+    modes = line["config"]["modes"]
+    assert set(modes) == set(bench.SPMM_MODES)
+    assert modes["f32"]["rel_err_chain"] <= 1e-4
+    for mode, grade in (("rowq2_int8", 1e-4), ("bf16i8", 1e-4),
+                        ("rowq1_int8", 2e-2), ("bf16", 2e-2)):
+        assert modes[mode]["rel_err_single"] <= grade, mode
+    launches = bs.launches()
+    assert launches["band_tiles_spmm_packed_rowq"] > 0
+    assert launches["band_tiles_spmm_packed_i8"] > 0
