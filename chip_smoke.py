@@ -18,9 +18,10 @@ Phases (any failure exits non-zero before the result line):
    Laplace, Poisson (CG) and Poisson (gradient descent) through the public
    entry points on the packed band path (K1 + K2), Laplace again on the
    unpacked fallback path (K1 + K3), and all of them on the plain ELL path
-   for comparison; then the kernels against their twins at the fits' own
-   shapes, and the time of one whole matvec (band kernel plus residual)
-   beside the plain ELL gather;
+   for comparison (accuracy, agreement, and the band fits' iteration
+   counts within 1 % of the plain path's); then the kernels against their
+   twins at the fits' own shapes, and the time of one whole matvec (band
+   kernel plus residual) beside the plain ELL gather;
 4. the distance and Lipschitz path on the same graph: ``graph.dijkstra``
    (plain, reciprocal) and ``dijkstra_hl`` on the band (K1 + K7),
    ``ssl.plaplace`` and ``ssl.amle`` on the band (K2 warm start, K4 band,
@@ -130,6 +131,7 @@ REFERENCE_ACCURACY = {"laplace": 99.1957, "poisson_cg": 94.2695,
                       "plaplace": 93.8391, "amle": 92.3069,
                       "peikonal": 89.6926}
 ACCURACY_MARGIN = 1.0
+ITERS_MARGIN = 0.01      # band fits' iterations against the plain path's
 
 
 class SmokeFailure(RuntimeError):
@@ -196,7 +198,8 @@ def compare(label, out, ref, tol):
 
 def report(entry):
     say("  " + json.dumps({k: entry[k] for k in (
-        "variant", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+        "variant", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "sums_library_ms", "gb_s", "bound_share") if k in entry}))
     return entry
 
 
@@ -239,12 +242,15 @@ def spmm_entry(torch, bs, name, label, band, plan, X, library):
               + (plan.slab_starts.numel() + plan.slab_ntiles.numel()
                  + plan.block_ptr.numel()) * 4)
     b_ms, b_by = bound(nbytes, 2 * nnz_band * d, dname)
+    ms = time_ms(torch, run)
     return report({
         "name": name, "variant": label, "max_abs_err": err,
-        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+        "ms": ms, "plain_ms": time_ms(torch, plain),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": (time_ms(torch, library) if library is not None
                        else None),
+        # the bound's bytes over the kernel's time, and bound / time
+        "gb_s": nbytes / ms * 1e-6, "bound_share": b_ms / ms,
         "shapes": {"band": list(band.shape), "X": list(X.shape),
                    "slabs": int(plan.slab_block.numel()),
                    "real_tiles": int(plan.slab_ntiles.sum()),
@@ -351,8 +357,10 @@ def k7_entry(torch, bs, label, band, plan, d, f, hopf, recip, track,
 
 def k9_entry(torch, bs, label, band, plan, U, csr=None):
     """K9 against its twin: sums within TOL of max|ref|, min and max
-    identical.  ``csr`` gives the yardstick of the sums:
-    ``torch.sparse.mm`` on the permuted graph."""
+    identical.  No PyTorch call computes K9's function (the sums with the
+    neighbors' min and max), so ``library_ms`` is None; ``csr`` gives
+    ``sums_library_ms``, ``torch.sparse.mm`` on the permuted graph, which
+    computes the sums alone."""
     run = lambda: bs.band_tiles_lip(band, plan, U)
     plain = lambda: bs._tiles_lip_plain(band, plan, U)
     out = run()
@@ -374,9 +382,9 @@ def k9_entry(torch, bs, label, band, plan, U, csr=None):
         "name": "band_tiles_lip", "variant": label, "max_abs_err": err,
         "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": (time_ms(torch, lambda: torch.sparse.mm(csr, U))
-                       if csr is not None else None),
-        "library": "torch.sparse.mm (the sums)" if csr is not None else None,
+        "library_ms": None,
+        "sums_library_ms": (time_ms(torch, lambda: torch.sparse.mm(csr, U))
+                            if csr is not None else None),
         "shapes": {"band": list(band.shape), "tiles": G, "R": plan.R,
                    "WT": plan.WT, "C": C, "band_nnz": nnz_band,
                    "dtype": dname}})
@@ -546,19 +554,21 @@ def fit_phase(torch, gl, accel, bs):
 
     # path A, the main path: packed band (K1 + K2)
     bs.reset_launches()
-    band_path = {name: fit(f"band/{name}", make)[:2]
+    band_fits = {name: fit(f"band/{name}", make)
                  for name, make in models.items()}
+    band_path = {name: r[:2] for name, r in band_fits.items()}
     launches_a = bs.launches()
     say(f"  launches on the packed band path: {launches_a}")
     # path B, the fallback: unpacked tiles (K1 + K3)
     bs.reset_launches()
     with env("GLT_NO_PACKED", "1"):
-        tiles_pred = fit("tiles/laplace", models["laplace"])[0]
+        tiles_pred, _, tiles_m = fit("tiles/laplace", models["laplace"])
     launches_b = bs.launches()
     say(f"  launches on the unpacked fallback path: {launches_b}")
     with env("GLT_NO_ACCEL", "1"):
-        plain = {name: fit(f"plain/{name}", make)[:2]
-                 for name, make in models.items()}
+        plain_fits = {name: fit(f"plain/{name}", make)
+                      for name, make in models.items()}
+    plain = {name: r[:2] for name, r in plain_fits.items()}
 
     if launches_a["materialize_band_tiles"] < 1 \
             or launches_a["band_tiles_spmm_packed"] < 1:
@@ -568,6 +578,16 @@ def fit_phase(torch, gl, accel, bs):
             or launches_b["band_tiles_spmm"] < 1:
         raise SmokeFailure(f"the fallback fit did not take the unpacked "
                            f"tiles: {launches_b}")
+    # the exact f32 mode stays exact: its CG and GD iteration counts stay
+    # within ITERS_MARGIN of the plain path's
+    iters = [(f"band/{name}", m, name) for name, (_, _, m)
+             in band_fits.items()] + [("tiles/laplace", tiles_m, "laplace")]
+    for label, m, name in iters:
+        ref_iters = plain_fits[name][2].iters
+        if abs(m.iters - ref_iters) > ITERS_MARGIN * ref_iters:
+            raise SmokeFailure(f"{label}: {m.iters} iterations against "
+                               f"the plain path's {ref_iters}")
+        say(f"  {label}: {m.iters} iterations, plain {ref_iters}")
     for name, (_, accuracy) in band_path.items():
         floor = REFERENCE_ACCURACY[name] - ACCURACY_MARGIN
         if accuracy < floor:
@@ -1289,7 +1309,11 @@ def main():
     say(f"== build: {time.perf_counter() - t0:.1f} s ({sorted(reports)})")
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            # every instantiation of K2/K3's CTA with its registers and
+            # spills; the others' register and spill lines
+            if ("registers" in line or "spill" in line
+                    or (name == "band_tiles_spmm"
+                        and "Compiling entry function" in line)):
                 say(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()

@@ -23,13 +23,13 @@
 // Bound: at small d the band's bytes (1, 2 or 3 a cell); near d = 128 the
 // f32 FFMA issue rate.  The exact-grade floor on this card is the bf16
 // tensor cores' (int8 values are exact in bf16, so mma.sync or wgmma on
-// bf16 operands computes the same products): a later PR's route.  Design:
-// K2's CTA.  ROWS threads own ROWS output rows of one block and a chunk of
-// DC output columns; they walk the block's slabs, staging KC band columns
-// of their rows (byte loads, one warp per row segment; the 16-byte loads
-// wait for a PR that proves the alignment), widened (K10) or rebuilt (K11)
-// to f32, and the KC matching X rows through shared memory, and accumulate
-// in registers with FFMA.  K10 keeps acc_hi and acc_lo apart and writes
+// bf16 operands computes the same products), K2's route now.  Design: the
+// FFMA CTA K2 had before its tensor-core ring.  ROWS threads own ROWS
+// output rows of one block and a chunk of DC output columns; they walk the
+// block's slabs, staging KC band columns of their rows (byte loads, one
+// warp per row segment; no 16-byte loads, whose alignment is not checked
+// here), widened (K10) or rebuilt (K11) to f32, and the KC matching X rows
+// through shared memory, and accumulate in registers with FFMA.  K10 keeps acc_hi and acc_lo apart and writes
 // srow[row] * (acc_hi + acc_lo / 254) in the epilogue: the row's scale is
 // fused there, where the JAX package scaled after the kernel.  The TPU's
 // bf16 hi/lo split of X, which emulated f32 on its matrix unit, is not

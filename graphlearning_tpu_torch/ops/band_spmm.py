@@ -370,6 +370,9 @@ class _SlabPlan:
             raise ValueError("each slab needs 1..S real tiles")
         if slab_starts.size and slab_starts.min() < 0:
             raise ValueError("negative tile start")
+        if np.any(slab_starts % WT):
+            # K2/K3 stage a chunk's X rows as one contiguous block
+            raise ValueError(f"tile starts must be multiples of WT={WT}")
         x_rows = int(slab_starts.max()) + WT if slab_starts.size else 0
         block_ptr = np.searchsorted(slab_block, np.arange(nblocks + 1),
                                     side="left").astype(np.int32)
@@ -448,8 +451,14 @@ class BandedPlan(_WindowPlan):
 # -- kernels ------------------------------------------------------------------
 
 _CUDA_BAND_DTYPES = (torch.float32, torch.bfloat16)
-_ROWS_PER_CTA = 128    # csrc/band_tiles_spmm.cu, band_tiles_lip.cu ROWS
-_COLS_PER_STEP = 32    # csrc/band_tiles_spmm.cu, band_tiles_lip.cu KC
+# the FFMA CTAs: csrc/band_tiles_lip.cu, band_rect_spmm.cu and
+# band_tiles_spmm_q.cu ROWS and KC
+_ROWS_PER_CTA = 128
+_COLS_PER_STEP = 32
+# the tensor-core CTA of K2 and K3: csrc/band_tiles_spmm.cu ROWS, KC, DMAX
+_TILES_ROWS = 64       # output rows per CTA
+_TILES_KC = 64         # band columns per ring stage
+_TILES_DMAX = 128      # widest d of one launch
 _MINPLUS_ROWS = 64     # csrc/band_tiles_minplus.cu ROWS
 
 
@@ -581,17 +590,23 @@ def _tiles_spmm_plain(band, plan: _SlabPlan, X):
     return _block_sums(plan, torch.bmm(A, _slab_windows(plan, X, acc)))
 
 
-def _require_slab_launch(name, plan: _SlabPlan, X):
-    """The checks every slab kernel (K2, K3, K10, K11) shares: X's rows
-    and the CTA geometry."""
+def _require_x_rows(name, plan: _SlabPlan, X):
     _require(X.dim() == 2 and X.shape[1] >= 1 and X.shape[0] >= plan.x_rows,
              f"{name}: X {tuple(X.shape)} needs >= {plan.x_rows} rows")
+
+
+def _require_slab_launch(name, plan: _SlabPlan, X):
+    """The checks the FFMA slab kernels (K10, K11) share: X's rows and the
+    CTA geometry."""
+    _require_x_rows(name, plan, X)
     _require(plan.R % _ROWS_PER_CTA == 0 and plan.WT % _COLS_PER_STEP == 0,
              f"{name}: the kernel takes R a multiple of {_ROWS_PER_CTA} and "
              f"WT a multiple of {_COLS_PER_STEP}")
 
 
 def _tiles_spmm_cuda(name, band, plan: _SlabPlan, X):
+    """Launch K2/K3 once per ``_TILES_DMAX`` columns of d; returns ``(out,
+    launches)``."""
     dev = band.device
     _require_cuda(name, dev, band=band, X=X, slab_starts=plan.slab_starts,
                   slab_ntiles=plan.slab_ntiles, block_ptr=plan.block_ptr)
@@ -602,18 +617,30 @@ def _tiles_spmm_cuda(name, band, plan: _SlabPlan, X):
     _require(band.shape == (G * plan.R, plan.S * plan.WT),
              f"{name}: band {tuple(band.shape)} does not match the plan "
              f"({G * plan.R}, {plan.S * plan.WT})")
-    _require_slab_launch(name, plan, X)
-    out = torch.empty((plan.n, X.shape[1]), dtype=torch.float32, device=dev)
+    _require_x_rows(name, plan, X)
+    _require(plan.R % _TILES_ROWS == 0 and plan.WT % _TILES_KC == 0,
+             f"{name}: the kernel takes R a multiple of {_TILES_ROWS} and "
+             f"WT a multiple of {_TILES_KC}")
+    # the cp.async ring copies 16-byte pieces
+    _require(band.data_ptr() % 16 == 0 and X.data_ptr() % 16 == 0,
+             f"{name}: band and X must start on 16-byte boundaries")
+    d = X.shape[1]
+    out = torch.empty((plan.n, d), dtype=torch.float32, device=dev)
     lib = _build.load("band_tiles_spmm")
-    rc = lib.glt_tiles_spmm(
-        _ptr(band), int(band.dtype == torch.bfloat16), int(band.shape[1]),
-        int(plan.R), _ptr(plan.block_ptr), _ptr(plan.slab_starts),
-        _ptr(plan.slab_ntiles), int(plan.S), int(plan.WT),
-        int(plan.n // plan.R), _ptr(X), int(X.shape[1]), _ptr(out),
-        _stream(band))
-    if rc:
-        raise RuntimeError(f"{name}: CUDA error {rc}")
-    return out
+    n_launch = 0
+    for c0 in range(0, d, _TILES_DMAX):
+        # one launch covers d <= _TILES_DMAX; wider X goes in column blocks
+        Xc = X if d <= _TILES_DMAX else X[:, c0:c0 + _TILES_DMAX].contiguous()
+        rc = lib.glt_tiles_spmm(
+            _ptr(band), int(band.dtype == torch.bfloat16),
+            int(band.shape[1]), int(plan.R), _ptr(plan.block_ptr),
+            _ptr(plan.slab_starts), _ptr(plan.slab_ntiles), int(plan.S),
+            int(plan.WT), int(plan.n // plan.R), _ptr(Xc), int(Xc.shape[1]),
+            ctypes.c_void_p(out.data_ptr() + 4 * c0), int(d), _stream(band))
+        if rc:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
+        n_launch += 1
+    return out, n_launch
 
 
 def band_tiles_spmm_packed(band, plan: PackedPlan, X):
@@ -622,24 +649,30 @@ def band_tiles_spmm_packed(band, plan: PackedPlan, X):
 
     Replaces ``graphlearning_tpu/ops/pallas_spmm.py:1077``
     ``band_tiles_spmm_packed`` (kernel ``_tiles_packed_kernel``, :1040).
-    On the H100 it is bound by the bytes of the band at small d (about
-    d/4 multiply-adds per f32 band byte) and by f32 FMA issue at d near
-    128.  One CTA owns 128 output rows of one row block and a chunk of up
-    to 32 columns of d: it walks that block's slabs (no atomics, so the
-    zeroing flag of the TPU kernel is implicit), stages 32-column band
-    chunks and the matching X window rows through shared memory, and
-    accumulates in registers with FFMA.  Pad tiles are skipped.  d is not
-    padded (the TPU padded it to its 128 lanes).  Modes: an f32 band with
-    f32 X computes exact f32 (the TPU's f32 and bf16x3); a bf16 band with
-    bf16 X multiplies exactly and sums in f32 (the TPU's bf16).
+    On the H100 its bound is the bytes of the band at any d up to 128:
+    the dense tiles' products run on the tensor cores, and only their
+    occupied fragments (about 10 % at the bench geometry).  One CTA of 8
+    warps owns 64 output rows of one row block and all of d up to 128
+    (wider X goes in 128-column launches): it walks that block's slabs through a 4-stage ``cp.async`` ring of 64-column
+    band chunks and their X rows, multiplies on the tensor cores (bf16
+    ``mma.sync``, or 3xTF32 for the exact f32 mode), splits each chunk's
+    K slices across its warps and sums their partial tiles in shared
+    memory before one store (no atomics, so the zeroing flag of the TPU
+    kernel is implicit).  Pad tiles and all-zero band fragments are
+    skipped.  d is not padded in memory (the TPU padded it to its 128
+    lanes).  Modes: an f32 band with f32 X computes f32 to about 2^-21
+    (the TPU's f32 and bf16x3); a bf16 band with bf16 X multiplies
+    exactly and sums in f32 (the TPU's bf16).  ``band`` and ``X`` must
+    start on 16-byte boundaries; R must be a multiple of 64 and WT of 64.
     """
     if not isinstance(plan, PackedPlan):
         raise TypeError("band_tiles_spmm_packed takes a PackedPlan")
     if _dispatch_device("band_tiles_spmm_packed", band, X,
                         plan.slab_starts) == "cpu":
         return _tiles_spmm_plain(band, plan, X)
-    out = _tiles_spmm_cuda("band_tiles_spmm_packed", band, plan, X)
-    band_tiles_spmm_packed.launches += 1
+    out, n_launch = _tiles_spmm_cuda("band_tiles_spmm_packed", band, plan,
+                                     X)
+    band_tiles_spmm_packed.launches += n_launch
     return out
 
 
@@ -661,8 +694,8 @@ def band_tiles_spmm(band, plan: TilesPlan, X):
     if _dispatch_device("band_tiles_spmm", band, X,
                         plan.slab_starts) == "cpu":
         return _tiles_spmm_plain(band, plan, X)
-    out = _tiles_spmm_cuda("band_tiles_spmm", band, plan, X)
-    band_tiles_spmm.launches += 1
+    out, n_launch = _tiles_spmm_cuda("band_tiles_spmm", band, plan, X)
+    band_tiles_spmm.launches += n_launch
     return out
 
 

@@ -5,6 +5,9 @@ kernels K1-K9 are held against the Pallas kernels in interpret mode; the
 CUDA kernels are held against the twins in ``test_torch_cuda_kernels.py``.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -583,3 +586,91 @@ def test_window_plans_refuse_what_they_do_not_describe():
     with pytest.raises(TypeError):
         bs.band_minplus(torch.zeros(1024, 256), plan, torch.zeros(1024),
                         torch.ones(1024))
+
+
+_CSRC = Path(bs.__file__).resolve().parents[1] / "csrc"
+
+
+def _constexprs(source):
+    """The namespace-level ``constexpr int`` constants of a kernel source."""
+    text = (_CSRC / source).read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"^constexpr int (\w+) = (\d+);", text, re.M)}
+
+
+@pytest.mark.parametrize("source,names", [
+    ("band_tiles_spmm.cu", {"ROWS": "_TILES_ROWS", "KC": "_TILES_KC",
+                            "DMAX": "_TILES_DMAX"}),
+    ("band_tiles_spmm_q.cu", {"ROWS": "_ROWS_PER_CTA",
+                              "KC": "_COLS_PER_STEP"}),
+    ("band_tiles_lip.cu", {"ROWS": "_ROWS_PER_CTA", "KC": "_COLS_PER_STEP"}),
+    ("band_rect_spmm.cu", {"ROWS": "_ROWS_PER_CTA", "KC": "_COLS_PER_STEP"}),
+    ("band_tiles_minplus.cu", {"ROWS": "_MINPLUS_ROWS"}),
+    ("band_rect_minplus.cu", {"ROWS": "_MINPLUS_ROWS"}),
+])
+def test_kernel_geometry_matches_the_wrapper_checks(source, names):
+    """Each CUDA source's CTA geometry is the one its wrapper checks."""
+    consts = _constexprs(source)
+    for cname, pyname in names.items():
+        assert consts[cname] == getattr(bs, pyname), (source, cname)
+
+
+def test_tiles_spmm_geometry_admits_the_main_path_plans():
+    """K2/K3's CTA divides the packed and the unpacked plans of the
+    accel, and the X block of a ring stage is whole 16-byte pieces for
+    any d in both modes (KC * d * 4 and KC * d * 2 bytes)."""
+    from graphlearning_tpu_torch.ops import accel
+
+    for R, WT in ((accel._PACKED_R, accel._PACKED_WT),
+                  (accel._TILES_R, accel._TILES_WT)):
+        assert R % bs._TILES_ROWS == 0 and WT % bs._TILES_KC == 0
+    assert bs._TILES_KC * 2 % 16 == 0
+    assert bs._TILES_ROWS % 16 == 0              # whole m16 MMA tiles
+
+
+def test_slab_plan_refuses_tile_starts_off_the_tile_grid():
+    with pytest.raises(ValueError):
+        bs.TilesPlan.from_tiles([0], [32], 256, 128, 64, "cpu")
+    bs.TilesPlan.from_tiles([0], [64], 256, 128, 64, "cpu")
+
+
+def _uneven_slabs():
+    """Tiles of R=128, WT=64 over 4 row blocks and 1536 X rows: block 0
+    holds 9 tiles, block 1 one, block 2 none, block 3 five."""
+    rs = np.random.RandomState(4)
+    R, WT, x_rows = 128, 64, 1536
+    tb, ts = [], []
+    for b, c in ((0, 9), (1, 1), (3, 5)):
+        tb += [b] * c
+        ts += sorted(rs.choice(x_rows // WT, c, replace=False) * WT)
+    band = rs.randn(len(tb) * R, WT)
+    band[rs.rand(*band.shape) < 0.95] = 0
+    return band, np.asarray(tb, np.int32), np.asarray(ts, np.int32), R, WT
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_tiles_spmm_twin_uneven_blocks_matches_dense(S):
+    """K2 (S=4: slabs of 4, 4 and 1 tiles, pad tiles) and K3 (S=1) twins
+    on very uneven blocks, an empty block and a rectangular X, against
+    the dense product in f64."""
+    band, tb, ts, R, WT = _uneven_slabs()
+    n, x_rows = 4 * R, 1536
+    dense = np.zeros((n, x_rows))
+    for i, (b, s) in enumerate(zip(tb, ts)):
+        dense[b * R:(b + 1) * R, s:s + WT] += band[i * R:(i + 1) * R]
+    X = np.random.RandomState(5).randn(x_rows, 3)
+    band_t = torch.as_tensor(band)
+    if S == 1:
+        plan = bs.TilesPlan.from_tiles(tb, ts, n, R, WT, "cpu")
+        out = bs.band_tiles_spmm(band_t, plan, torch.as_tensor(X))
+    else:
+        bf = np.zeros(len(tb), np.int32)
+        bf[np.unique(tb, return_index=True)[1]] = 1
+        sb, sts, _, src = bs.pack_tiles(tb, ts, bf, S)
+        assert (src < 0).any() and (np.bincount(sb) == [3, 1, 0, 2]).all()
+        plan = bs.PackedPlan.from_slabs(sb, sts, src, n, R, WT, "cpu")
+        out = bs.band_tiles_spmm_packed(bs.pack_band(band_t, src, R, WT),
+                                        plan, torch.as_tensor(X))
+    np.testing.assert_allclose(out.numpy(), dense @ X, rtol=1e-12,
+                               atol=1e-12)
+    assert not out[2 * R:3 * R].any()

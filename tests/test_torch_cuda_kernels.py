@@ -70,9 +70,18 @@ def _close(out, ref, dtype):
                                atol=TOL[dtype] * float(ref.abs().max()))
 
 
+# d of the K2/K3 cases: the MMA's n = 8 padding (1-16), one and several
+# 32-column warp groups (40, 128), and the 128-column launches above 128
+TILES_D = [1, 2, 3, 8, 10, 16, 40, 128, 130]
+
+
+def _tiles_launches(d):
+    return -(-d // bs._TILES_DMAX)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [1, 3, 10, 40])
+@pytest.mark.parametrize("d", TILES_D)
 def test_cuda_kernels_match_twins(banded_tiles, cuda_device, dtype, d):
     cols, vals, tb, ts, bf, R, WT = banded_tiles
     dev = cuda_device
@@ -87,7 +96,7 @@ def test_cuda_kernels_match_twins(banded_tiles, cuda_device, dtype, d):
     plan = bs.TilesPlan.from_tiles(tb, ts, 1024, R, WT, dev)
     n0 = bs.band_tiles_spmm.launches
     out = bs.band_tiles_spmm(band, plan, X)
-    assert bs.band_tiles_spmm.launches == n0 + 1
+    assert bs.band_tiles_spmm.launches == n0 + _tiles_launches(d)
     ref = bs._tiles_spmm_plain(band, plan, X)
     _close(out, ref, dtype)
 
@@ -96,8 +105,91 @@ def test_cuda_kernels_match_twins(banded_tiles, cuda_device, dtype, d):
     pplan = bs.PackedPlan.from_slabs(sb, sts, src, 1024, R, WT, dev)
     n0 = bs.band_tiles_spmm_packed.launches
     out = bs.band_tiles_spmm_packed(packed, pplan, X)
-    assert bs.band_tiles_spmm_packed.launches == n0 + 1
+    assert bs.band_tiles_spmm_packed.launches == n0 + _tiles_launches(d)
     _close(out, ref, dtype)
+
+
+@pytest.fixture(scope="module")
+def uneven_slabs():
+    """Tiles of R=128, WT=64 over 4 row blocks and 1536 X rows: block 0
+    holds 9 tiles (slabs of 4, 4 and 1 at S=4, so pad tiles), block 1 a
+    single tile, block 2 none, block 3 five.  95 % of the cells are zero,
+    and rows 16-47 of block 0's tiles are all zero (whole MMA fragments
+    for the kernel to skip)."""
+    rs = np.random.RandomState(4)
+    R, WT, S, x_rows = 128, 64, 4, 1536
+    tb, ts = [], []
+    for b, c in ((0, 9), (1, 1), (3, 5)):
+        tb += [b] * c
+        ts += sorted(rs.choice(x_rows // WT, c, replace=False) * WT)
+    tb = np.asarray(tb, np.int32)
+    band = rs.randn(len(tb) * R, WT).astype(np.float32)
+    band[rs.rand(*band.shape) < 0.95] = 0
+    band.reshape(len(tb), R, WT)[tb == 0, 16:48] = 0
+    bf = np.zeros(len(tb), np.int32)
+    bf[np.unique(tb, return_index=True)[1]] = 1
+    return band, tb, np.asarray(ts, np.int32), bf, R, WT, S, x_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", TILES_D)
+def test_cuda_tiles_spmm_uneven_blocks_rectangular_x(uneven_slabs,
+                                                     cuda_device, dtype, d):
+    """K3 and K2 on very uneven blocks (9, 1, 0 and 5 tiles), pad tiles
+    and a rectangular X (1536 rows for 512 outputs) against their twins;
+    the empty block comes out 0."""
+    band_np, tb, ts, bf, R, WT, S, x_rows = uneven_slabs
+    dev = cuda_device
+    n = 4 * R
+    band = torch.as_tensor(band_np, device=dev).to(dtype)
+    X = torch.randn((x_rows, d), device=dev).to(dtype)
+    plan = bs.TilesPlan.from_tiles(tb, ts, n, R, WT, dev)
+    n0 = bs.band_tiles_spmm.launches
+    out = bs.band_tiles_spmm(band, plan, X)
+    assert bs.band_tiles_spmm.launches == n0 + _tiles_launches(d)
+    ref = bs._tiles_spmm_plain(band, plan, X)
+    _close(out, ref, dtype)
+    assert not out[2 * R:3 * R].any()
+
+    sb, sts, _, src = bs.pack_tiles(tb, ts, bf, S)
+    assert (src < 0).any()
+    packed = bs.pack_band(band, src, R=R, WT=WT)
+    pplan = bs.PackedPlan.from_slabs(sb, sts, src, n, R, WT, dev)
+    n0 = bs.band_tiles_spmm_packed.launches
+    out = bs.band_tiles_spmm_packed(packed, pplan, X)
+    assert bs.band_tiles_spmm_packed.launches == n0 + _tiles_launches(d)
+    _close(out, ref, dtype)
+    assert not out[2 * R:3 * R].any()
+
+
+@pytest.mark.cuda
+def test_cuda_tiles_spmm_refuses_misaligned_operands(banded_tiles,
+                                                     cuda_device):
+    """K2/K3's ring copies 16-byte pieces: a band or an X that does not
+    start on a 16-byte boundary is refused, not copied."""
+    cols, vals, tb, ts, bf, R, WT = banded_tiles
+    dev = cuda_device
+    args = [torch.as_tensor(a, device=dev) for a in (cols, vals, tb, ts)]
+    band = bs.materialize_band_tiles(*args, R=R, WT=WT)
+    plan = bs.TilesPlan.from_tiles(tb, ts, 1024, R, WT, dev)
+    X = torch.randn((1024, 3), device=dev)
+    X_off = torch.zeros(1024 * 3 + 1, device=dev)[1:].view(1024, 3)
+    X_off.copy_(X)
+    assert X_off.is_contiguous() and X_off.data_ptr() % 16
+    with pytest.raises(ValueError):
+        bs.band_tiles_spmm(band, plan, X_off)
+    band_off = torch.zeros(band.numel() + 1, device=dev)[1:].view_as(band)
+    band_off.copy_(band)
+    with pytest.raises(ValueError):
+        bs.band_tiles_spmm(band_off, plan, X)
+    sb, sts, _, src = bs.pack_tiles(tb, ts, bf, 4)
+    pplan = bs.PackedPlan.from_slabs(sb, sts, src, 1024, R, WT, dev)
+    with pytest.raises(ValueError):
+        bs.band_tiles_spmm_packed(bs.pack_band(band, src, R=R, WT=WT),
+                                  pplan, X_off)
+    _close(bs.band_tiles_spmm(band, plan, X),
+           bs._tiles_spmm_plain(band, plan, X), torch.float32)
 
 
 @pytest.mark.cuda
