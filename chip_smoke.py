@@ -62,9 +62,9 @@ import numpy as np
 HBM_BPS = 3.35e12                     # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12,         # f32 outside the tensor cores
             "bfloat16": 989e12,       # dense bf16 tensor cores
-            # the exact grade (K10 planes=2, K11) on the bf16 tensor
-            # cores: three bf16 products per f32-grade product
-            "bfloat16x3": 989e12 / 3}
+            # the exact grade (K2/K3 f32, K10 planes=2, K11) in 3xTF32 on
+            # the TF32 tensor cores: three TF32 products per product
+            "tf32x3": 495e12 / 3}
 REPS = 20
 SOURCE = "graphlearning_tpu_torch/csrc/"
 REPLACES = {
@@ -90,8 +90,8 @@ CU_FILE = {
     "band_spmm": SOURCE + "band_rect_spmm.cu",
     "banded_spmm": SOURCE + "band_ell_spmm.cu",
     "band_minplus": SOURCE + "band_rect_minplus.cu",
-    "band_tiles_spmm_packed_rowq": SOURCE + "band_tiles_spmm_q.cu",
-    "band_tiles_spmm_packed_i8": SOURCE + "band_tiles_spmm_q.cu",
+    "band_tiles_spmm_packed_rowq": SOURCE + "band_tiles_spmm.cu",
+    "band_tiles_spmm_packed_i8": SOURCE + "band_tiles_spmm.cu",
 }
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # of max|ref|, per band dtype
 # Iteration caps of the Lipschitz and p-eikonal fits: each fit fails the
@@ -241,7 +241,8 @@ def spmm_entry(torch, bs, name, label, band, plan, X, library):
               + X.numel() * X.element_size() + out.numel() * 4
               + (plan.slab_starts.numel() + plan.slab_ntiles.numel()
                  + plan.block_ptr.numel()) * 4)
-    b_ms, b_by = bound(nbytes, 2 * nnz_band * d, dname)
+    b_ms, b_by = bound(nbytes, 2 * nnz_band * d,
+                       "tf32x3" if dname == "float32" else dname)
     ms = time_ms(torch, run)
     return report({
         "name": name, "variant": label, "max_abs_err": err,
@@ -1127,12 +1128,12 @@ def q_entry(torch, bs, label, kind, band, plan, X, csr):
     """K10 (``kind`` rowq2 / rowq1) or K11 (i8) against its twin on the
     bench's packed plan, within 1e-5 of max|ref|.  The bound: the real
     cells at 1, 2 or 3 bytes, X once, ``out``, ``srow`` and the plan;
-    ``2 nnz d`` operations on the bf16 tensor cores, a third of their
-    rate for the exact grade."""
+    ``2 nnz d`` operations on the bf16 tensor cores (rowq1), a third of
+    the TF32 tensor cores' rate for the exact grade (3xTF32)."""
     X32 = X
     if kind == "i8":
         hi, q = bs.quantize_band_i8(band)
-        name, cell, grade = "band_tiles_spmm_packed_i8", 3, "bfloat16x3"
+        name, cell, grade = "band_tiles_spmm_packed_i8", 3, "tf32x3"
         run = lambda: bs.band_tiles_spmm_packed_i8(hi, q, plan, X)
         plain = lambda: bs._tiles_spmm_i8_plain(hi, q, plan, X)
         srow_bytes = 0
@@ -1141,9 +1142,9 @@ def q_entry(torch, bs, label, kind, band, plan, X, csr):
         qband, srow = bs.quantize_band_rowq(band, plan, plan.n, planes)
         Xk = X if planes == 2 else X.to(torch.bfloat16)
         name, cell = "band_tiles_spmm_packed_rowq", planes
-        grade = "bfloat16x3" if planes == 2 else "bfloat16"
-        run = lambda: bs.band_tiles_spmm_packed_rowq(qband, srow, plan, Xk,
-                                                     planes)
+        grade = "tf32x3" if planes == 2 else "bfloat16"
+        run = lambda: bs.band_tiles_spmm_packed_rowq(
+            qband, srow, plan, Xk, planes)
         plain = lambda: bs._tiles_spmm_rowq_plain(qband, srow, plan, Xk,
                                                   planes)
         srow_bytes = srow.numel() * 4
@@ -1158,17 +1159,23 @@ def q_entry(torch, bs, label, kind, band, plan, X, csr):
               + (plan.slab_starts.numel() + plan.slab_ntiles.numel()
                  + plan.block_ptr.numel()) * 4)
     b_ms, b_by = bound(nbytes, 2 * nnz_band * d, grade)
+    ms = time_ms(torch, run)
     return report({
         "name": name, "variant": label, "max_abs_err": err,
-        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+        "ms": ms, "plain_ms": time_ms(torch, plain),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, X32)),
         "library": "torch.sparse.mm, permuted f32 CSR",
+        # the bound's bytes over the kernel's time, and bound / time
+        "gb_s": nbytes / ms * 1e-6, "bound_share": b_ms / ms,
         "shapes": {"band": list(band.shape), "X": list(X.shape),
                    "slabs": int(plan.slab_block.numel()),
                    "real_tiles": int(plan.slab_ntiles.sum()),
                    "band_nnz": nnz_band, "R": plan.R, "WT": plan.WT,
-                   "S": plan.S, "bytes_per_cell": cell, "peak": grade}})
+                   "S": plan.S, "bytes_per_cell": cell, "peak": grade,
+                   "cta_rows": (bs._TILES_QROWS
+                                if plan.R % bs._TILES_QROWS == 0
+                                else bs._TILES_ROWS)}})
 
 
 def bench_phase(torch, accel, bs):
@@ -1260,6 +1267,14 @@ def bench_phase(torch, accel, bs):
     return entries, {k: launches[k] for k in Q_KERNELS}
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def check_distances(label, band, plain, G_plain):
     """Distances within 1e-5 relative of the plain path's, unreached alike;
     where the closest points differ, the two seeds are equally close.
@@ -1309,8 +1324,8 @@ def main():
     say(f"== build: {time.perf_counter() - t0:.1f} s ({sorted(reports)})")
     for name, report in reports.items():
         for line in report.splitlines():
-            # every instantiation of K2/K3's CTA with its registers and
-            # spills; the others' register and spill lines
+            # every instantiation of the K2/K3/K10/K11 CTA with its
+            # registers and spills; the others' register and spill lines
             if ("registers" in line or "spill" in line
                     or (name == "band_tiles_spmm"
                         and "Compiling entry function" in line)):
@@ -1337,11 +1352,7 @@ def main():
         e["source"] = CU_FILE[e["name"]]
         e["replaces"] = REPLACES[e["name"]]
         e["name"] = f"{e['name']}[{e.pop('variant')}]"
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

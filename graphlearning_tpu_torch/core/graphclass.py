@@ -70,9 +70,12 @@ class graph:
     def degree_vector(self):
         return _ops.degree_vector(self.g).cpu().numpy()
 
-    def laplacian(self, normalization: str = "combinatorial"):
+    def laplacian(self, normalization: str = "combinatorial",
+                  alpha: float = 1.0):
         """scipy sparse Laplacian, for interop.  The compute path uses the
-        matrix-free :meth:`laplacian_op`."""
+        matrix-free :meth:`laplacian_op`.  "coifmanlafon" is the
+        random-walk Laplacian of the density-normalized kernel ``D^-alpha
+        W D^-alpha``."""
         W = self.weight_matrix
         n = self.num_nodes
         d = self.degree_vector()
@@ -83,6 +86,12 @@ class graph:
         if normalization == "normalized":
             s = sp.spdiags(d ** -0.5, 0, n, n)
             return (sp.identity(n) - s @ W @ s).tocsr()
+        if normalization == "coifmanlafon":
+            s = sp.spdiags(d ** -alpha, 0, n, n)
+            K = s @ W @ s
+            dK = np.asarray(K.sum(axis=1)).ravel()
+            return (sp.identity(n) - sp.spdiags(1.0 / dK, 0, n, n) @ K
+                    ).tocsr()
         raise ValueError(f"invalid normalization {normalization}")
 
     def laplacian_op(self, normalization: str = "combinatorial"):

@@ -1,8 +1,10 @@
-// K2 and K3: out = tiled band @ X, on the tensor cores.
+// K2, K3, K10 and K11: out = tiled band @ X, on the tensor cores.
 //
 // Replaces graphlearning_tpu/ops/pallas_spmm.py band_tiles_spmm_packed
-// (kernel _tiles_packed_kernel; K2, slabs of S same-block tiles) and
-// band_tiles_spmm (kernel _tiles_matmul_kernel; K3, S = 1).
+// (kernel _tiles_packed_kernel; K2, slabs of S same-block tiles),
+// band_tiles_spmm (kernel _tiles_matmul_kernel; K3, S = 1),
+// band_tiles_spmm_packed_rowq (kernel _tiles_packed_rowq_kernel; K10) and
+// band_tiles_spmm_packed_i8 (kernel _tiles_packed_i8_kernel; K11).
 //
 // Layout: slab g is band rows [g*R, g*R + R) of a (G*R, S*WT) band; its
 // tile s multiplies X rows [slab_starts[g*S + s], + WT).  Only the first
@@ -11,82 +13,158 @@
 // starts are multiples of WT, so the X rows of a KC-column chunk are one
 // contiguous block of KC * d elements.
 //
+// Band formats (the template parameter F), each cell in one or two
+// planes of the stored layout:
+// - F32, BF16 (K2, K3): one plane of f32 or bf16 cells.
+// - ROWQ2, ROWQ1 (K10): int8 planes q_hi (and q_lo, S*WT columns after it
+//   in the same row) with a power-of-two row scale srow:
+//     out[row] = srow[row] * sum (q_hi + q_lo / 254) * x    (ROWQ2)
+//     out[row] = srow[row] * sum q_hi * x                   (ROWQ1)
+// - I8 (K11): a bf16 plane hi and an int8 plane q, the cell
+//     a = hi + q * 2^(e - 15),
+//   e hi's exponent, exact in f32 (both terms fit in 16 significant bits
+//   at hi's exponent).
+// X is f32 for F32, ROWQ2 and I8, bf16 for BF16 and ROWQ1; out is f32.
+//
 // Bound.  At d = 2-3 (the class count of a fit) the band's bytes: the
 // product is about d/2 multiply-adds per f32 band byte, so the card's
 // 3.35 TB/s sets it.  At d = 128 the band's bytes too (0.6 ms for the
-// bench's 442 M f32 cells), provided the dense tile product, which is
-// 99 % zeros, stays off the 67 TFLOP/s FFMA pipe: 2 * 442 M * 128 dense
-// operations take 1.7 ms there, and 3xTF32 (three TF32 products) 0.7 ms
-// at the tensor cores' 495 TFLOP/s; about 10 % of the m16 x k8 band
-// fragments hold a nonzero, and only those reach the tensor cores.
+// bench's 442 M f32 cells, 0.13-0.4 ms at the quantized formats' 1-3
+// bytes a cell), provided the dense tile product, which is 99 % zeros,
+// stays off the 67 TFLOP/s FFMA pipe: 2 * 442 M * 128 dense operations
+// take 1.7 ms there, and 3xTF32 (three TF32 products) 0.7 ms at the tensor
+// cores' 495 TFLOP/s; about 10 % of the m16 x k8 band fragments hold a
+// nonzero, and only those reach the tensor cores.  Measured at d = 128
+// (PERF.md), what holds the kernel is its work on each band fragment
+// (loads, votes, rebuilt cells, X splits) with one CTA an SM: a 128-row
+// CTA, which halves X's L2 bytes, is faster than a 64-row one, and so
+// are 16 warps in place of 8 for 3xTF32, but not by the bytes' ratio.
 //
 // Design.
-// - Ring: NSTAGE shared-memory stages, each a (ROWS, KC) band chunk and
-//   its KC X rows, filled by 16-byte cp.async.cg NSTAGE - 1 chunks ahead
-//   of the MMAs, one __syncthreads a chunk.  The band is read from device
+// - Ring: up to NSTAGE shared-memory stages, each a (rows, KC) band chunk
+//   of every plane, copied as stored (4, 2, 2, 1 or 3 bytes a cell), and
+//   its KC X rows, filled by 16-byte cp.async.cg NST - 1 chunks ahead of
+//   the MMAs, one __syncthreads a chunk.  The band is read from device
 //   memory once per product for d <= DMAX: one CTA holds all of d for its
 //   rows; the wrapper splits wider X into DMAX-column launches.
-// - MMA: mma.sync m16n8k16 on bf16 operands with f32 sums, or m16n8k8 on
-//   TF32 in 3xTF32 (a_hi x_hi + a_hi x_lo + a_lo x_hi, about 2^-21
-//   relative) for the exact f32 mode.  d is padded to the MMA's n = 8 in
+// - MMA: mma.sync m16n8k16 on bf16 operands with f32 sums (BF16; ROWQ1,
+//   whose int8 cells are exact in bf16), or m16n8k8 on TF32 in 3xTF32
+//   (a_hi x_hi + a_hi x_lo + a_lo x_hi, about 2^-21 relative) for the
+//   exact grade (F32, ROWQ2, I8).  The quantized cells are rebuilt in f32
+//   at the fragment load (ROWQ2: q_hi + q_lo / 254, one f32 rounding,
+//   2^-24 of the cell; I8: exact) and split as F32's, so the exact modes
+//   share one product; the row scale srow is a power of two, applied
+//   exactly in the epilogue.  (Taking q_hi and q_lo as the TF32 hi and lo
+//   parts as they are would round q_lo / 254 or drop q_lo * x_lo, about
+//   2^-19 of the row's largest cell.)  d is padded to the MMA's n = 8 in
 //   the fragment loads and masked in the epilogue.  A warp votes on each
 //   of its m16 band fragments: an all-zero one is skipped, and a K slice
 //   with none left skips its X fragments too, so the tensor-core and
-//   shared-memory work follow the occupied cells.
-// - Warps: ROWS = 64 rows a CTA (four m16 tiles), so a row block of R
-//   rows has R / 64 CTAs.  The 8 warps split each chunk's K slices (and
-//   d above 32 columns, and for bf16 at small d the rows); their partial
-//   tiles are summed in shared memory before one store.  Each output
-//   element is written once: no atomics, no zeroing pass, a
+//   shared-memory work follow the occupied cells.  ROWQ2 and I8 number
+//   the k of a TF32 fragment so that a thread's two columns are adjacent
+//   (k = t, t + 4 at columns 2t, 2t + 1): one 16-bit load fetches both of
+//   an int8 plane.
+// - Warps: ROWS = 64 rows a CTA for K2/K3 (four m16 tiles), QROWS = 128
+//   for the quantized formats where R allows (their smaller band stage
+//   leaves room: each CTA stages its X window for twice the rows).  A row
+//   block of R rows has R / rows CTAs.  The 8 warps (16 for 3xTF32 above
+//   32 columns of d) split each chunk's K slices (and d above 32 columns,
+//   and the rows where a warp would hold more than four, or two, m16
+//   tiles or, for bf16 at small d, run out of slices); their partial
+//   tiles are summed in shared memory before one store.
+//   Each output element is written once: no atomics, no zeroing pass, a
 //   deterministic result.
-// - At d = 128 each 64-row CTA stages its X window from L2 for itself:
-//   2 bytes of X a band byte in f32, the cost that remains there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
-constexpr int ROWS = 64;     // output rows per CTA
-constexpr int KC = 64;       // band columns per ring stage
-constexpr int DMAX = 128;    // widest d that one launch covers
-constexpr int NSTAGE = 4;    // ring stages
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
+constexpr int ROWS = 64;      // output rows per CTA of K2/K3
+constexpr int QROWS = 128;    // ... of K10/K11 where R is a multiple of it
+constexpr int KC = 64;        // band columns per ring stage
+constexpr int DMAX = 128;     // widest d that one launch covers
+constexpr int NSTAGE = 4;     // ring stages, fewer where they do not fit
+constexpr int SMEM_MAX = 232448;  // shared memory a block can use
+constexpr int SMEM_SM = 233472;   // ... an SM has
 
-template <typename T>
-struct Mode;
+enum Fmt { F32, BF16, ROWQ2, ROWQ1, I8 };
+
+// What a format stages and multiplies: X's type, whether the product is
+// 3xTF32 (else bf16), whether a TF32 fragment's two columns are adjacent
+// (PERM), and for each plane the bytes a cell (B0, B1) and the bytes of a
+// staged chunk row (L0, L1: 16-byte rows, padded so that the fragment
+// loads of a warp hit distinct banks).
+template <int F>
+struct Fm;
 template <>
-struct Mode<float> {
-  static constexpr int KM = 8;        // MMA depth (m16n8k8 TF32)
-  static constexpr int LDA = KC + 4;  // staged band row: conflict-free loads
+struct Fm<F32> {
+  using X = float;
+  static constexpr bool TF32 = true, PERM = false;
+  static constexpr int B0 = 4, B1 = 0, L0 = (KC + 4) * 4, L1 = 0;
 };
 template <>
-struct Mode<__nv_bfloat16> {
-  static constexpr int KM = 16;       // m16n8k16 bf16
-  static constexpr int LDA = KC + 8;
+struct Fm<BF16> {
+  using X = __nv_bfloat16;
+  static constexpr bool TF32 = false, PERM = false;
+  static constexpr int B0 = 2, B1 = 0, L0 = (KC + 8) * 2, L1 = 0;
+};
+template <>
+struct Fm<ROWQ2> {
+  using X = float;
+  static constexpr bool TF32 = true, PERM = true;
+  static constexpr int B0 = 1, B1 = 1, L0 = KC + 16, L1 = KC + 16;
+};
+template <>
+struct Fm<ROWQ1> {
+  using X = __nv_bfloat16;
+  static constexpr bool TF32 = false, PERM = false;
+  static constexpr int B0 = 1, B1 = 0, L0 = KC + 16, L1 = 0;
+};
+template <>
+struct Fm<I8> {
+  using X = float;
+  static constexpr bool TF32 = true, PERM = true;
+  static constexpr int B0 = 2, B1 = 1, L0 = (KC + 8) * 2, L1 = KC + 16;
 };
 
-// Warp layout for a padded d of DN columns: WK warps split the chunk's K
-// slices, WN split d in 32-column groups, WM split the rows.
-template <typename T, int DN>
+// Warp layout for format F, RW rows and a padded d of DN columns: NW
+// warps, of which WN split d in 32-column groups, WM the rows (at most
+// MTMAX m16 tiles a warp) and WK the chunk's K slices.  Above 32 columns a
+// CTA is alone on its SM (its ring fills the shared memory), and the
+// 3xTF32 formats take 16 warps of two m16 tiles each: twice the warps to
+// hide the latency of their longer fragment work (splits, rebuilt cells),
+// in fewer registers.  The bf16 formats measured slower so (PERF.md).
+template <int F, int RW, int DN>
 struct Geo {
-  static constexpr int NSLICE = KC / Mode<T>::KM;
+  using M = Fm<F>;
+  static constexpr int KM = M::TF32 ? 8 : 16;  // MMA depth
+  static constexpr int NSLICE = KC / KM;
+  static constexpr int NW = DN > 32 && M::TF32 ? 16 : 8;
+  static constexpr int THREADS = NW * 32;
+  static constexpr int MTMAX = NW == 16 ? 2 : 4;
   static constexpr int WN = DN > 32 ? DN / 32 : 1;
-  static constexpr int WK =
-      WARPS / WN < NSLICE ? WARPS / WN : NSLICE;
-  static constexpr int WM = WARPS / (WN * WK);
-  static constexpr int MT = ROWS / 16 / WM;          // m16 tiles a warp
+  static constexpr int WM0 = RW / (16 * MTMAX);
+  static constexpr int WK = NW / (WN * WM0) < NSLICE ? NW / (WN * WM0)
+                                                     : NSLICE;
+  static constexpr int WM = NW / (WN * WK);
+  static constexpr int MT = RW / 16 / WM;           // m16 tiles a warp
   static constexpr int NT = (DN > 32 ? 32 : DN) / 8;  // n8 tiles a warp
-  static constexpr int A_BYTES = ROWS * Mode<T>::LDA * (int)sizeof(T);
-  static constexpr int STAGE = A_BYTES + KC * DN * (int)sizeof(T);
-  static constexpr int RING = NSTAGE * STAGE;
-  static constexpr int RED = WK * ROWS * DN * 4;     // partial tiles, f32
+  static constexpr int A_BYTES = RW * (M::L0 + M::L1);
+  static constexpr int STAGE =
+      A_BYTES + KC * DN * (int)sizeof(typename M::X);
+  static constexpr int NST =
+      SMEM_MAX / STAGE < NSTAGE ? SMEM_MAX / STAGE : NSTAGE;
+  static constexpr int RING = NST * STAGE;
+  static constexpr int RED = WK * RW * DN * 4;      // partial tiles, f32
   static constexpr int SMEM = RING > RED ? RING : RED;
-  static_assert(WN * WK * WM == WARPS && MT >= 1, "warp layout");
+  // CTAs an SM: two where d is narrow and the shared memory allows
+  static constexpr int OCC = DN <= 32 && 2 * (SMEM + 1024) <= SMEM_SM ? 2
+                                                                      : 1;
+  static_assert(WN * WK * WM == NW && MT >= 1 && MT <= MTMAX,
+                "warp layout");
+  static_assert(NST >= 2 && SMEM <= SMEM_MAX, "shared memory");
   static_assert(A_BYTES % 16 == 0 && STAGE % 16 == 0, "16-byte stages");
 };
 
@@ -105,10 +183,10 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// cvt.rna.tf32.f32 (nearest, ties away from zero) for finite x, by two
+// integer operations
 __device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
 // x = hi + lo, both TF32
@@ -135,53 +213,147 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ uint32_t ld16(const unsigned char* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The raw A fragment of m16 tile rows r / r + 8 at slice column k0: four
+// words, zero exactly where the cells are.  F32 and BF16: the words as
+// staged (TF32: columns t / t + 4; bf16: pairs at 2t / 2t + 8).  ROWQ1:
+// the int8 pairs at 2t / 2t + 8.  ROWQ2: q_hi | q_lo << 8 of columns 2t /
+// 2t + 1 (PERM).  I8: hi's bits of columns 2t / 2t + 1; q is merged in by
+// i8_merge for the live fragments only (q is 0 where hi is).
+template <int F, int RW>
+__device__ __forceinline__ void load_a(const unsigned char* stage, int r,
+                                       int k0, int t, uint32_t (&a)[4]) {
+  using M = Fm<F>;
+  if constexpr (F == F32 || F == BF16) {
+    constexpr int LDW = M::L0 / 4;
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(stage) + r * LDW +
+                        k0 * M::B0 / 4 + t;
+    a[0] = w[0];
+    a[1] = w[8 * LDW];
+    a[2] = w[4];
+    a[3] = w[8 * LDW + 4];
+  } else if constexpr (F == ROWQ1) {
+    const unsigned char* p = stage + r * M::L0 + k0 + 2 * t;
+    a[0] = ld16(p);
+    a[1] = ld16(p + 8 * M::L0);
+    a[2] = ld16(p + 8);
+    a[3] = ld16(p + 8 * M::L0 + 8);
+  } else if constexpr (F == ROWQ2) {
+    const unsigned char* h = stage + r * M::L0 + k0 + 2 * t;
+    const unsigned char* l = stage + RW * M::L0 + r * M::L1 + k0 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // rows r, r + 8
+      const uint32_t hh = ld16(h + i * 8 * M::L0);
+      const uint32_t ll = ld16(l + i * 8 * M::L1);
+      a[i] = (hh & 0xFFu) | (ll & 0xFFu) << 8;
+      a[i + 2] = hh >> 8 | (ll & 0xFF00u);
+    }
+  } else {  // I8
+    const unsigned char* h = stage + r * M::L0 + 2 * (k0 + 2 * t);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t hh = ld32(h + i * 8 * M::L0);
+      a[i] = hh & 0xFFFFu;
+      a[i + 2] = hh >> 16;
+    }
+  }
+}
+
+// I8: q of the fragment's cells into bits 16-23 of each raw word
+template <int RW>
+__device__ __forceinline__ void i8_merge(const unsigned char* stage, int r,
+                                         int k0, int t, uint32_t (&a)[4]) {
+  using M = Fm<I8>;
+  const unsigned char* q = stage + RW * M::L0 + r * M::L1 + k0 + 2 * t;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t qq = ld16(q + i * 8 * M::L1);
+    a[i] |= (qq & 0xFFu) << 16;
+    a[i + 2] |= (qq & 0xFF00u) << 8;
+  }
+}
+
+// The int8 in bits 8i .. 8i + 7 of w as an exact f32, by integer
+// operations and one add: 2^23 + (q + 128) has q + 128 in its mantissa.
+template <int I>
+__device__ __forceinline__ float i8_f32(uint32_t w) {
+  return __uint_as_float(0x4B000000u | ((w >> (8 * I) & 0xFFu) ^ 0x80u)) -
+         8388736.f;
+}
+
+// An exact-grade cell in f32 from its raw word
+template <int F>
+__device__ __forceinline__ float cell_f32(uint32_t w) {
+  if constexpr (F == F32) {
+    return __uint_as_float(w);
+  } else if constexpr (F == ROWQ2) {
+    return fmaf(i8_f32<1>(w), 1.f / 254.f, i8_f32<0>(w));
+  } else {  // I8: hi + q * 2^(e - 15); 2^e from hi's exponent bits
+    const float hi = __uint_as_float(w << 16);
+    const float u = __uint_as_float((w & 0x7F80u) << 16);
+    return fmaf(i8_f32<2>(w), u * 0x1p-15f, hi);
+  }
+}
+
+// A bf16 fragment word from its raw word: ROWQ1's two int8 cells, whose
+// f32 values are exact in their upper halves
+template <int F>
+__device__ __forceinline__ uint32_t cell_bf16x2(uint32_t w) {
+  if constexpr (F == BF16) {
+    return w;
+  } else {
+    return __byte_perm(__float_as_uint(i8_f32<0>(w)),
+                       __float_as_uint(i8_f32<1>(w)), 0x7632);
+  }
+}
+
 // One staged chunk into the warp's accumulators: K slices wk, wk + WK, ...
 // of rows [wm*MT*16, +MT*16) and columns [wn*32, +NT*8) of d.  A slice
 // whose band fragments are all zero in the warp's rows costs their loads
 // and one vote each: its X fragments are neither loaded nor split.
-template <typename T, int DN>
-__device__ __forceinline__ void mma_chunk(const unsigned char* stage, int dc,
-                                          int wm, int wn, int wk, int g,
-                                          int t,
-                                          float (&acc)[Geo<T, DN>::MT]
-                                                      [Geo<T, DN>::NT][4]) {
-  using G = Geo<T, DN>;
-  // a staged band row in 32-bit words; one word holds 1 f32 or 2 bf16
-  constexpr int LDW = Mode<T>::LDA * (int)sizeof(T) / 4;
-  constexpr int KW = Mode<T>::KM * (int)sizeof(T) / 4;  // words a slice
-  const uint32_t* Aw = reinterpret_cast<const uint32_t*>(stage);
+template <int F, int RW, int DN>
+__device__ __forceinline__ void mma_chunk(
+    const unsigned char* stage, int dc, int wm, int wn, int wk, int g, int t,
+    float (&acc)[Geo<F, RW, DN>::MT][Geo<F, RW, DN>::NT][4]) {
+  using G = Geo<F, RW, DN>;
+  using M = Fm<F>;
   const int n_lo = wn * 32;
 #pragma unroll
   for (int si = 0; si < G::NSLICE / G::WK; ++si) {
-    const int ks = wk + si * G::WK;
-    const int k0 = ks * Mode<T>::KM;
-    // m16 fragment words: rows g / g + 8, words t / t + 4 of the slice
-    // (columns t / t + 4 in TF32, 2t / 2t + 8 in bf16)
+    const int k0 = (wk + si * G::WK) * G::KM;
     uint32_t a[G::MT][4];
     unsigned live = 0;
 #pragma unroll
     for (int mt = 0; mt < G::MT; ++mt) {
-      const uint32_t* w =
-          Aw + ((wm * G::MT + mt) * 16 + g) * LDW + ks * KW + t;
-      a[mt][0] = w[0];
-      a[mt][1] = w[8 * LDW];
-      a[mt][2] = w[4];
-      a[mt][3] = w[8 * LDW + 4];
+      const int r = (wm * G::MT + mt) * 16 + g;
+      load_a<F, RW>(stage, r, k0, t, a[mt]);
       if (__any_sync(0xffffffffu,
-                     (a[mt][0] | a[mt][1] | a[mt][2] | a[mt][3]) != 0u))
+                     (a[mt][0] | a[mt][1] | a[mt][2] | a[mt][3]) != 0u)) {
         live |= 1u << mt;
+        if constexpr (F == I8) i8_merge<RW>(stage, r, k0, t, a[mt]);
+      }
     }
     if (!live) continue;
-    if constexpr (std::is_same<T, float>::value) {
+    if constexpr (M::TF32) {
       const float* Xs = reinterpret_cast<const float*>(stage + G::A_BYTES);
+      // X rows of the fragment's k = t and t + 4
+      const int kb0 = M::PERM ? k0 + 2 * t : k0 + t;
+      const int kb1 = M::PERM ? kb0 + 1 : kb0 + 4;
       uint32_t bh[G::NT][2], bl[G::NT][2];
 #pragma unroll
       for (int nt = 0; nt < G::NT; ++nt) {
         const int n = n_lo + nt * 8 + g;
         float x0 = 0.f, x1 = 0.f;
         if (n < dc) {
-          x0 = Xs[(k0 + t) * dc + n];
-          x1 = Xs[(k0 + t + 4) * dc + n];
+          x0 = Xs[kb0 * dc + n];
+          x1 = Xs[kb1 * dc + n];
         }
         split(x0, bh[nt][0], bl[nt][0]);
         split(x1, bh[nt][1], bl[nt][1]);
@@ -191,8 +363,7 @@ __device__ __forceinline__ void mma_chunk(const unsigned char* stage, int dc,
         if (!(live >> mt & 1u)) continue;
         uint32_t ah[4], al[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          split(__uint_as_float(a[mt][q]), ah[q], al[q]);
+        for (int q = 0; q < 4; ++q) split(cell_f32<F>(a[mt][q]), ah[q], al[q]);
 #pragma unroll
         for (int nt = 0; nt < G::NT; ++nt) {
           if (n_lo + nt * 8 < dc) {
@@ -219,36 +390,68 @@ __device__ __forceinline__ void mma_chunk(const unsigned char* stage, int dc,
 #pragma unroll
       for (int mt = 0; mt < G::MT; ++mt) {
         if (!(live >> mt & 1u)) continue;
+        uint32_t ab[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ab[q] = cell_bf16x2<F>(a[mt][q]);
 #pragma unroll
         for (int nt = 0; nt < G::NT; ++nt) {
-          if (n_lo + nt * 8 < dc) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+          if (n_lo + nt * 8 < dc) mma_bf16(acc[mt][nt], ab, b[nt]);
         }
       }
     }
   }
 }
 
-template <typename T, int DN>
-__global__ void __launch_bounds__(THREADS, DN <= 32 ? 2 : 1)
-    tiles_spmm_kernel(const T* __restrict__ band, long long band_ld, int R,
-                      const int* __restrict__ block_ptr,
-                      const int* __restrict__ slab_starts,
-                      const int* __restrict__ slab_ntiles, int S, int WT,
-                      const T* __restrict__ X, int dc,
-                      float* __restrict__ out, long long ldo) {
-  using G = Geo<T, DN>;
-  constexpr int LDA = Mode<T>::LDA;
-  constexpr int PIECES = KC * (int)sizeof(T) / 16;  // 16 B a band row
+// RW rows of a plane's KC-column chunk, 16-byte pieces, into rows of L
+// bytes
+template <int RW, int B, int L, int THREADS>
+__device__ __forceinline__ void stage_plane(unsigned char* dst,
+                                            const char* src, long long ld,
+                                            int tid) {
+  constexpr int PIECES = KC * B / 16;
+  for (int p = tid; p < RW * PIECES; p += THREADS) {
+    const int r = p / PIECES, q = p - r * PIECES;
+    cp16(dst + r * L + q * 16, src + r * ld + q * 16);
+  }
+}
+
+struct Args {
+  const char* band0;  // plane 0, row stride ld0 bytes
+  long long ld0;
+  const char* band1;  // plane 1 (ROWQ2, I8), row stride ld1 bytes
+  long long ld1;
+  const float* srow;  // ROWQ2, ROWQ1: the row scales
+  int R;
+  const int* block_ptr;
+  const int* slab_starts;
+  const int* slab_ntiles;
+  int S, WT;
+  long long nblocks;
+  const void* X;
+  int dc;
+  float* out;
+  long long ldo;
+};
+
+template <int F, int RW, int DN>
+__global__ void __launch_bounds__(Geo<F, RW, DN>::THREADS,
+                                  Geo<F, RW, DN>::OCC)
+    tiles_spmm_kernel(const Args args) {
+  using G = Geo<F, RW, DN>;
+  using M = Fm<F>;
+  using XT = typename M::X;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int R = args.R, S = args.S, WT = args.WT, dc = args.dc;
+  const int* __restrict__ slab_ntiles = args.slab_ntiles;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wk = warp % G::WK;
   const int wn = (warp / G::WK) % G::WN;
   const int wm = warp / (G::WK * G::WN);
-  const int groups = R / ROWS;
+  const int groups = R / RW;
   const long long b = blockIdx.x / groups;
   const int rg = (int)(blockIdx.x - b * groups);
-  const int slab_beg = block_ptr[b], slab_end = block_ptr[b + 1];
+  const int slab_beg = args.block_ptr[b], slab_end = args.block_ptr[b + 1];
   int total = 0;  // chunks of this CTA
   for (int sl = slab_beg; sl < slab_end; ++sl)
     total += slab_ntiles[sl] * (WT / KC);
@@ -256,23 +459,26 @@ __global__ void __launch_bounds__(THREADS, DN <= 32 ? 2 : 1)
   // producer cursor: the next chunk to stage
   int p_slab = slab_beg, p_col = 0;
   int p_ncols = p_slab < slab_end ? slab_ntiles[p_slab] * WT : 0;
-  const int x_pieces = KC * dc * (int)sizeof(T) / 16;
+  const int x_pieces = KC * dc * (int)sizeof(XT) / 16;
+  const char* X = static_cast<const char*>(args.X);
   auto issue = [&](int stage_idx) {
     if (p_slab < slab_end) {
       unsigned char* st = smem + stage_idx * G::STAGE;
       const int tile = p_col / WT;
       const long long xrow0 =
-          (long long)slab_starts[(long long)p_slab * S + tile] +
+          (long long)args.slab_starts[(long long)p_slab * S + tile] +
           (p_col - tile * WT);
-      const T* src = band + ((long long)p_slab * R + rg * ROWS) * band_ld +
-                     p_col;
-      for (int p = tid; p < ROWS * PIECES; p += THREADS) {
-        const int r = p / PIECES, q = p - r * PIECES;
-        cp16(st + r * LDA * (int)sizeof(T) + q * 16,
-             reinterpret_cast<const char*>(src + r * band_ld) + q * 16);
-      }
-      const char* xsrc = reinterpret_cast<const char*>(X + xrow0 * dc);
-      for (int p = tid; p < x_pieces; p += THREADS)
+      const long long row0 = (long long)p_slab * R + rg * RW;
+      stage_plane<RW, M::B0, M::L0, G::THREADS>(
+          st, args.band0 + row0 * args.ld0 + (long long)p_col * M::B0,
+          args.ld0, tid);
+      if constexpr (M::B1 > 0)
+        stage_plane<RW, M::B1, M::L1, G::THREADS>(
+            st + RW * M::L0,
+            args.band1 + row0 * args.ld1 + (long long)p_col * M::B1,
+            args.ld1, tid);
+      const char* xsrc = X + xrow0 * dc * (long long)sizeof(XT);
+      for (int p = tid; p < x_pieces; p += G::THREADS)
         cp16(st + G::A_BYTES + p * 16, xsrc + p * 16);
       p_col += KC;
       if (p_col >= p_ncols) {
@@ -293,13 +499,13 @@ __global__ void __launch_bounds__(THREADS, DN <= 32 ? 2 : 1)
       for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
 
 #pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) issue(s);
+  for (int s = 0; s < G::NST - 1; ++s) issue(s);
   for (int i = 0; i < total; ++i) {
-    cp_wait<NSTAGE - 2>();  // chunk i has landed (this thread's copies)
+    cp_wait<G::NST - 2>();  // chunk i has landed (this thread's copies)
     __syncthreads();        // ... everyone's; chunk i - 1's stage is free
-    issue((i + NSTAGE - 1) % NSTAGE);
-    mma_chunk<T, DN>(smem + (i % NSTAGE) * G::STAGE, dc, wm, wn, wk, g, t,
-                     acc);
+    issue((i + G::NST - 1) % G::NST);
+    mma_chunk<F, RW, DN>(smem + (i % G::NST) * G::STAGE, dc, wm, wn, wk, g,
+                         t, acc);
   }
   cp_wait<0>();
   __syncthreads();  // the ring is free: it holds the partial tiles now
@@ -311,7 +517,7 @@ __global__ void __launch_bounds__(THREADS, DN <= 32 ? 2 : 1)
 #pragma unroll
     for (int nt = 0; nt < G::NT; ++nt) {
       const int col = wn * 32 + nt * 8 + 2 * t;
-      float* p = red + ((long long)wk * ROWS + row) * DN + col;
+      float* p = red + ((long long)wk * RW + row) * DN + col;
       *reinterpret_cast<float2*>(p) =
           make_float2(acc[mt][nt][0], acc[mt][nt][1]);
       *reinterpret_cast<float2*>(p + 8 * DN) =
@@ -319,57 +525,63 @@ __global__ void __launch_bounds__(THREADS, DN <= 32 ? 2 : 1)
     }
   }
   __syncthreads();
-  float* orow = out + (b * R + rg * ROWS) * ldo;
-  for (int e = tid; e < ROWS * dc; e += THREADS) {
+  const long long row0 = b * R + rg * RW;
+  float* orow = args.out + row0 * args.ldo;
+  for (int e = tid; e < RW * dc; e += G::THREADS) {
     const int r = e / dc, c = e - r * dc;
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < G::WK; ++w) s += red[(w * ROWS + r) * DN + c];
-    orow[r * ldo + c] = s;
+    for (int w = 0; w < G::WK; ++w) s += red[(w * RW + r) * DN + c];
+    // the row's power-of-two scale, exact
+    if constexpr (F == ROWQ2 || F == ROWQ1) s *= args.srow[row0 + r];
+    orow[r * args.ldo + c] = s;
   }
 }
 
-template <typename T, int DN>
-int launch(const void* band, long long band_ld, int R, const int* block_ptr,
-           const int* slab_starts, const int* slab_ntiles, int S, int WT,
-           long long nblocks, const void* X, int dc, float* out,
-           long long ldo, cudaStream_t s) {
-  using G = Geo<T, DN>;
-  const long long ctas = nblocks * (R / ROWS);
+template <int F, int RW, int DN>
+int launch(const Args& a, cudaStream_t s) {
+  using G = Geo<F, RW, DN>;
+  const long long ctas = a.nblocks * (a.R / RW);
   if (ctas == 0) return (int)cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
-      tiles_spmm_kernel<T, DN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::SMEM);
+      tiles_spmm_kernel<F, RW, DN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (e != cudaSuccess) return (int)e;
-  tiles_spmm_kernel<T, DN><<<(unsigned int)ctas, THREADS, G::SMEM, s>>>(
-      static_cast<const T*>(band), band_ld, R, block_ptr, slab_starts,
-      slab_ntiles, S, WT, static_cast<const T*>(X), dc, out, ldo);
+  tiles_spmm_kernel<F, RW, DN>
+      <<<(unsigned int)ctas, G::THREADS, G::SMEM, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dn(const void* band, long long band_ld, int R,
-              const int* block_ptr, const int* slab_starts,
-              const int* slab_ntiles, int S, int WT, long long nblocks,
-              const void* X, int dc, float* out, long long ldo,
-              cudaStream_t s) {
-#define GLT_LAUNCH(DN)                                                     \
-  return launch<T, DN>(band, band_ld, R, block_ptr, slab_starts,           \
-                       slab_ntiles, S, WT, nblocks, X, dc, out, ldo, s)
-  if (dc <= 8) GLT_LAUNCH(8);
-  if (dc <= 16) GLT_LAUNCH(16);
-  if (dc <= 32) GLT_LAUNCH(32);
-  if (dc <= 64) GLT_LAUNCH(64);
-  GLT_LAUNCH(128);
-#undef GLT_LAUNCH
+// K2/K3: ROWS rows.  K10/K11: QROWS where R is a multiple of it, else
+// ROWS (the 128-row CTA measured no slower at any d: PERF.md).
+template <int F, int DN>
+int launch_rows(const Args& a, cudaStream_t s) {
+  if constexpr (F != F32 && F != BF16) {
+    if (a.R % QROWS == 0) return launch<F, QROWS, DN>(a, s);
+  }
+  return launch<F, ROWS, DN>(a, s);
+}
+
+bool bad_geometry(const Args& a) {
+  return a.dc < 1 || a.dc > DMAX || a.R % ROWS || a.WT % KC || a.ldo < a.dc;
+}
+
+template <int F>
+int launch_dn(const Args& a, cudaStream_t s) {
+  if (bad_geometry(a)) return (int)cudaErrorInvalidValue;
+  if (a.dc <= 8) return launch_rows<F, 8>(a, s);
+  if (a.dc <= 16) return launch_rows<F, 16>(a, s);
+  if (a.dc <= 32) return launch_rows<F, 32>(a, s);
+  if (a.dc <= 64) return launch_rows<F, 64>(a, s);
+  return launch_rows<F, 128>(a, s);
 }
 
 }  // namespace
 
-// band: (G*R, band_ld) float32 (band_bf16 == 0) or bfloat16, 16-byte
-// aligned; X: (rows, d) of the same type, contiguous, 16-byte aligned;
-// out: row r, column c at out[r * ldo + c], float32, (nblocks*R) rows.
-// R must be a multiple of ROWS, WT of KC, tile starts of WT, and
+// K2/K3.  band: (G*R, band_ld) float32 (band_bf16 == 0) or bfloat16,
+// 16-byte aligned; X: (rows, d) of the same type, contiguous, 16-byte
+// aligned; out: row r, column c at out[r * ldo + c], float32, (nblocks*R)
+// rows.  R must be a multiple of ROWS, WT of KC, tile starts of WT, and
 // 1 <= d <= DMAX.  Returns cudaGetLastError() after the launch.
 extern "C" int glt_tiles_spmm(const void* band, int band_bf16,
                               long long band_ld, int R, const int* block_ptr,
@@ -377,14 +589,48 @@ extern "C" int glt_tiles_spmm(const void* band, int band_bf16,
                               int S, int WT, long long nblocks, const void* X,
                               int d, float* out, long long ldo,
                               void* stream) {
-  if (d < 1 || d > DMAX || R % ROWS || WT % KC || ldo < d)
-    return (int)cudaErrorInvalidValue;
+  const long long cell = band_bf16 ? 2 : 4;
+  const Args a{static_cast<const char*>(band), band_ld * cell, nullptr, 0,
+               nullptr, R, block_ptr, slab_starts, slab_ntiles, S, WT,
+               nblocks, X, d, out, ldo};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (band_bf16) {
-    return launch_dn<__nv_bfloat16>(band, band_ld, R, block_ptr, slab_starts,
-                                    slab_ntiles, S, WT, nblocks, X, d, out,
-                                    ldo, s);
-  }
-  return launch_dn<float>(band, band_ld, R, block_ptr, slab_starts,
-                          slab_ntiles, S, WT, nblocks, X, d, out, ldo, s);
+  if (band_bf16) return launch_dn<BF16>(a, s);
+  return launch_dn<F32>(a, s);
+}
+
+// K10.  qband: (G*R, planes*S*WT) int8, 16-byte aligned, plane lo S*WT
+// columns after plane hi; srow: (nblocks*R,) float32; X: (rows, d) float32
+// (planes 2) or bfloat16 (planes 1), 16-byte aligned; out and the
+// geometry as K2's.
+extern "C" int glt_tiles_spmm_rowq(const void* qband, int planes,
+                                   const float* srow, int R,
+                                   const int* block_ptr,
+                                   const int* slab_starts,
+                                   const int* slab_ntiles, int S, int WT,
+                                   long long nblocks, const void* X, int d,
+                                   float* out, long long ldo,
+                                   void* stream) {
+  const long long sw = (long long)S * WT;
+  const char* q = static_cast<const char*>(qband);
+  const Args a{q, planes * sw, q + sw, planes * sw, srow, R, block_ptr,
+         slab_starts, slab_ntiles, S, WT, nblocks, X, d, out, ldo};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (planes == 2) return launch_dn<ROWQ2>(a, s);
+  if (planes == 1) return launch_dn<ROWQ1>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K11.  hi: (G*R, S*WT) bfloat16; q: the same shape, int8; both 16-byte
+// aligned; X: (rows, d) float32, 16-byte aligned; out and the geometry as
+// K2's.
+extern "C" int glt_tiles_spmm_i8(const void* hi, const void* q, int R,
+                                 const int* block_ptr, const int* slab_starts,
+                                 const int* slab_ntiles, int S, int WT,
+                                 long long nblocks, const void* X, int d,
+                                 float* out, long long ldo, void* stream) {
+  const long long sw = (long long)S * WT;
+  const Args a{static_cast<const char*>(hi), 2 * sw,
+               static_cast<const char*>(q), sw, nullptr, R, block_ptr,
+               slab_starts, slab_ntiles, S, WT, nblocks, X, d, out, ldo};
+  return launch_dn<I8>(a, static_cast<cudaStream_t>(stream));
 }

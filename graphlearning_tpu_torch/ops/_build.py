@@ -30,7 +30,11 @@ SIGNATURES = {
         "glt_tiles_build": [_P, _P, _I, _P, _P, _L, _I, _I, _P, _I, _P]},
     "band_tiles_spmm": {
         "glt_tiles_spmm":
-            [_P, _I, _L, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _L, _P]},
+            [_P, _I, _L, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _L, _P],
+        "glt_tiles_spmm_rowq":
+            [_P, _I, _P, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _L, _P],
+        "glt_tiles_spmm_i8":
+            [_P, _P, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _L, _P]},
     "band_rect_build": {
         "glt_rect_build": [_P, _P, _I, _P, _L, _I, _I, _I, _P, _I, _P]},
     "band_tiles_minplus": {
@@ -46,11 +50,6 @@ SIGNATURES = {
     "band_rect_minplus": {
         "glt_rect_minplus":
             [_P, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P]},
-    "band_tiles_spmm_q": {
-        "glt_tiles_spmm_rowq":
-            [_P, _I, _P, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _P],
-        "glt_tiles_spmm_i8":
-            [_P, _P, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _P]},
 }
 
 _loaded: dict = {}

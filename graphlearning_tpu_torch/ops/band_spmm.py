@@ -451,12 +451,13 @@ class BandedPlan(_WindowPlan):
 # -- kernels ------------------------------------------------------------------
 
 _CUDA_BAND_DTYPES = (torch.float32, torch.bfloat16)
-# the FFMA CTAs: csrc/band_tiles_lip.cu, band_rect_spmm.cu and
-# band_tiles_spmm_q.cu ROWS and KC
+# the FFMA CTAs: csrc/band_tiles_lip.cu and band_rect_spmm.cu ROWS and KC
 _ROWS_PER_CTA = 128
 _COLS_PER_STEP = 32
-# the tensor-core CTA of K2 and K3: csrc/band_tiles_spmm.cu ROWS, KC, DMAX
-_TILES_ROWS = 64       # output rows per CTA
+# the tensor-core CTA of K2, K3, K10 and K11: csrc/band_tiles_spmm.cu ROWS,
+# QROWS, KC, DMAX
+_TILES_ROWS = 64       # output rows per CTA (K2, K3; K10/K11 at least)
+_TILES_QROWS = 128     # ... of K10/K11 where R is a multiple of it
 _TILES_KC = 64         # band columns per ring stage
 _TILES_DMAX = 128      # widest d of one launch
 _MINPLUS_ROWS = 64     # csrc/band_tiles_minplus.cu ROWS
@@ -595,13 +596,40 @@ def _require_x_rows(name, plan: _SlabPlan, X):
              f"{name}: X {tuple(X.shape)} needs >= {plan.x_rows} rows")
 
 
-def _require_slab_launch(name, plan: _SlabPlan, X):
-    """The checks the FFMA slab kernels (K10, K11) share: X's rows and the
-    CTA geometry."""
+def _require_tiles_launch(name, plan: _SlabPlan, X, **planes):
+    """The checks of the tensor-core CTA (K2, K3, K10, K11): X's rows, the
+    CTA geometry, and operands on 16-byte boundaries (the ``cp.async``
+    ring copies 16-byte pieces)."""
     _require_x_rows(name, plan, X)
-    _require(plan.R % _ROWS_PER_CTA == 0 and plan.WT % _COLS_PER_STEP == 0,
-             f"{name}: the kernel takes R a multiple of {_ROWS_PER_CTA} and "
-             f"WT a multiple of {_COLS_PER_STEP}")
+    _require(plan.R % _TILES_ROWS == 0 and plan.WT % _TILES_KC == 0,
+             f"{name}: the kernel takes R a multiple of {_TILES_ROWS} and "
+             f"WT a multiple of {_TILES_KC}")
+    for k, t in dict(planes, X=X).items():
+        _require(t.data_ptr() % 16 == 0,
+                 f"{name}: {k} must start on a 16-byte boundary")
+
+
+def _column_blocks(name, X, out, launch):
+    """Call ``launch(X block, out pointer, its d)`` once per
+    ``_TILES_DMAX`` columns of d (one launch covers d <= _TILES_DMAX; wider
+    X goes in column blocks into the strided ``out``); returns the number
+    of launches."""
+    d = X.shape[1]
+    n_launch = 0
+    for c0 in range(0, d, _TILES_DMAX):
+        Xc = X if d <= _TILES_DMAX else X[:, c0:c0 + _TILES_DMAX].contiguous()
+        rc = launch(Xc, ctypes.c_void_p(out.data_ptr() + 4 * c0),
+                    int(Xc.shape[1]))
+        if rc:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
+        n_launch += 1
+    return n_launch
+
+
+def _plan_args(plan: _SlabPlan):
+    return (int(plan.R), _ptr(plan.block_ptr), _ptr(plan.slab_starts),
+            _ptr(plan.slab_ntiles), int(plan.S), int(plan.WT),
+            int(plan.n // plan.R))
 
 
 def _tiles_spmm_cuda(name, band, plan: _SlabPlan, X):
@@ -617,29 +645,15 @@ def _tiles_spmm_cuda(name, band, plan: _SlabPlan, X):
     _require(band.shape == (G * plan.R, plan.S * plan.WT),
              f"{name}: band {tuple(band.shape)} does not match the plan "
              f"({G * plan.R}, {plan.S * plan.WT})")
-    _require_x_rows(name, plan, X)
-    _require(plan.R % _TILES_ROWS == 0 and plan.WT % _TILES_KC == 0,
-             f"{name}: the kernel takes R a multiple of {_TILES_ROWS} and "
-             f"WT a multiple of {_TILES_KC}")
-    # the cp.async ring copies 16-byte pieces
-    _require(band.data_ptr() % 16 == 0 and X.data_ptr() % 16 == 0,
-             f"{name}: band and X must start on 16-byte boundaries")
+    _require_tiles_launch(name, plan, X, band=band)
     d = X.shape[1]
     out = torch.empty((plan.n, d), dtype=torch.float32, device=dev)
     lib = _build.load("band_tiles_spmm")
-    n_launch = 0
-    for c0 in range(0, d, _TILES_DMAX):
-        # one launch covers d <= _TILES_DMAX; wider X goes in column blocks
-        Xc = X if d <= _TILES_DMAX else X[:, c0:c0 + _TILES_DMAX].contiguous()
-        rc = lib.glt_tiles_spmm(
+    n_launch = _column_blocks(name, X, out, lambda Xc, o, dc: (
+        lib.glt_tiles_spmm(
             _ptr(band), int(band.dtype == torch.bfloat16),
-            int(band.shape[1]), int(plan.R), _ptr(plan.block_ptr),
-            _ptr(plan.slab_starts), _ptr(plan.slab_ntiles), int(plan.S),
-            int(plan.WT), int(plan.n // plan.R), _ptr(Xc), int(Xc.shape[1]),
-            ctypes.c_void_p(out.data_ptr() + 4 * c0), int(d), _stream(band))
-        if rc:
-            raise RuntimeError(f"{name}: CUDA error {rc}")
-        n_launch += 1
+            int(band.shape[1]), *_plan_args(plan), _ptr(Xc), dc, o, int(d),
+            _stream(band))))
     return out, n_launch
 
 
@@ -649,21 +663,22 @@ def band_tiles_spmm_packed(band, plan: PackedPlan, X):
 
     Replaces ``graphlearning_tpu/ops/pallas_spmm.py:1077``
     ``band_tiles_spmm_packed`` (kernel ``_tiles_packed_kernel``, :1040).
-    On the H100 its bound is the bytes of the band at any d up to 128:
-    the dense tiles' products run on the tensor cores, and only their
-    occupied fragments (about 10 % at the bench geometry).  One CTA of 8
-    warps owns 64 output rows of one row block and all of d up to 128
-    (wider X goes in 128-column launches): it walks that block's slabs through a 4-stage ``cp.async`` ring of 64-column
-    band chunks and their X rows, multiplies on the tensor cores (bf16
-    ``mma.sync``, or 3xTF32 for the exact f32 mode), splits each chunk's
-    K slices across its warps and sums their partial tiles in shared
-    memory before one store (no atomics, so the zeroing flag of the TPU
-    kernel is implicit).  Pad tiles and all-zero band fragments are
-    skipped.  d is not padded in memory (the TPU padded it to its 128
-    lanes).  Modes: an f32 band with f32 X computes f32 to about 2^-21
-    (the TPU's f32 and bf16x3); a bf16 band with bf16 X multiplies
-    exactly and sums in f32 (the TPU's bf16).  ``band`` and ``X`` must
-    start on 16-byte boundaries; R must be a multiple of 64 and WT of 64.
+    On the H100 its bound is the bytes of the band at any d up to 128: the
+    dense tiles' products run on the tensor cores, and only their occupied
+    fragments (about 10 % at the bench geometry).  One CTA of 8 warps (16
+    for f32 above 32 columns of d) owns 64 output rows of one row block and
+    all of d up to 128 (wider X goes in 128-column launches): it walks that
+    block's slabs through a 4-stage ``cp.async`` ring of 64-column band
+    chunks and their X rows, multiplies on the tensor cores (bf16
+    ``mma.sync``, or 3xTF32 for the exact f32 mode), splits each chunk's K
+    slices across its warps and sums their partial tiles in shared memory
+    before one store (no atomics, so the zeroing flag of the TPU kernel is
+    implicit).  Pad tiles and all-zero band fragments are skipped.  d is not
+    padded in memory (the TPU padded it to its 128 lanes).  Modes: an f32
+    band with f32 X computes f32 to about 2^-21 (the TPU's f32 and bf16x3);
+    a bf16 band with bf16 X multiplies exactly and sums in f32 (the TPU's
+    bf16).  ``band`` and ``X`` must start on 16-byte boundaries; R must be a
+    multiple of 64 and WT of 64.
     """
     if not isinstance(plan, PackedPlan):
         raise TypeError("band_tiles_spmm_packed takes a PackedPlan")
@@ -815,17 +830,20 @@ def band_tiles_spmm_packed_rowq(qband, srow, plan: PackedPlan, X,
 
     Replaces ``graphlearning_tpu/ops/pallas_spmm.py:1301``
     ``band_tiles_spmm_packed_rowq`` (kernel ``_tiles_packed_rowq_kernel``,
-    :1267).  On the H100 it is bound by the band's bytes at small d (1 or
-    2 bytes a cell) and by FFMA issue at d near 128; the exact-grade
-    floor is the tensor cores' (bf16 operands hold int8 exactly), a later
-    PR's.  K2's CTA: 128 rows of one block by up to 32 columns of d walk
-    the block's slabs; each 32-column step stages both planes' int8
-    chunks, widened to f32, and the X window rows through shared memory,
-    and FFMA accumulates ``acc_hi`` and ``acc_lo`` apart.  The epilogue
-    writes ``srow[row] * (acc_hi + acc_lo / 254)`` once: the row's scale
-    is fused there, where JAX scaled after the kernel.  The TPU's bf16
-    hi/lo split of X is dropped: f32 FFMA takes X whole, so planes=2
-    keeps the ``q_lo * x_lo`` term that JAX drops."""
+    :1267).  On the H100 its bound is the band's bytes (1 or 2 a cell);
+    at d near 128 it is held by the CTA's work on each band fragment
+    (loads, votes, rebuilt cells, X splits), not by bytes.  K2's
+    tensor-core
+    CTA (``csrc/band_tiles_spmm.cu``) with the int8 planes staged as
+    stored: planes=2 rebuilds each cell ``q_hi + q_lo / 254`` in f32 at
+    the fragment load and multiplies in 3xTF32, as K2's f32 mode (about
+    2^-21); planes=1 multiplies int8 cells (exact in bf16) by bf16 X on
+    the bf16 tensor cores.  The epilogue writes ``srow[row] * sum`` once:
+    the row's power-of-two scale is fused there, where JAX scaled after
+    the kernel.  The TPU's bf16 hi/lo split of X is dropped.  A CTA takes
+    128 rows where R is a multiple of 128, else 64; d > 128 goes in
+    128-column launches.  Operands must start on
+    16-byte boundaries; R must be a multiple of 64 and WT of 64."""
     name = "band_tiles_spmm_packed_rowq"
     _require_packed_plan(name, plan)
     if planes not in (1, 2):
@@ -848,17 +866,14 @@ def band_tiles_spmm_packed_rowq(qband, srow, plan: PackedPlan, X,
              f"({G * plan.R}, {planes * SW})")
     _require(srow.shape == (plan.n,),
              f"{name}: srow {tuple(srow.shape)} must be ({plan.n},)")
-    _require_slab_launch(name, plan, X)
-    out = torch.empty((plan.n, X.shape[1]), dtype=torch.float32, device=dev)
-    lib = _build.load("band_tiles_spmm_q")
-    rc = lib.glt_tiles_spmm_rowq(
-        _ptr(qband), int(planes), _ptr(srow), int(plan.R),
-        _ptr(plan.block_ptr), _ptr(plan.slab_starts), _ptr(plan.slab_ntiles),
-        int(plan.S), int(plan.WT), int(plan.n // plan.R), _ptr(X),
-        int(X.shape[1]), _ptr(out), _stream(qband))
-    if rc:
-        raise RuntimeError(f"{name}: CUDA error {rc}")
-    band_tiles_spmm_packed_rowq.launches += 1
+    _require_tiles_launch(name, plan, X, qband=qband, srow=srow)
+    d = X.shape[1]
+    out = torch.empty((plan.n, d), dtype=torch.float32, device=dev)
+    lib = _build.load("band_tiles_spmm")
+    band_tiles_spmm_packed_rowq.launches += _column_blocks(
+        name, X, out, lambda Xc, o, dc: lib.glt_tiles_spmm_rowq(
+            _ptr(qband), int(planes), _ptr(srow), *_plan_args(plan),
+            _ptr(Xc), dc, o, int(d), _stream(qband)))
     return out
 
 
@@ -873,13 +888,13 @@ def band_tiles_spmm_packed_i8(hi, q, plan: PackedPlan, X):
 
     Replaces ``graphlearning_tpu/ops/pallas_spmm.py:1184``
     ``band_tiles_spmm_packed_i8`` (kernel ``_tiles_packed_i8_kernel``,
-    :1152).  On the H100 it is bound by the band's 3 bytes a cell at small
-    d and by FFMA issue at d near 128 (the exact grade's tensor-core floor
-    is a later PR's).  K2's CTA; each 32-column step stages ``hi`` and
-    ``q`` and rebuilds the cell ``hi + q * 2**(e - 15)`` exactly in f32
-    from ``hi``'s exponent bits before it goes to shared memory, then
-    FFMA against f32 X.  The TPU's bf16 hi/lo split of X is dropped, as
-    in K10."""
+    :1152).  On the H100 its bound is the band's 3 bytes a cell; at d
+    near 128 it is held by the CTA's fragment work, as K10.  K2's
+    tensor-core CTA with
+    ``hi`` and ``q`` staged as stored; each occupied fragment's cells are
+    rebuilt exactly in f32 from ``hi``'s exponent bits and multiplied in
+    3xTF32, as K2's f32 mode.  The TPU's bf16 hi/lo split of X is
+    dropped, as in K10; CTA rows, wide d and alignment as K10's."""
     name = "band_tiles_spmm_packed_i8"
     _require_packed_plan(name, plan)
     if _dispatch_device(name, hi, q, X, plan.slab_starts) == "cpu":
@@ -896,17 +911,14 @@ def band_tiles_spmm_packed_i8(hi, q, plan: PackedPlan, X):
     _require(hi.shape == shape and q.shape == shape,
              f"{name}: hi {tuple(hi.shape)} and q {tuple(q.shape)} must be "
              f"{shape}")
-    _require_slab_launch(name, plan, X)
-    out = torch.empty((plan.n, X.shape[1]), dtype=torch.float32, device=dev)
-    lib = _build.load("band_tiles_spmm_q")
-    rc = lib.glt_tiles_spmm_i8(
-        _ptr(hi), _ptr(q), int(plan.R), _ptr(plan.block_ptr),
-        _ptr(plan.slab_starts), _ptr(plan.slab_ntiles), int(plan.S),
-        int(plan.WT), int(plan.n // plan.R), _ptr(X), int(X.shape[1]),
-        _ptr(out), _stream(hi))
-    if rc:
-        raise RuntimeError(f"{name}: CUDA error {rc}")
-    band_tiles_spmm_packed_i8.launches += 1
+    _require_tiles_launch(name, plan, X, hi=hi, q=q)
+    d = X.shape[1]
+    out = torch.empty((plan.n, d), dtype=torch.float32, device=dev)
+    lib = _build.load("band_tiles_spmm")
+    band_tiles_spmm_packed_i8.launches += _column_blocks(
+        name, X, out, lambda Xc, o, dc: lib.glt_tiles_spmm_i8(
+            _ptr(hi), _ptr(q), *_plan_args(plan), _ptr(Xc), dc, o, int(d),
+            _stream(hi)))
     return out
 
 

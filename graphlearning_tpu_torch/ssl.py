@@ -230,11 +230,15 @@ _NORMALIZATIONS = ("combinatorial", "randomwalk", "normalized")
 class laplace(ssl):
     """Laplace (harmonic) learning: solve ``tau u + L^order u = 0`` on the
     unlabeled nodes with ``u = y`` at the labels, by masked
-    Jacobi-preconditioned CG.  Only ``reweighting="none"`` is ported."""
+    Jacobi-preconditioned CG.  The parameters are the JAX package's, in
+    its order, with ``device`` last.  Only ``reweighting="none"`` is
+    ported; ``X``, ``alpha``, ``zeta`` and ``r`` are stored for the
+    reweightings, which read them."""
 
-    def __init__(self, W=None, class_priors=None, reweighting="none",
+    def __init__(self, W=None, class_priors=None, X=None, reweighting="none",
                  normalization="combinatorial", tau=0, order=1,
-                 mean_shift=False, tol=1e-5, device=None):
+                 mean_shift=False, tol=1e-5, alpha=2, zeta=1e7, r=0.1,
+                 device=None):
         if reweighting != "none":
             raise NotImplementedError(
                 f"laplace reweighting={reweighting!r} is not ported yet")
@@ -247,6 +251,8 @@ class laplace(ssl):
         self.tol = tol
         self.order = int(order)
         self.tau = tau
+        self.X = X
+        self.alpha, self.zeta, self.r = alpha, zeta, r
         self.name = "Laplace Learning"
 
     def _fit(self, train_ind, train_labels, all_labels=None):
@@ -322,10 +328,15 @@ class poisson(ssl):
     """Poisson learning.  Solvers: 'conjugate_gradient' (normalized
     Laplacian CG with ``D^{+-1/2}`` conjugation) and 'gradient_descent'
     (``u <- D^-1 b + D^-1 W u`` until the random walk from the labels
-    mixes).  'spectral' waits for the eigensolvers."""
+    mixes).  'spectral' waits for the eigensolvers.  The parameters are
+    the JAX package's, in its order, with ``device`` last: ``p`` and
+    ``spectral_cutoff`` are stored for the spectral solver, the only one
+    that reads them, and ``use_cuda`` is accepted and ignored (the device
+    comes from ``device``)."""
 
     def __init__(self, W=None, class_priors=None, solver="conjugate_gradient",
-                 min_iter=50, max_iter=1000, tol=1e-3, device=None):
+                 p=1, use_cuda=False, min_iter=50, max_iter=1000, tol=1e-3,
+                 spectral_cutoff=10, device=None):
         if solver == "spectral":
             raise NotImplementedError(
                 "poisson solver='spectral' needs the eigensolvers, not "
@@ -334,9 +345,11 @@ class poisson(ssl):
             raise ValueError(f"invalid Poisson solver {solver!r}")
         super().__init__(W, class_priors, device=device)
         self.solver = solver
+        self.p = p
         self.min_iter = min_iter
         self.max_iter = max_iter
         self.tol = tol
+        self.spectral_cutoff = spectral_cutoff
         self.name = "Poisson Learning"
 
     def _fit(self, train_ind, train_labels, all_labels=None):

@@ -115,16 +115,23 @@ def _knn_weights_device(knn_ind, knn_dist, kernel: str):
     raise ValueError("Invalid choice of kernel: " + kernel)
 
 
-def knn(data, k, kernel="gaussian", eta=None, symmetrize=True,
+def knn(data, k, kernel="gaussian", eta=None, symmetrize=True, metric="raw",
         similarity="euclidean", knn_data=None, device=None):
-    """kNN weight matrix as scipy CSR.  Symmetrization per kernel as in the
-    JAX package.  Low-dimensional (<= 3) point coordinates ride along as
+    """kNN weight matrix as scipy CSR.  The parameters are the JAX
+    package's, in its order, with ``device`` last.  Symmetrization per
+    kernel as in the JAX package.  ``metric`` names the stored kNN data of
+    a dataset (``data`` a dataset name), which waits for the port of
+    ``datasets``.  Low-dimensional (<= 3) point coordinates ride along as
     ``W._glt_points`` for the space-filling-curve ordering of
     ``ops.accel.AccelSpMM``."""
     dev = config.device(device)
     k = k + 1                                   # self counted in knn data
     if knn_data is not None:
         knn_ind, knn_dist = knn_data
+    elif isinstance(data, str):
+        raise NotImplementedError(
+            f"knn of the dataset {data!r} (metric {metric!r}) loads its "
+            "stored kNN data through datasets, not ported yet (P13)")
     else:
         knn_ind, knn_dist = knnsearch(data, k, similarity=similarity,
                                       device=dev)

@@ -601,8 +601,9 @@ def _constexprs(source):
 @pytest.mark.parametrize("source,names", [
     ("band_tiles_spmm.cu", {"ROWS": "_TILES_ROWS", "KC": "_TILES_KC",
                             "DMAX": "_TILES_DMAX"}),
-    ("band_tiles_spmm_q.cu", {"ROWS": "_ROWS_PER_CTA",
-                              "KC": "_COLS_PER_STEP"}),
+    # K10/K11 on the same CTA: its wide rows, chunk and width
+    ("band_tiles_spmm.cu", {"QROWS": "_TILES_QROWS", "KC": "_TILES_KC",
+                            "DMAX": "_TILES_DMAX"}),
     ("band_tiles_lip.cu", {"ROWS": "_ROWS_PER_CTA", "KC": "_COLS_PER_STEP"}),
     ("band_rect_spmm.cu", {"ROWS": "_ROWS_PER_CTA", "KC": "_COLS_PER_STEP"}),
     ("band_tiles_minplus.cu", {"ROWS": "_MINPLUS_ROWS"}),

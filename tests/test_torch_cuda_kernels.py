@@ -109,15 +109,14 @@ def test_cuda_kernels_match_twins(banded_tiles, cuda_device, dtype, d):
     _close(out, ref, dtype)
 
 
-@pytest.fixture(scope="module")
-def uneven_slabs():
-    """Tiles of R=128, WT=64 over 4 row blocks and 1536 X rows: block 0
-    holds 9 tiles (slabs of 4, 4 and 1 at S=4, so pad tiles), block 1 a
+def _uneven_slabs(R):
+    """Tiles of R rows and WT=64 over 4 row blocks and 1536 X rows: block
+    0 holds 9 tiles (slabs of 4, 4 and 1 at S=4, so pad tiles), block 1 a
     single tile, block 2 none, block 3 five.  95 % of the cells are zero,
     and rows 16-47 of block 0's tiles are all zero (whole MMA fragments
     for the kernel to skip)."""
     rs = np.random.RandomState(4)
-    R, WT, S, x_rows = 128, 64, 4, 1536
+    WT, S, x_rows = 64, 4, 1536
     tb, ts = [], []
     for b, c in ((0, 9), (1, 1), (3, 5)):
         tb += [b] * c
@@ -129,6 +128,11 @@ def uneven_slabs():
     bf = np.zeros(len(tb), np.int32)
     bf[np.unique(tb, return_index=True)[1]] = 1
     return band, tb, np.asarray(ts, np.int32), bf, R, WT, S, x_rows
+
+
+@pytest.fixture(scope="module")
+def uneven_slabs():
+    return _uneven_slabs(128)
 
 
 @pytest.mark.cuda
@@ -503,17 +507,17 @@ def test_cuda_accel_rect_route_takes_the_kernels(cuda_device, monkeypatch,
     assert np.mean(cp_b == cp_p) > 0.999
 
 
-@pytest.fixture(scope="module")
-def packed_q_case():
-    """The packed (256, 128, 12) geometry on an RCM-ordered kNN graph of
-    4096 rows, every edge in a tile; row block 3 loses its slabs (an
-    empty row block) and rows 10-19 of block 0 are zero in every slab."""
+def _packed_q_case(R, n):
+    """The packed (R, 128, 12) geometry on an RCM-ordered kNN graph of
+    4000 rows padded to ``n``, every edge in a tile; row block 3 loses its
+    slabs (an empty row block) and rows 10-19 of block 0 are zero in
+    every slab."""
     W = _knn_csr(4000, 10, seed=3)
     perm = np.asarray(reverse_cuthill_mckee(W, symmetric_mode=True))
     Wp = W[perm][:, perm].tocsr()
-    Wp.resize((4096, 4096))
+    Wp.resize((n, n))
     cols, vals, deg = SparseGraph.ell_from_scipy(Wp)
-    R, WT, S = 256, 128, 12
+    WT, S = 128, 12
     tb, ts, bf, rr, _, _ = bs.plan_tiles(
         cols, R=R, WT=WT, deg=deg, kcap=cols.shape[1], min_edges_per_tile=1,
         hbm_budget_bytes=float("inf"))
@@ -527,45 +531,148 @@ def packed_q_case():
     keep = sb != 3
     assert (sb == 3).any() and keep.sum() > 8
     return (packed[torch.as_tensor(keep)].reshape(-1, S * WT), sb[keep],
-            sts[keep], src[keep], R, WT)
+            sts[keep], src[keep], R, WT, n)
+
+
+@pytest.fixture(scope="module")
+def packed_q_case():
+    """The bench's packed geometry, R=256: 128-row CTAs."""
+    return _packed_q_case(256, 4096)
 
 
 def _packed_q(packed_q_case, dev):
-    band, sb, sts, src, R, WT = packed_q_case
-    plan = bs.PackedPlan.from_slabs(sb, sts, src, 4096, R, WT, dev)
+    band, sb, sts, src, R, WT, n = packed_q_case
+    plan = bs.PackedPlan.from_slabs(sb, sts, src, n, R, WT, dev)
     return band.to(dev), plan
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["rowq2", "rowq1", "i8"])
-@pytest.mark.parametrize("d", [1, 10, 33, 128])
-def test_cuda_quantized_kernels_match_twins(packed_q_case, cuda_device, kind,
-                                            d):
-    """K10 (planes 2 and 1) and K11 against their twins, within 1e-5 of
-    max|ref| (exact cells, f32 sums in another order); the empty row
-    block and the all-zero rows come out 0."""
-    band, plan = _packed_q(packed_q_case, cuda_device)
-    X = torch.randn((4096, d), device=cuda_device)
+def _run_quantized(kind, band, plan, X):
+    """K10 (``kind`` rowq2 / rowq1) or K11 (i8) on ``band`` quantized, and
+    its twin: ``(wrapper, out, ref)``."""
     if kind == "i8":
         hi, q = bs.quantize_band_i8(band)
         wrapper = bs.band_tiles_spmm_packed_i8
-        run = lambda: wrapper(hi, q, plan, X)
+        n0 = wrapper.launches
+        out = wrapper(hi, q, plan, X)
         ref = bs._tiles_spmm_i8_plain(hi, q, plan, X)
     else:
         planes = int(kind[-1])
         qband, srow = bs.quantize_band_rowq(band, plan, plan.n, planes)
         Xk = X if planes == 2 else X.to(torch.bfloat16)
         wrapper = bs.band_tiles_spmm_packed_rowq
-        run = lambda: wrapper(qband, srow, plan, Xk, planes)
+        n0 = wrapper.launches
+        out = wrapper(qband, srow, plan, Xk, planes)
         ref = bs._tiles_spmm_rowq_plain(qband, srow, plan, Xk, planes)
-    n0 = wrapper.launches
-    out = run()
     torch.cuda.synchronize()
-    assert wrapper.launches == n0 + 1
-    assert out.shape == (4096, d) and out.dtype == torch.float32
+    assert wrapper.launches == n0 + _tiles_launches(X.shape[1])
+    assert out.shape == (plan.n, X.shape[1]) and out.dtype == torch.float32
+    return wrapper, out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rowq2", "rowq1", "i8"])
+@pytest.mark.parametrize("d", TILES_D[:5] + [16, 33, 128, 130])
+def test_cuda_quantized_kernels_match_twins(packed_q_case, cuda_device, kind,
+                                            d):
+    """K10 (planes 2 and 1) and K11 against their twins, within 1e-5 of
+    max|ref| (exact cells, f32 sums in another order; 3xTF32 keeps about
+    2^-21); the empty row block and the all-zero rows come out 0."""
+    band, plan = _packed_q(packed_q_case, cuda_device)
+    X = torch.randn((4096, d), device=cuda_device)
+    _, out, ref = _run_quantized(kind, band, plan, X)
     _close(out, ref, torch.float32)
     assert not out[3 * 256:4 * 256].any()           # the empty row block
     assert not out[10:20].any()                     # the all-zero rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rowq2", "rowq1", "i8"])
+@pytest.mark.parametrize("R, n", [(64, 4096), (192, 4224)])
+@pytest.mark.parametrize("d", [3, 40, 128])
+def test_cuda_quantized_kernels_64_row_ctas(cuda_device, kind, R, n, d):
+    """K10/K11 on a plan whose R is a multiple of 64 but not of 128, so
+    each row block takes R / 64 CTAs of 64 rows, against their twins."""
+    band, plan = _packed_q(_packed_q_case(R, n), cuda_device)
+    assert plan.R % bs._TILES_QROWS
+    X = torch.randn((n, d), device=cuda_device)
+    _, out, ref = _run_quantized(kind, band, plan, X)
+    _close(out, ref, torch.float32)
+    assert not out[3 * R:4 * R].any()               # the empty row block
+
+
+def _uneven_packed_band(uneven_slabs, dev):
+    """The uneven tiles packed at S=4 (slabs of 4, 4 and 1 tiles with pad
+    tiles in block 0, one in block 1, none in block 2, 4 and 1 in block
+    3): the f32 band on ``dev`` and its plan."""
+    band_np, tb, ts, bf, R, WT, S, _ = uneven_slabs
+    sb, sts, _, src = bs.pack_tiles(tb, ts, bf, S)
+    assert (src < 0).any()
+    band = bs.pack_band(torch.as_tensor(band_np), src, R=R, WT=WT)
+    plan = bs.PackedPlan.from_slabs(sb, sts, src, 4 * R, R, WT, dev)
+    return band.to(dev), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rowq2", "rowq1", "i8"])
+@pytest.mark.parametrize("R", [128, 192])
+@pytest.mark.parametrize("d", TILES_D)
+def test_cuda_quantized_uneven_blocks_rectangular_x(cuda_device, kind, R,
+                                                    d):
+    """K10 and K11 on very uneven blocks (9, 1, 0 and 5 tiles), pad tiles
+    and a rectangular X (1536 rows for 4 R outputs), with R=128 (128-row
+    CTAs) and R=192 (64-row CTAs), against their twins; the empty block
+    comes out 0."""
+    slabs = _uneven_slabs(R)
+    band, plan = _uneven_packed_band(slabs, cuda_device)
+    X = torch.randn((slabs[-1], d), device=cuda_device)
+    _, out, ref = _run_quantized(kind, band, plan, X)
+    _close(out, ref, torch.float32)
+    assert not out[2 * R:3 * R].any()
+
+
+@pytest.mark.cuda
+def test_cuda_quantized_refuse_misaligned_planes_and_geometry(
+        uneven_slabs, cuda_device):
+    """K10/K11's ring copies 16-byte pieces: a plane, srow or X off a
+    16-byte boundary is refused, and so are R or WT off 64."""
+    dev = cuda_device
+    band, plan = _uneven_packed_band(uneven_slabs, dev)
+    qband, srow = bs.quantize_band_rowq(band, plan, plan.n, 2)
+    hi, q = bs.quantize_band_i8(band)
+    X = torch.randn((1536, 4), device=dev)
+
+    def off(t):
+        """``t``'s copy one element past a 16-byte boundary."""
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+        moved = buf[1:].view(t.shape)
+        moved.copy_(t)
+        assert moved.is_contiguous() and moved.data_ptr() % 16
+        return moved
+
+    with pytest.raises(ValueError):
+        bs.band_tiles_spmm_packed_rowq(off(qband), srow, plan, X, 2)
+    with pytest.raises(ValueError):
+        bs.band_tiles_spmm_packed_rowq(qband, off(srow), plan, X, 2)
+    with pytest.raises(ValueError):
+        bs.band_tiles_spmm_packed_rowq(qband, srow, plan, off(X), 2)
+    with pytest.raises(ValueError):
+        bs.band_tiles_spmm_packed_i8(off(hi), q, plan, X)
+    with pytest.raises(ValueError):
+        bs.band_tiles_spmm_packed_i8(hi, off(q), plan, X)
+    for R, WT in ((96, 64), (64, 32)):       # R or WT off 64
+        odd = bs.PackedPlan.from_numpy([0], [[0]], [1], R, R, WT, dev)
+        with pytest.raises(ValueError):
+            bs.band_tiles_spmm_packed_rowq(
+                torch.zeros((R, 2 * WT), dtype=torch.int8, device=dev),
+                torch.ones(R, device=dev), odd, torch.zeros((R, 4),
+                                                            device=dev), 2)
+        with pytest.raises(ValueError):
+            bs.band_tiles_spmm_packed_i8(
+                torch.zeros((R, WT), dtype=torch.bfloat16, device=dev),
+                torch.zeros((R, WT), dtype=torch.int8, device=dev), odd,
+                torch.zeros((R, 4), device=dev))
+    _, out, ref = _run_quantized("rowq2", band, plan, X)
+    _close(out, ref, torch.float32)
 
 
 @pytest.mark.cuda

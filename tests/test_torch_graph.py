@@ -131,6 +131,36 @@ def test_knn_matches_jax(dim, method, kernel):
     assert hasattr(W, "_glt_points") == (dim <= 3)
 
 
+@pytest.mark.parametrize("similarity", ["euclidean", "angular"])
+def test_knn_positional_metric_matches_jax(similarity):
+    """``knn(X, 10, "gaussian", None, True, "raw", similarity)``: the JAX
+    package's positional order, ``metric`` sixth, gives its CSR matrix; a
+    dataset name (JAX loads its stored kNN data) waits for ``datasets``."""
+    X = np.random.RandomState(7).rand(400, 3) + 0.5
+    W = tgl.weightmatrix.knn(X, 10, "gaussian", None, True, "raw",
+                             similarity, device="cpu")
+    Wj = jgl.weightmatrix.knn(X, 10, "gaussian", None, True, "raw",
+                              similarity)
+    np.testing.assert_array_equal(W.indptr, Wj.indptr)
+    np.testing.assert_array_equal(W.indices, Wj.indices)
+    np.testing.assert_allclose(W.data, Wj.data, **TOL)
+    with pytest.raises(NotImplementedError, match="P13"):
+        tgl.weightmatrix.knn("mnist", 10, device="cpu")
+
+
+@pytest.mark.parametrize("alpha", [0.5, 1.0])
+def test_coifmanlafon_laplacian_matches_jax(W_diag, alpha):
+    """The random-walk Laplacian of ``D^-alpha W D^-alpha``, alpha by
+    position, against JAX's scipy matrix; alpha defaults to 1."""
+    G = tgl.graph(W_diag, device="cpu")
+    Gj = jgl.graph(W_diag)
+    L = G.laplacian("coifmanlafon", alpha)
+    Lj = Gj.laplacian("coifmanlafon", alpha)
+    assert L.shape == Lj.shape and abs(L - Lj).max() < 1e-12
+    if alpha == 1.0:
+        assert abs(G.laplacian("coifmanlafon") - Lj).max() < 1e-12
+
+
 def test_trainsets_and_utils_match_jax():
     labels = np.random.RandomState(2).randint(0, 4, 300)
     for rate in (5, 0.1, [3, 1, 2, 4]):

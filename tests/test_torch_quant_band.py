@@ -242,3 +242,84 @@ def test_quantized_wrappers_refuse():
         bs.band_tiles_spmm_packed_i8(hi, q8, tiles, X)
     with pytest.raises(ValueError):
         bs.quantize_band_i8(torch.as_tensor(band).double())
+
+
+@pytest.fixture(scope="module")
+def uneven_packed():
+    """Tiles of R=128, WT=64 over 4 row blocks and 1536 X rows (block 0
+    holds 9 tiles, block 1 one, block 2 none, block 3 five; 95 % of the
+    cells zero), packed by JAX at S=4: slabs of 4, 4 and 1 tiles (pad
+    tiles), 1, then 4 and 1.  JAX's packed band, slabs and quantized
+    arrays, the port's plan, and X (1536, 130) from a seed."""
+    rs = np.random.RandomState(4)
+    Ru, WTu, Su, x_rows = 128, 64, 4, 1536
+    tb, ts = [], []
+    for b, c in ((0, 9), (1, 1), (3, 5)):
+        tb += [b] * c
+        ts += sorted(rs.choice(x_rows // WTu, c, replace=False) * WTu)
+    tb = np.asarray(tb, np.int32)
+    ts = np.asarray(ts, np.int32)
+    band = rs.randn(len(tb) * Ru, WTu).astype(np.float32)
+    band[rs.rand(*band.shape) < 0.95] = 0
+    bf = np.zeros(len(tb), np.int32)
+    bf[np.unique(tb, return_index=True)[1]] = 1
+    sb, sts, sbf, src = jps.pack_tiles(tb, ts, bf, Su)
+    assert (np.asarray(src) < 0).any()
+    packed = jps.pack_band(jnp.asarray(band), src, R=Ru, WT=WTu)
+    n = 4 * Ru
+    plan = bs.PackedPlan.from_slabs(sb, sts, src, n, Ru, WTu, "cpu")
+    X = np.random.RandomState(6).randn(x_rows, 130).astype(np.float32)
+    return packed, (sb, sts, sbf), plan, X, (n, Ru, WTu, Su)
+
+
+@pytest.mark.parametrize("kind", ["rowq1", "rowq2", "i8"])
+def test_quantized_twins_uneven_plan_match_pallas(uneven_packed, kind):
+    """K10/K11's twins on an uneven packed plan with pad tiles, an empty
+    row block and d=130, fed JAX's quantized arrays, against the Pallas
+    kernels in interpret mode (X zero-padded to their 256 lanes); the
+    empty block comes out 0 (the Pallas grid never visits it)."""
+    packed, slabs, plan, X, (n, Ru, WTu, Su) = uneven_packed
+    sb = slabs[0]
+    slabs = tuple(jnp.asarray(a) for a in slabs)
+    Xpad = np.zeros((X.shape[0], 256), np.float32)
+    Xpad[:, :130] = X
+    if kind == "i8":
+        hi, q = jps.quantize_band_i8(packed)
+        ref = jps.band_tiles_spmm_packed_i8(
+            hi, q, *slabs, jnp.asarray(Xpad), n=n, R=Ru, WT=WTu, S=Su,
+            interpret=True)
+        arrays = (np.array(hi).view(np.int16), np.array(q))
+    else:
+        planes = int(kind[-1])
+        q, s = _jax_rowq(packed, _row_of(sb, Ru), n, planes)
+        Xk = jnp.asarray(Xpad).astype(jnp.bfloat16 if planes == 1
+                                      else jnp.float32)
+        ref = jps.band_tiles_spmm_packed_rowq(
+            q, s, *slabs, Xk, n=n, R=Ru, WT=WTu, S=Su, planes=planes,
+            interpret=True)
+        arrays = (np.array(q), np.array(s))
+    ref = np.asarray(ref, np.float64)[:, :130]
+    out = _port_twin(kind, arrays, plan, X)
+    assert out.shape == (n, 130) and out.dtype == torch.float32
+    out = out.numpy().astype(np.float64)
+    live = np.ones(n, bool)
+    live[2 * Ru:3 * Ru] = False
+    scale = np.abs(ref[live]).max()
+    assert np.abs(out[live] - ref[live]).max() <= TWIN_TOL[kind] * scale
+    assert not out[~live].any()
+
+
+def test_quantized_geometry_admits_the_bench_plan():
+    """The bench's packed (256, 128, 12) plan meets K10/K11's CTA (R a
+    multiple of the 128-row CTA, WT of the 64-column chunk), and every
+    staged plane row is whole 16-byte pieces: a chunk of 64 int8 or bf16
+    cells, rows S*WT int8 or bf16 cells apart, plane lo S*WT bytes after
+    plane hi."""
+    from graphlearning_tpu_torch.ops import accel
+
+    R_, WT_, S_ = accel._PACKED_R, accel._PACKED_WT, accel._PACKED_S
+    assert R_ % bs._TILES_QROWS == 0 and bs._TILES_QROWS % bs._TILES_ROWS == 0
+    assert WT_ % bs._TILES_KC == 0
+    for cell in (1, 2):
+        assert bs._TILES_KC * cell % 16 == 0
+        assert S_ * WT_ * cell % 16 == 0

@@ -98,6 +98,58 @@ def test_unported_options_raise(moons):
         tgl.ssl.laplace(W, device="cpu").predict()
 
 
+@pytest.fixture(scope="module")
+def moons_points():
+    """The points of the ``moons`` graph."""
+    return _moons(600, 0.1, seed=0)[0]
+
+
+# Calls that bind the JAX package's parameters by position, the same in
+# both packages (the port takes ``device`` last, by keyword).
+POSITIONAL = {
+    # (W, class_priors, solver, p, use_cuda): the GD defaults after them
+    "poisson_gd": lambda gl, W, X, **kw: gl.ssl.poisson(
+        W, None, "gradient_descent", 1, False, **kw),
+    # ... then min_iter, max_iter, tol and spectral_cutoff
+    "poisson_cg": lambda gl, W, X, **kw: gl.ssl.poisson(
+        W, None, "conjugate_gradient", 1, False, 50, 1000, 1e-10, 10,
+        **kw),
+    # (W, class_priors, X)
+    "laplace_X": lambda gl, W, X, **kw: gl.ssl.laplace(W, None, X, **kw),
+    # ... then reweighting, normalization, tau, order, mean_shift, tol,
+    # alpha, zeta and r
+    "laplace_normalized": lambda gl, W, X, **kw: gl.ssl.laplace(
+        W, None, X, "none", "normalized", 0, 1, False, 1e-10, 3, 1e6, 0.2,
+        **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(POSITIONAL))
+def test_positional_parameters_match_jax(moons, moons_points, name):
+    """The same positional call gives JAX's predictions and ``u``
+    (allclose at f64; ``laplace_X`` stops CG at its default 1e-5, so its
+    ``u`` is held to that scale), and stores the same parameters."""
+    W, y, ti = moons
+    X = moons_points
+    jm = POSITIONAL[name](jgl, W, X)
+    tm = POSITIONAL[name](tgl, W, X, device="cpu")
+    np.testing.assert_array_equal(tm.fit_predict(ti, y[ti]),
+                                  jm.fit_predict(ti, y[ti]))
+    assert tm.iters > 0
+    scale = np.abs(jm.prob).max()
+    atol = 1e-5 * scale if name == "laplace_X" else 1e-10 * scale
+    np.testing.assert_allclose(tm.prob, jm.prob, rtol=0, atol=atol)
+    names = (("solver", "p", "min_iter", "max_iter", "tol",
+              "spectral_cutoff") if name.startswith("poisson") else
+             ("reweighting", "normalization", "tau", "order", "mean_shift",
+              "tol", "alpha", "zeta", "r"))
+    for attr in names:
+        np.testing.assert_array_equal(np.unique(getattr(tm, attr)),
+                                      np.unique(getattr(jm, attr)), attr)
+    if name.startswith("laplace"):
+        assert tm.X is X and jm.X is X
+
+
 @pytest.fixture
 def band_forced(monkeypatch):
     """Band path on in both packages at this small size."""
