@@ -32,10 +32,11 @@ Phases (any failure exits non-zero before the result line):
 5. the rectangular route: the same graph under ``GLT_NO_BAND=1``
    (Laplace and Poisson on the unstored band, K6; ``graph.dijkstra`` on
    the plain path), then ``AccelSpMM(W, materialize=True)`` (K4 band; the
-   masked Laplace solve on K5, the distances on K8), then two moons with
-   n=1310720, over the size gate, where ``maybe_build`` itself takes the
-   unstored band (K6); each fit held to the plain ELL path; then K5, K6
-   and K8 against their twins at these shapes;
+   masked Laplace solve on K5, the distances on K8, both on the band's
+   live chunks), then two moons with n=1310720, over the size gate, where
+   ``maybe_build`` itself takes the unstored band (K6); each fit held to
+   the plain ELL path; then K5, K6 and K8 against their twins at these
+   shapes;
 6. the bench (``graphlearning_tpu_torch.bench``) at the JAX bench's
    geometry: the 2-D spmm modes (n=262144, k=16, d=128: bf16 and f32 on
    K2, rowq2_int8 and rowq1_int8 on K10, bf16i8 on K11, each held to its
@@ -45,6 +46,16 @@ Phases (any failure exits non-zero before the result line):
    with the scipy reference on >= 0.99 of the nodes, and again under
    ``GLT_NO_GATHER`` on the plain ELL path; then K10 and K11
    against their twins on the bench's packed plan at d in {10, 128}.
+
+Each kernel entry has ``ms`` (the median of single calls, each between two
+CUDA events, the host's time in the call included), ``chain_ms`` (20
+calls back to back between two events, over 20: the device's time where
+it exceeds the host's, else the host's) and, but for the band builds,
+``graph_ms`` (20 calls captured in a CUDA graph and replayed between two
+events, over 20: the device's time alone), and the same three for its
+library call.  ``bound_ms`` counts what the function needs of this run's
+data; K5 and K8 also give ``live_bound_ms`` (the bytes their live-chunk
+design reads) and ``dense_bound_ms`` (every cell of the band).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -87,7 +98,7 @@ CU_FILE = {
     "materialize_band": SOURCE + "band_rect_build.cu",
     "band_tiles_minplus": SOURCE + "band_tiles_minplus.cu",
     "band_tiles_lip": SOURCE + "band_tiles_lip.cu",
-    "band_spmm": SOURCE + "band_rect_spmm.cu",
+    "band_spmm": SOURCE + "band_tiles_spmm.cu",
     "banded_spmm": SOURCE + "band_ell_spmm.cu",
     "band_minplus": SOURCE + "band_rect_minplus.cu",
     "band_tiles_spmm_packed_rowq": SOURCE + "band_tiles_spmm.cu",
@@ -132,6 +143,11 @@ REFERENCE_ACCURACY = {"laplace": 99.1957, "poisson_cg": 94.2695,
                       "peikonal": 89.6926}
 ACCURACY_MARGIN = 1.0
 ITERS_MARGIN = 0.01      # band fits' iterations against the plain path's
+# A band path's masked Laplace solve (the f32 CG to the fit's tol) against
+# scipy's f64 solve, at most this many times the plain f32 path's error.
+# The exact grade's 3xTF32 tensor-core sums measured about 10x (PERF.md);
+# 40x before their sums were rounded to nearest.
+SOLVE_MARGIN = 20.0
 
 
 class SmokeFailure(RuntimeError):
@@ -156,7 +172,9 @@ def env(name, value):
 
 
 def time_ms(torch, fn, reps=REPS):
-    """Median over ``reps`` runs of one call, each timed by CUDA events."""
+    """Median over ``reps`` runs of one call, each timed by CUDA events.
+    The start event is recorded before the call's Python runs, so a call
+    whose device time is near its host time reads its host time too."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -169,6 +187,69 @@ def time_ms(torch, fn, reps=REPS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def chain_ms(torch, fn, reps=REPS):
+    """One pair of CUDA events around ``reps`` calls back to back, after a
+    warm-up, over ``reps``: a call's time in a stream of them, where the
+    host enqueues the next call while the device runs this one."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps=REPS, library=False):
+    """The device's time of one call, with no host time in it: ``reps``
+    calls captured in one CUDA graph after a warm-up, replayed between two
+    CUDA events, over ``reps``.  A ``library`` call that cannot be captured
+    (one that waits on the host) gives None; a kernel of the port that
+    cannot be captured fails the smoke."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as e:
+        if not library:
+            raise SmokeFailure(f"a kernel not captured in a CUDA graph: "
+                               f"{str(e).splitlines()[0]}") from e
+        say(f"  library call not captured in a CUDA graph: "
+            f"{str(e).splitlines()[0]}")
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timings(torch, run, plain, library=None, graph=True):
+    """The kernel's ``ms``, ``chain_ms`` and (with ``graph``; the band
+    builds' outputs are too large to hold 20 of) ``graph_ms``, its twin's
+    ``plain_ms``, and the same three of the library call (None without
+    one)."""
+    lib = {"library_ms": None, "library_chain_ms": None,
+           "library_graph_ms": None}
+    if library:
+        lib = {"library_ms": time_ms(torch, library),
+               "library_chain_ms": chain_ms(torch, library),
+               "library_graph_ms": graph_ms(torch, library, library=True)}
+    return {"ms": time_ms(torch, run), "chain_ms": chain_ms(torch, run),
+            "graph_ms": graph_ms(torch, run) if graph else None,
+            "plain_ms": time_ms(torch, plain), **lib}
 
 
 def bound(nbytes, ops, dtype_name):
@@ -198,8 +279,11 @@ def compare(label, out, ref, tol):
 
 def report(entry):
     say("  " + json.dumps({k: entry[k] for k in (
-        "variant", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "sums_library_ms", "gb_s", "bound_share") if k in entry}))
+        "variant", "ms", "chain_ms", "graph_ms", "plain_ms", "bound_ms",
+        "bound_by", "live_bound_ms", "dense_bound_ms", "live_share",
+        "library_ms",
+        "library_chain_ms", "library_graph_ms", "sums_library_ms",
+        "sums_library_chain_ms", "gb_s", "bound_share") if k in entry}))
     return entry
 
 
@@ -218,9 +302,8 @@ def k1_entry(torch, bs, label, inputs, out_dtype):
     b_ms, b_by = bound(nbytes, 0, dname)
     return report({
         "name": "materialize_band_tiles", "variant": label,
-        "max_abs_err": err, "ms": time_ms(torch, run),
-        "plain_ms": time_ms(torch, plain), "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None,
+        "max_abs_err": err, **timings(torch, run, plain, graph=False),
+        "bound_ms": b_ms, "bound_by": b_by,
         "shapes": {"ell": list(cols.shape), "tiles": int(tb.numel()),
                    "R": R, "WT": WT, "out": list(out.shape),
                    "dtype": dname}})
@@ -243,15 +326,12 @@ def spmm_entry(torch, bs, name, label, band, plan, X, library):
                  + plan.block_ptr.numel()) * 4)
     b_ms, b_by = bound(nbytes, 2 * nnz_band * d,
                        "tf32x3" if dname == "float32" else dname)
-    ms = time_ms(torch, run)
+    t = timings(torch, run, plain, library)
     return report({
-        "name": name, "variant": label, "max_abs_err": err,
-        "ms": ms, "plain_ms": time_ms(torch, plain),
+        "name": name, "variant": label, "max_abs_err": err, **t,
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": (time_ms(torch, library) if library is not None
-                       else None),
         # the bound's bytes over the kernel's time, and bound / time
-        "gb_s": nbytes / ms * 1e-6, "bound_share": b_ms / ms,
+        "gb_s": nbytes / t["ms"] * 1e-6, "bound_share": b_ms / t["ms"],
         "shapes": {"band": list(band.shape), "X": list(X.shape),
                    "slabs": int(plan.slab_block.numel()),
                    "real_tiles": int(plan.slab_ntiles.sum()),
@@ -284,8 +364,8 @@ def k4_entry(torch, bs, label, acc, dtype):
     b_ms, b_by = bound(nbytes, 0, dname)
     return report({
         "name": "materialize_band", "variant": label, "max_abs_err": err,
-        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **timings(torch, run, plain, graph=False), "bound_ms": b_ms,
+        "bound_by": b_by,
         "shapes": {"ell": list(cols.shape), "R": acc.R, "Wr": int(Wr),
                    "out": [acc.n_pad, int(Wr)], "dtype": dname}})
 
@@ -301,12 +381,12 @@ def coo_of(torch, acc):
 
 
 def minplus_entry(torch, bs, name, label, run, plain, band, nbytes, d, f,
-                  hopf, track, coo, shapes):
+                  hopf, track, coo, shapes, extra=None):
     """A min-plus kernel (K7 or K8) against its twin: min and argmin
     identical.  ``coo`` gives the yardstick of plain min-plus: one
     ``addcmul`` forms the candidates of the COO edges (their d and f
     gathered beforehand) and one ``scatter_reduce(amin)`` reduces them per
-    row, timed together."""
+    row, timed together.  ``extra``: more keys of the entry."""
     m, a = run()
     torch.cuda.synchronize()
     rm, ra = plain()
@@ -328,11 +408,11 @@ def minplus_entry(torch, bs, name, label, run, plain, band, nbytes, d, f,
             0, row, torch.addcmul(dcol, w, fcol), "amin")
     return report({
         "name": name, "variant": label, "max_abs_err": 0.0,
-        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+        **timings(torch, run, plain, library),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(torch, library) if library else None,
         "library": ("addcmul + scatter_reduce(amin) over the COO edges"
                     if library else None),
+        **(extra or {}),
         "shapes": dict(shapes, band=list(band.shape), band_nnz=nnz_band,
                        track_arg=track,
                        dtype=str(band.dtype).split(".")[-1])})
@@ -379,13 +459,12 @@ def k9_entry(torch, bs, label, band, plan, U, csr=None):
               + 3 * plan.n * C * 4
               + (plan.slab_starts.numel() + plan.block_ptr.numel()) * 4)
     b_ms, b_by = bound(nbytes, 4 * nnz_band * C, "float32")
+    sums = (lambda: torch.sparse.mm(csr, U)) if csr is not None else None
     return report({
         "name": "band_tiles_lip", "variant": label, "max_abs_err": err,
-        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
-        "sums_library_ms": (time_ms(torch, lambda: torch.sparse.mm(csr, U))
-                            if csr is not None else None),
+        **timings(torch, run, plain), "bound_ms": b_ms, "bound_by": b_by,
+        "sums_library_ms": time_ms(torch, sums) if sums else None,
+        "sums_library_chain_ms": chain_ms(torch, sums) if sums else None,
         "shapes": {"band": list(band.shape), "tiles": G, "R": plan.R,
                    "WT": plan.WT, "C": C, "band_nnz": nnz_band,
                    "dtype": dname}})
@@ -606,6 +685,7 @@ def fit_phase(torch, gl, accel, bs):
     entries = []
     acc = accel.maybe_build(W, device="cuda")
     acc_u = accel.maybe_build(W, device="cuda", packed=False)
+    check_solves(torch, gl, W, labels, ti, {"K2": acc, "K3": acc_u})
     entries.append(k1_entry(torch, bs, "fit/packed/float32",
                             acc.band_inputs(), torch.float32))
     entries.append(k1_entry(torch, bs, "fit/unpacked/float32",
@@ -628,11 +708,13 @@ def fit_phase(torch, gl, accel, bs):
     for a, tag in ((acc, "packed band (K2)"), (acc_u, "unpacked band (K3)")):
         Xa = torch.randn((a.n_pad, 2), generator=gen, device="cuda")
         ms = time_ms(torch, lambda a=a, Xa=Xa: a.spmm(Xa))
-        say(f"  whole matvec, d=2, {tag} + residual: {ms:.4f} ms, "
+        say(f"  whole matvec, d=2, {tag} + residual: {ms:.4f} ms (chain "
+            f"{chain_ms(torch, lambda a=a, Xa=Xa: a.spmm(Xa)):.4f}), "
             f"{W.nnz / ms * 1e3:.4g} edges/s")
     Xa = torch.randn((acc.n_pad, 2), generator=gen, device="cuda")
     ms = time_ms(torch, lambda: graphops.spmm(acc.g, Xa))
-    say(f"  whole matvec, d=2, plain ELL gather: {ms:.4f} ms, "
+    say(f"  whole matvec, d=2, plain ELL gather: {ms:.4f} ms (chain "
+        f"{chain_ms(torch, lambda: graphops.spmm(acc.g, Xa)):.4f}), "
         f"{W.nnz / ms * 1e3:.4g} edges/s")
     launches = {"materialize_band_tiles":
                 launches_a["materialize_band_tiles"],
@@ -807,19 +889,73 @@ def window_coo(torch, acc):
     return rows[keep], cols[keep], vals[keep]
 
 
-def window_csr(torch, acc):
-    """The in-window edges of ``acc``'s plan as a torch CSR on the card."""
-    row, col, val = window_coo(torch, acc)
+def band_coo(torch, band, plan):
+    """Rows, absolute columns and f32 values of the nonzero cells of a
+    rectangular ``band``, row-major on the card: the yardsticks' inputs for
+    a bf16 band, whose rounded values the ELL does not hold (in f32 they
+    are exact, so the library computes the kernel's function)."""
+    row, c = (band != 0).nonzero(as_tuple=True)
+    col = plan.winstart.long()[row // plan.R] + c
+    return row, col, band[row, c].float()
+
+
+def window_csr(torch, acc, coo=None):
+    """The in-window edges of ``acc``'s plan (or the edges ``coo``) as a
+    torch CSR on the card."""
+    row, col, val = coo if coo is not None else window_coo(torch, acc)
     n = acc.plan.n
     crow = torch.zeros(n + 1, dtype=torch.int64, device=row.device)
     crow[1:] = torch.cumsum(torch.bincount(row, minlength=n), 0)
     return torch.sparse_csr_tensor(crow, col, val, size=(n, n))
 
 
-def k5_entry(torch, bs, label, band, plan, X, csr=None):
-    """K5 against its twin, within TOL of max|ref|; ``csr`` (the in-window
-    edges) gives the ``torch.sparse.mm`` yardstick."""
-    run = lambda: bs.band_spmm(band, plan, X)
+def needed_bytes(torch, bs, band, plan, row_bytes):
+    """The bytes that K5's (or K8's) function needs, whatever the design
+    reads: each 32-byte sector of ``band`` that holds a nonzero cell (the
+    card's least read) and each X (or d and f) row of ``row_bytes`` that a
+    nonzero cell multiplies, once.  Returns ``(bytes, sectors)``."""
+    per = 32 // band.element_size()
+    sectors = 0
+    used = torch.zeros(plan.x_rows, dtype=torch.bool, device=band.device)
+    for b0, b1 in bs._block_chunks(plan, plan.R * plan.W):
+        nz = (band[b0 * plan.R:b1 * plan.R] != 0).reshape(b1 - b0, plan.R,
+                                                          plan.W)
+        sectors += int(nz.reshape(b1 - b0, plan.R, plan.W // per, per)
+                       .any(dim=3).sum())
+        used[bs._window_index(plan, b0, b1)[nz.any(dim=1)]] = True
+    return sectors * 32 + int(used.sum()) * row_bytes, sectors
+
+
+def live_bytes(torch, bs, band, plan, chunks, row_bytes):
+    """The bytes that reading only the live chunks of ``band`` needs: each
+    live (64, 64) chunk's cells, each X (or d and f) chunk of ``row_bytes``
+    a row that a live chunk multiplies once (X rows are absolute, so row
+    blocks whose windows overlap share them), and the list.  Returns
+    ``(bytes, live chunks, all chunks)``."""
+    chunk_ptr, chunk_col = chunks
+    rows, kc = bs._TILES_ROWS, bs._TILES_KC
+    live = int(chunk_col.numel())
+    group = torch.repeat_interleave(
+        torch.arange(plan.n // rows, device=band.device),
+        (chunk_ptr[1:] - chunk_ptr[:-1]).long())
+    x_chunk = (plan.winstart[group * rows // plan.R].long() // kc
+               + chunk_col.long())
+    x_chunks = int(torch.unique(x_chunk).numel())
+    nbytes = (live * rows * kc * band.element_size()
+              + x_chunks * kc * row_bytes
+              + (chunk_ptr.numel() + live) * 4 + plan.winstart.numel() * 4)
+    return nbytes, live, (plan.n // rows) * (plan.W // kc)
+
+
+def k5_entry(torch, bs, label, band, plan, X, chunks, csr=None):
+    """K5 on the band's live chunks against its twin, within TOL of
+    max|ref|; ``csr`` (the in-window edges, in f32) gives the
+    ``torch.sparse.mm`` yardstick, on X in f32.  ``bound_ms``: the bytes
+    the function needs (:func:`needed_bytes`) and ``out``;
+    ``live_bound_ms``: the live chunks' bytes (:func:`live_bytes`), what
+    this design reads, and ``out``; ``dense_bound_ms``: every cell of the
+    band read once."""
+    run = lambda: bs.band_spmm(band, plan, X, chunks)
     plain = lambda: bs._rect_spmm_plain(band, plan, X)
     out = run()
     torch.cuda.synchronize()
@@ -828,20 +964,31 @@ def k5_entry(torch, bs, label, band, plan, X, csr=None):
     nnz_band = int((band != 0).sum())
     d = X.shape[1]
     nblocks = plan.n // plan.R
-    nbytes = (band.numel() * band.element_size()
-              + nblocks * plan.W * d * X.element_size() + out.numel() * 4
-              + nblocks * 4)
-    b_ms, b_by = bound(nbytes, 2 * nnz_band * d, dname)
+    nbytes, sectors = needed_bytes(torch, bs, band, plan,
+                                   d * X.element_size())
+    lbytes, live, n_chunks = live_bytes(torch, bs, band, plan, chunks,
+                                        d * X.element_size())
+    peak = "tf32x3" if dname == "float32" else dname
+    b_ms, b_by = bound(nbytes + out.numel() * 4, 2 * nnz_band * d, peak)
+    live_ms, _ = bound(lbytes + out.numel() * 4, 2 * nnz_band * d, peak)
+    dense_ms, _ = bound(band.numel() * band.element_size()
+                        + nblocks * plan.W * d * X.element_size()
+                        + out.numel() * 4 + nblocks * 4, 2 * nnz_band * d,
+                        peak)
+    Xf = X.float()
+    library = ((lambda: torch.sparse.mm(csr, Xf)) if csr is not None
+               else None)
     return report({
         "name": "band_spmm", "variant": label, "max_abs_err": err,
-        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": (time_ms(torch, lambda: torch.sparse.mm(csr, X))
-                       if csr is not None else None),
-        "library": ("torch.sparse.mm, in-window CSR" if csr is not None
+        **timings(torch, run, plain, library),
+        "bound_ms": b_ms, "bound_by": b_by, "live_bound_ms": live_ms,
+        "dense_bound_ms": dense_ms, "live_chunks": live,
+        "live_share": live / n_chunks,
+        "library": ("torch.sparse.mm, in-window CSR in f32" if csr is not None
                     else None),
         "shapes": {"band": list(band.shape), "X": list(X.shape),
                    "R": plan.R, "W": plan.W, "band_nnz": nnz_band,
+                   "band_sectors": sectors, "chunks": n_chunks,
                    "dtype": dname}})
 
 
@@ -861,12 +1008,11 @@ def k6_entry(torch, bs, label, cols, vals, plan, X, csr=None):
               + X.numel() * X.element_size() + out.numel() * 4
               + plan.winstart.numel() * 4)
     b_ms, b_by = bound(nbytes, 2 * slots * d, dname)
+    library = (lambda: torch.sparse.mm(csr, X)) if csr is not None else None
     return report({
         "name": "banded_spmm", "variant": label, "max_abs_err": err,
-        "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+        **timings(torch, run, plain, library),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": (time_ms(torch, lambda: torch.sparse.mm(csr, X))
-                       if csr is not None else None),
         "library": ("torch.sparse.mm, in-window CSR" if csr is not None
                     else None),
         "shapes": {"ell": list(cols.shape), "X": list(X.shape),
@@ -874,21 +1020,93 @@ def k6_entry(torch, bs, label, cols, vals, plan, X, csr=None):
                    "dtype": dname}})
 
 
-def k8_entry(torch, bs, label, band, plan, d, f, hopf, recip, track,
-             coo=None):
-    """K8 against its twin (:func:`minplus_entry`); ``coo``: the
-    in-window edges."""
+def k8_entry(torch, bs, label, band, plan, chunks, d, f, hopf, recip,
+             track, coo=None):
+    """K8 on the band's live chunks against its twin
+    (:func:`minplus_entry`); ``coo``: the in-window edges.  ``bound_ms``:
+    the bytes the function needs with their d and f (:func:`needed_bytes`)
+    and the outputs; ``live_bound_ms``: the live chunks' bytes with their d
+    and f (:func:`live_bytes`) and the outputs; ``dense_bound_ms``: every
+    cell of the band read once."""
     nblocks = plan.n // plan.R
-    nbytes = (band.numel() * band.element_size() + nblocks * plan.W * 8
-              + nblocks * 4)
+    nbytes, sectors = needed_bytes(torch, bs, band, plan, 8)
+    lbytes, live, n_chunks = live_bytes(torch, bs, band, plan, chunks, 8)
+    out_bytes = plan.n * (8 if track else 4)
+    live_ms, _ = bound(lbytes + out_bytes,
+                       int((band != 0).sum()) * (8 if hopf else 3),
+                       "float32")
+    dense_ms, _ = bound(band.numel() * band.element_size()
+                        + nblocks * plan.W * 8 + nblocks * 4 + out_bytes, 0,
+                        "float32")
     return minplus_entry(
         torch, bs, "band_minplus", label,
         lambda: bs.band_minplus(band, plan, d, f, hopf_lax=hopf,
-                                track_arg=track, recip=recip),
+                                track_arg=track, recip=recip, chunks=chunks),
         lambda: bs._rect_minplus_plain(band, plan, d, f, hopf, track,
                                        recip),
         band, nbytes, d, f, hopf, track, coo,
-        {"R": plan.R, "W": plan.W, "hopf_lax": hopf, "recip": recip})
+        {"R": plan.R, "W": plan.W, "hopf_lax": hopf, "recip": recip,
+         "chunks": n_chunks, "band_sectors": sectors},
+        {"live_bound_ms": live_ms, "dense_bound_ms": dense_ms,
+         "live_chunks": live,
+         "live_share": live / n_chunks})
+
+
+def harmonic_reference(W, mask, bdy):
+    """The masked Laplace solve ``L u = 0`` with ``u = bdy`` on ``mask``
+    (L = D - W), in f64 by scipy's sparse LU: the reference of the f32 CG
+    solves."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import splu
+
+    L = (sp.diags(np.asarray(W.sum(axis=1)).ravel()) - W).tocsr()
+    free = ~mask
+    u = np.array(bdy, dtype=np.float64)
+    u[free] = splu(L[free][:, free].tocsc()).solve(
+        -(L[free][:, mask] @ u[mask]))
+    return u
+
+
+def rel_to(u, ref):
+    """max|u - ref| / max|ref| of a tensor against a numpy array."""
+    return float(np.abs(u.double().cpu().numpy() - ref).max()
+                 / np.abs(ref).max())
+
+
+def check_solve(label, u, u_plain, u_ref):
+    """A band path's masked Laplace solve within SOLVE_MARGIN of the plain
+    path's error against scipy's f64 solve."""
+    err, err_p = rel_to(u, u_ref), rel_to(u_plain, u_ref)
+    say(f"  laplace_constrained on {label} against scipy's f64 solve: "
+        f"max|u - u_ref| / max|u_ref| {err:.3e}, plain path {err_p:.3e}")
+    if err > SOLVE_MARGIN * err_p:
+        raise SmokeFailure(f"{label}: the solve is {err / err_p:.1f}x "
+                           f"further from scipy's f64 solve than the "
+                           f"plain path's (limit {SOLVE_MARGIN:g}x)")
+
+
+def check_solves(torch, gl, W, labels, ti, accs):
+    """The Laplace fit's masked solve (its tol) on each band of ``accs``
+    and on the plain path, each held to scipy's f64 solve
+    (:func:`check_solve`)."""
+    from graphlearning_tpu_torch import ssl as tssl
+    from graphlearning_tpu_torch.solvers import plaplace
+
+    n = W.shape[0]
+    mask = np.zeros(n, bool)
+    mask[ti] = True
+    bdy = np.zeros((n, 2))
+    bdy[ti] = np.eye(2)[labels[ti]]
+    tol = FITS["laplace"](gl, W).tol
+    g = gl.graph(W).sparse
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    u_p, _ = tssl._laplace_constrained(
+        g, as_t(np.zeros(n)), torch.as_tensor(mask, device="cuda"),
+        as_t(bdy), tol)
+    u_ref = harmonic_reference(W, mask, bdy)
+    for label, acc in accs.items():
+        u, _ = plaplace._laplace_init(acc, g, mask, bdy, tol=tol)
+        check_solve(label, u, u_p, u_ref)
 
 
 def rect_phase(torch, gl, accel, bs, W, labels, ti, plain_pred):
@@ -969,6 +1187,7 @@ def rect_phase(torch, gl, accel, bs, W, labels, ti, plain_pred):
         say(f"  laplace_constrained on K5: {iters} iterations, {secs:.3f} "
             f"s (plain {iters_p}); max|u - u_plain| / max|u_plain| "
             f"{rel:.3e}")
+        check_solve("K5", u_r, u_p, harmonic_reference(W, mask, bdy))
         check_agreement("rect/laplace_constrained",
                         u_r.argmax(1).cpu().numpy(),
                         u_p.argmax(1).cpu().numpy(), 0.99)
@@ -1046,10 +1265,12 @@ def rect_phase(torch, gl, accel, bs, W, labels, ti, plain_pred):
     from graphlearning_tpu_torch.ops import graphops
     Xa = torch.randn((acc_b.n_pad, 2), device="cuda")
     for a, tag in ((acc_b, "BandedPlan (K6)"), (acc_r, "RectPlan (K5)")):
-        ms = time_ms(torch, lambda a=a: a.spmm(Xa))
-        say(f"  whole matvec, d=2, n=65536, {tag} + residual: {ms:.4f} ms")
-    ms = time_ms(torch, lambda: graphops.spmm(acc_b.g, Xa))
-    say(f"  whole matvec, d=2, n=65536, plain ELL gather: {ms:.4f} ms")
+        fn = lambda a=a: a.spmm(Xa)
+        say(f"  whole matvec, d=2, n=65536, {tag} + residual: "
+            f"{time_ms(torch, fn):.4f} ms (chain {chain_ms(torch, fn):.4f})")
+    fn = lambda: graphops.spmm(acc_b.g, Xa)
+    say(f"  whole matvec, d=2, n=65536, plain ELL gather: "
+        f"{time_ms(torch, fn):.4f} ms (chain {chain_ms(torch, fn):.4f})")
     Xa = torch.randn((acc_big.n_pad, 2), device="cuda")
     ms = time_ms(torch, lambda: acc_big.spmm(Xa))
     say(f"  whole matvec, d=2, n=1310720, K6 + residual: {ms:.4f} ms")
@@ -1060,19 +1281,22 @@ def rect_phase(torch, gl, accel, bs, W, labels, ti, plain_pred):
     say("== K5, K6, K8 at the shapes of the rectangular route")
     entries = []
     gen = torch.Generator(device="cuda").manual_seed(2)
-    csr_r = window_csr(torch, acc_r)
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[-1]
         band = acc_r.band() if dt == torch.float32 else acc_r.build_band(dt)
         Xd = torch.randn((acc_r.n_pad, 2), generator=gen, device="cuda")
+        chunks = acc_r.live_chunks(band)
+        # the yardsticks' edges: the ELL's in-window slots, or the bf16
+        # band's own (rounded) cells
+        coo = (window_coo(torch, acc_r) if dt == torch.float32
+               else band_coo(torch, band, acc_r.plan))
         entries.append(k5_entry(
             torch, bs, f"rect/laplace/{dname}/d=2", band, acc_r.plan,
-            Xd.to(dt), csr_r if dt == torch.float32 else None))
+            Xd.to(dt), chunks, window_csr(torch, acc_r, coo)))
         d_p = acc_r.to_perm(torch.as_tensor(
             np.minimum(d_g, 1e30), dtype=torch.float32, device="cuda"),
             fill=bs.MINPLUS_BIG)
         f_p = acc_r.to_perm(torch.ones(n, device="cuda"))
-        coo = window_coo(torch, acc_r) if dt == torch.float32 else None
         for hopf in (False, True):
             for recip in (False, True):
                 for track in (False, True):
@@ -1081,11 +1305,10 @@ def rect_phase(torch, gl, accel, bs, W, labels, ti, plain_pred):
                         + ("/arg" if track else "")
                     entries.append(k8_entry(
                         torch, bs, f"rect/{dname}/{tag}", band, acc_r.plan,
-                        d_p, f_p, hopf, recip, track,
+                        chunks, d_p, f_p, hopf, recip, track,
                         coo if not (hopf or recip) else None))
-        del band
+        del band, chunks, coo
         torch.cuda.empty_cache()
-    del csr_r
     for a, tag in ((acc_b, "n=65536"), (acc_big, "n=1310720")):
         csr = window_csr(torch, a)
         for dt, ds in ((torch.float32, (2, 3)), (torch.bfloat16, (2,))):
@@ -1159,15 +1382,13 @@ def q_entry(torch, bs, label, kind, band, plan, X, csr):
               + (plan.slab_starts.numel() + plan.slab_ntiles.numel()
                  + plan.block_ptr.numel()) * 4)
     b_ms, b_by = bound(nbytes, 2 * nnz_band * d, grade)
-    ms = time_ms(torch, run)
+    t = timings(torch, run, plain, lambda: torch.sparse.mm(csr, X32))
     return report({
-        "name": name, "variant": label, "max_abs_err": err,
-        "ms": ms, "plain_ms": time_ms(torch, plain),
+        "name": name, "variant": label, "max_abs_err": err, **t,
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, X32)),
         "library": "torch.sparse.mm, permuted f32 CSR",
         # the bound's bytes over the kernel's time, and bound / time
-        "gb_s": nbytes / ms * 1e-6, "bound_share": b_ms / ms,
+        "gb_s": nbytes / t["ms"] * 1e-6, "bound_share": b_ms / t["ms"],
         "shapes": {"band": list(band.shape), "X": list(X.shape),
                    "slabs": int(plan.slab_block.numel()),
                    "real_tiles": int(plan.slab_ntiles.sum()),

@@ -1,17 +1,29 @@
-// K2, K3, K10 and K11: out = tiled band @ X, on the tensor cores.
+// K2, K3, K5, K10 and K11: out = band @ X, on the tensor cores.
 //
 // Replaces graphlearning_tpu/ops/pallas_spmm.py band_tiles_spmm_packed
 // (kernel _tiles_packed_kernel; K2, slabs of S same-block tiles),
-// band_tiles_spmm (kernel _tiles_matmul_kernel; K3, S = 1),
+// band_tiles_spmm (kernel _tiles_matmul_kernel; K3, S = 1), band_spmm
+// (kernel _band_matmul_kernel; K5, the rectangular band),
 // band_tiles_spmm_packed_rowq (kernel _tiles_packed_rowq_kernel; K10) and
 // band_tiles_spmm_packed_i8 (kernel _tiles_packed_i8_kernel; K11).
 //
-// Layout: slab g is band rows [g*R, g*R + R) of a (G*R, S*WT) band; its
-// tile s multiplies X rows [slab_starts[g*S + s], + WT).  Only the first
-// slab_ntiles[g] tiles are real (pads trail and are skipped).  The slabs
-// of output row block b are block_ptr[b] .. block_ptr[b + 1] - 1.  Tile
-// starts are multiples of WT, so the X rows of a KC-column chunk are one
-// contiguous block of KC * d elements.
+// Layout of the tiled bands (K2, K3, K10, K11): slab g is band rows
+// [g*R, g*R + R) of a (G*R, S*WT) band; its tile s multiplies X rows
+// [slab_starts[g*S + s], + WT).  Only the first slab_ntiles[g] tiles are
+// real (pads trail and are skipped).  The slabs of output row block b are
+// block_ptr[b] .. block_ptr[b + 1] - 1.  Tile starts are multiples of WT,
+// so the X rows of a KC-column chunk are one contiguous block of KC * d
+// elements.
+//
+// Layout of the rectangular band (K5): row i of the (n, W) band weighs
+// the X rows winstart[i / R] + [0, W).  The list of live chunks
+// (ops/band_spmm.py rect_live_chunks) names, for the ROWS-row group of
+// CTA i, the KC-column chunks that hold a nonzero cell, ascending:
+// chunk_col[chunk_ptr[i] .. chunk_ptr[i + 1]).  Chunk c multiplies the X
+// rows winstart + KC * c, one contiguous block again.  The CTA stages
+// only those chunks: on the smoke's band (0.27 % nonzero) 16 % of the
+// chunks are live, so K5 reads a sixth of the dense band's bytes, where
+// its FFMA predecessor streamed every cell.
 //
 // Band formats (the template parameter F), each cell in one or two
 // planes of the stored layout:
@@ -56,15 +68,24 @@
 //   share one product; the row scale srow is a power of two, applied
 //   exactly in the epilogue.  (Taking q_hi and q_lo as the TF32 hi and lo
 //   parts as they are would round q_lo / 254 or drop q_lo * x_lo, about
-//   2^-19 of the row's largest cell.)  d is padded to the MMA's n = 8 in
-//   the fragment loads and masked in the epilogue.  A warp votes on each
-//   of its m16 band fragments: an all-zero one is skipped, and a K slice
-//   with none left skips its X fragments too, so the tensor-core and
-//   shared-memory work follow the occupied cells.  ROWQ2 and I8 number
+//   2^-19 of the row's largest cell.)  The tensor cores round each sum
+//   toward zero, so a fragment's 3xTF32 products go into zeroed sums that
+//   FADD adds, rounded to nearest, to the accumulators: accumulated in the
+//   MMA they biased an output by about -2^-24 of itself, and a masked CG
+//   Laplace solve on the fit's band ended 40x further from the f64
+//   solution than the plain f32 path's, 10x with the FADD (the MMA still
+//   truncates where one k slice of a row holds several cells; PERF.md).
+//   d is padded to the MMA's n = 8 in the fragment loads and masked in the
+//   epilogue.  A warp votes on each of its m16 band fragments: an all-zero
+//   one is skipped, and a K slice with none left skips its X fragments
+//   too, so the tensor-core and shared-memory work follow the occupied
+//   cells.  ROWQ2 and I8 number
 //   the k of a TF32 fragment so that a thread's two columns are adjacent
 //   (k = t, t + 4 at columns 2t, 2t + 1): one 16-bit load fetches both of
 //   an int8 plane.
-// - Warps: ROWS = 64 rows a CTA for K2/K3 (four m16 tiles), QROWS = 128
+// - Producer: the slabs of the CTA's row block (K2, K3, K10, K11), or
+//   the live chunks of its row group (K5): a template parameter.
+// - Warps: ROWS = 64 rows a CTA for K2/K3/K5 (four m16 tiles), QROWS = 128
 //   for the quantized formats where R allows (their smaller band stage
 //   leaves room: each CTA stages its X window for twice the rows).  A row
 //   block of R rows has R / rows CTAs.  The 8 warps (16 for 3xTF32 above
@@ -81,11 +102,14 @@
 
 namespace {
 
-constexpr int ROWS = 64;      // output rows per CTA of K2/K3
+constexpr int ROWS = 64;      // output rows per CTA of K2/K3/K5
 constexpr int QROWS = 128;    // ... of K10/K11 where R is a multiple of it
 constexpr int KC = 64;        // band columns per ring stage
 constexpr int DMAX = 128;     // widest d that one launch covers
 constexpr int NSTAGE = 4;     // ring stages, fewer where they do not fit
+constexpr int WIN_ALIGN = 8;  // K5 window starts are multiples of it
+// ... so a chunk's X rows start on 16 bytes at any d, bf16 at d=1 too
+static_assert(WIN_ALIGN * 2 % 16 == 0, "K5's X chunks in 16-byte pieces");
 constexpr int SMEM_MAX = 232448;  // shared memory a block can use
 constexpr int SMEM_SM = 233472;   // ... an SM has
 
@@ -367,9 +391,14 @@ __device__ __forceinline__ void mma_chunk(
 #pragma unroll
         for (int nt = 0; nt < G::NT; ++nt) {
           if (n_lo + nt * 8 < dc) {
-            mma_tf32(acc[mt][nt], al, bh[nt]);
-            mma_tf32(acc[mt][nt], ah, bl[nt]);
-            mma_tf32(acc[mt][nt], ah, bh[nt]);
+            // the tensor cores round a sum toward zero: products into
+            // zeroed sums, added to acc by FADD, rounded to nearest
+            float lo[4] = {0.f, 0.f, 0.f, 0.f}, hi[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(lo, al, bh[nt]);
+            mma_tf32(lo, ah, bl[nt]);
+            mma_tf32(hi, ah, bh[nt]);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[mt][nt][q] += hi[q] + lo[q];
           }
         }
       }
@@ -431,9 +460,16 @@ struct Args {
   int dc;
   float* out;
   long long ldo;
+  // K5 (null for the tiled bands): the live-chunk list and the window
+  // starts; WT holds W and S is 0
+  const int* chunk_ptr;
+  const int* chunk_col;
+  const int* winstart;
 };
 
-template <int F, int RW, int DN>
+// RECT: the producer walks the live-chunk list (K5), else the slabs; a
+// template parameter, so the tiled formats compile as they were
+template <int F, int RW, int DN, bool RECT>
 __global__ void __launch_bounds__(Geo<F, RW, DN>::THREADS,
                                   Geo<F, RW, DN>::OCC)
     tiles_spmm_kernel(const Args args) {
@@ -451,35 +487,51 @@ __global__ void __launch_bounds__(Geo<F, RW, DN>::THREADS,
   const int groups = R / RW;
   const long long b = blockIdx.x / groups;
   const int rg = (int)(blockIdx.x - b * groups);
-  const int slab_beg = args.block_ptr[b], slab_end = args.block_ptr[b + 1];
-  int total = 0;  // chunks of this CTA
-  for (int sl = slab_beg; sl < slab_end; ++sl)
-    total += slab_ntiles[sl] * (WT / KC);
+  // the chunks of this CTA: its live chunks (K5), or its block's slabs
+  int slab_beg = 0, slab_end = 0, p_i = 0, p_end = 0, total = 0;
+  if constexpr (RECT) {
+    p_i = args.chunk_ptr[blockIdx.x];
+    p_end = args.chunk_ptr[blockIdx.x + 1];
+    total = p_end - p_i;
+  } else {
+    slab_beg = args.block_ptr[b];
+    slab_end = args.block_ptr[b + 1];
+    for (int sl = slab_beg; sl < slab_end; ++sl)
+      total += slab_ntiles[sl] * (WT / KC);
+  }
+  const long long xwin = RECT ? (long long)args.winstart[b] : 0;
 
   // producer cursor: the next chunk to stage
   int p_slab = slab_beg, p_col = 0;
   int p_ncols = p_slab < slab_end ? slab_ntiles[p_slab] * WT : 0;
   const int x_pieces = KC * dc * (int)sizeof(XT) / 16;
   const char* X = static_cast<const char*>(args.X);
+  // one chunk into ring stage stage_idx: the RW band rows from row0 at
+  // column col of each plane, and the KC X rows from xrow0
+  auto stage = [&](int stage_idx, long long row0, long long col,
+                   long long xrow0) {
+    unsigned char* st = smem + stage_idx * G::STAGE;
+    stage_plane<RW, M::B0, M::L0, G::THREADS>(
+        st, args.band0 + row0 * args.ld0 + col * M::B0, args.ld0, tid);
+    if constexpr (M::B1 > 0)
+      stage_plane<RW, M::B1, M::L1, G::THREADS>(
+          st + RW * M::L0, args.band1 + row0 * args.ld1 + col * M::B1,
+          args.ld1, tid);
+    const char* xsrc = X + xrow0 * dc * (long long)sizeof(XT);
+    for (int p = tid; p < x_pieces; p += G::THREADS)
+      cp16(st + G::A_BYTES + p * 16, xsrc + p * 16);
+  };
   auto issue = [&](int stage_idx) {
-    if (p_slab < slab_end) {
-      unsigned char* st = smem + stage_idx * G::STAGE;
+    if constexpr (RECT) {
+      if (p_i < p_end) {
+        const long long col = (long long)args.chunk_col[p_i++] * KC;
+        stage(stage_idx, b * R + rg * RW, col, xwin + col);
+      }
+    } else if (p_slab < slab_end) {
       const int tile = p_col / WT;
-      const long long xrow0 =
-          (long long)args.slab_starts[(long long)p_slab * S + tile] +
-          (p_col - tile * WT);
-      const long long row0 = (long long)p_slab * R + rg * RW;
-      stage_plane<RW, M::B0, M::L0, G::THREADS>(
-          st, args.band0 + row0 * args.ld0 + (long long)p_col * M::B0,
-          args.ld0, tid);
-      if constexpr (M::B1 > 0)
-        stage_plane<RW, M::B1, M::L1, G::THREADS>(
-            st + RW * M::L0,
-            args.band1 + row0 * args.ld1 + (long long)p_col * M::B1,
-            args.ld1, tid);
-      const char* xsrc = X + xrow0 * dc * (long long)sizeof(XT);
-      for (int p = tid; p < x_pieces; p += G::THREADS)
-        cp16(st + G::A_BYTES + p * 16, xsrc + p * 16);
+      stage(stage_idx, (long long)p_slab * R + rg * RW, p_col,
+            (long long)args.slab_starts[(long long)p_slab * S + tile] +
+                (p_col - tile * WT));
       p_col += KC;
       if (p_col >= p_ncols) {
         ++p_slab;
@@ -538,42 +590,42 @@ __global__ void __launch_bounds__(Geo<F, RW, DN>::THREADS,
   }
 }
 
-template <int F, int RW, int DN>
+template <int F, int RW, int DN, bool RECT>
 int launch(const Args& a, cudaStream_t s) {
   using G = Geo<F, RW, DN>;
   const long long ctas = a.nblocks * (a.R / RW);
   if (ctas == 0) return (int)cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
-      tiles_spmm_kernel<F, RW, DN>,
+      tiles_spmm_kernel<F, RW, DN, RECT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (e != cudaSuccess) return (int)e;
-  tiles_spmm_kernel<F, RW, DN>
+  tiles_spmm_kernel<F, RW, DN, RECT>
       <<<(unsigned int)ctas, G::THREADS, G::SMEM, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-// K2/K3: ROWS rows.  K10/K11: QROWS where R is a multiple of it, else
+// K2/K3/K5: ROWS rows.  K10/K11: QROWS where R is a multiple of it, else
 // ROWS (the 128-row CTA measured no slower at any d: PERF.md).
-template <int F, int DN>
+template <int F, int DN, bool RECT>
 int launch_rows(const Args& a, cudaStream_t s) {
   if constexpr (F != F32 && F != BF16) {
-    if (a.R % QROWS == 0) return launch<F, QROWS, DN>(a, s);
+    if (a.R % QROWS == 0) return launch<F, QROWS, DN, RECT>(a, s);
   }
-  return launch<F, ROWS, DN>(a, s);
+  return launch<F, ROWS, DN, RECT>(a, s);
 }
 
 bool bad_geometry(const Args& a) {
   return a.dc < 1 || a.dc > DMAX || a.R % ROWS || a.WT % KC || a.ldo < a.dc;
 }
 
-template <int F>
+template <int F, bool RECT = false>
 int launch_dn(const Args& a, cudaStream_t s) {
   if (bad_geometry(a)) return (int)cudaErrorInvalidValue;
-  if (a.dc <= 8) return launch_rows<F, 8>(a, s);
-  if (a.dc <= 16) return launch_rows<F, 16>(a, s);
-  if (a.dc <= 32) return launch_rows<F, 32>(a, s);
-  if (a.dc <= 64) return launch_rows<F, 64>(a, s);
-  return launch_rows<F, 128>(a, s);
+  if (a.dc <= 8) return launch_rows<F, 8, RECT>(a, s);
+  if (a.dc <= 16) return launch_rows<F, 16, RECT>(a, s);
+  if (a.dc <= 32) return launch_rows<F, 32, RECT>(a, s);
+  if (a.dc <= 64) return launch_rows<F, 64, RECT>(a, s);
+  return launch_rows<F, 128, RECT>(a, s);
 }
 
 }  // namespace
@@ -596,6 +648,26 @@ extern "C" int glt_tiles_spmm(const void* band, int band_bf16,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (band_bf16) return launch_dn<BF16>(a, s);
   return launch_dn<F32>(a, s);
+}
+
+// K5.  band: (nblocks*R, W) float32 (band_bf16 == 0) or bfloat16, 16-byte
+// aligned; winstart: (nblocks,) int32, multiples of 8; chunk_ptr
+// (nblocks*R/ROWS + 1,) and chunk_col: int32, the live KC-column chunks of
+// each ROWS-row group, ascending; X: (rows, d) of the band's type,
+// contiguous, 16-byte aligned, rows >= max(winstart) + W; out as K2's.  R
+// must be a multiple of ROWS, W of KC, and 1 <= d <= DMAX.
+extern "C" int glt_rect_spmm(const void* band, int band_bf16, int W, int R,
+                             const int* winstart, const int* chunk_ptr,
+                             const int* chunk_col, long long nblocks,
+                             const void* X, int d, float* out, long long ldo,
+                             void* stream) {
+  const long long cell = band_bf16 ? 2 : 4;
+  const Args a{static_cast<const char*>(band), W * cell, nullptr, 0,
+               nullptr, R, nullptr, nullptr, nullptr, 0, W, nblocks, X, d,
+               out, ldo, chunk_ptr, chunk_col, winstart};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (band_bf16) return launch_dn<BF16, true>(a, s);
+  return launch_dn<F32, true>(a, s);
 }
 
 // K10.  qband: (G*R, planes*S*WT) int8, 16-byte aligned, plane lo S*WT

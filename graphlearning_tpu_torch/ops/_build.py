@@ -34,7 +34,9 @@ SIGNATURES = {
         "glt_tiles_spmm_rowq":
             [_P, _I, _P, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _L, _P],
         "glt_tiles_spmm_i8":
-            [_P, _P, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _L, _P]},
+            [_P, _P, _I, _P, _P, _P, _I, _I, _L, _P, _I, _P, _L, _P],
+        "glt_rect_spmm":
+            [_P, _I, _I, _I, _P, _P, _P, _L, _P, _I, _P, _L, _P]},
     "band_rect_build": {
         "glt_rect_build": [_P, _P, _I, _P, _L, _I, _I, _I, _P, _I, _P]},
     "band_tiles_minplus": {
@@ -43,13 +45,12 @@ SIGNATURES = {
     "band_tiles_lip": {
         "glt_tiles_lip":
             [_P, _I, _I, _I, _P, _P, _L, _P, _I, _P, _P, _P, _P]},
-    "band_rect_spmm": {
-        "glt_rect_spmm": [_P, _I, _I, _I, _P, _L, _P, _I, _P, _P]},
     "band_ell_spmm": {
         "glt_ell_spmm": [_P, _P, _I, _I, _P, _L, _I, _I, _P, _I, _P, _P]},
     "band_rect_minplus": {
         "glt_rect_minplus":
-            [_P, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P]},
+            [_P, _I, _I, _I, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I,
+             _P]},
 }
 
 _loaded: dict = {}

@@ -20,7 +20,8 @@ Off it, on the rectangular route (RCM order only, the JAX package's
 non-band geometry):
 
 * a :class:`~band_spmm.RectPlan` with ``materialize=True``: the stored
-  ``(n_pad, Wr)`` band, built by K4, the matvec K5;
+  ``(n_pad, Wr)`` band, built by K4, the matvec K5 on the band's live
+  chunks (:meth:`AccelSpMM.live_chunks`);
 * a :class:`~band_spmm.BandedPlan` otherwise: no stored band, the matvec
   K6 straight from the ELL slots.
 
@@ -65,6 +66,7 @@ import warnings
 import numpy as np
 import scipy.sparse as sp
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from graphlearning_tpu_torch import config
 from graphlearning_tpu_torch.core.sparse import SparseGraph
@@ -344,6 +346,7 @@ class AccelSpMM(SpmmSolvers):
         self._rect = None
         self._band = None
         self._tiles_band = None
+        self._chunks = WeakIdKeyDictionary()   # rectangular band -> its list
         self._ell = None
         if band_intent:
             self._plan_tiles(cols_np, deg_np, vals_host, bytes_per, packed)
@@ -488,6 +491,20 @@ class AccelSpMM(SpmmSolvers):
             self._band = self.build_band(self.band_dtype)
         return self._band
 
+    def live_chunks(self, band):
+        """The live-chunk list of ``band``, a rectangular band of the
+        ``RectPlan`` (:meth:`band` or :meth:`build_band`), for K5 and K8:
+        built by :func:`~band_spmm.rect_live_chunks` on first use and kept
+        beside that band tensor, keyed by the tensor itself, so a band
+        built anew gets its own list.  An edit of the band in place leaves
+        its list stale (a cell made nonzero in a chunk not listed is never
+        read): build the band anew instead."""
+        chunks = self._chunks.get(band)
+        if chunks is None:
+            chunks = self._chunks[band] = _bs.rect_live_chunks(band,
+                                                               self.plan)
+        return chunks
+
     def tiles_band(self):
         """The unpacked tiles band of the distance and Lipschitz kernels:
         the matvec band itself under the unpacked plan, else built by K1 on
@@ -533,7 +550,8 @@ class AccelSpMM(SpmmSolvers):
         if isinstance(plan, _bs.BandedPlan):
             out = _bs.banded_spmm(*self.ell_operands(), plan, Xk)
         elif isinstance(plan, _bs.RectPlan):
-            out = _bs.band_spmm(self.band(), plan, Xk)
+            band = self.band()
+            out = _bs.band_spmm(band, plan, Xk, self.live_chunks(band))
         elif isinstance(plan, _bs.PackedPlan):
             out = _bs.band_tiles_spmm_packed(self.band(), plan, Xk)
         else:
@@ -550,9 +568,10 @@ class AccelSpMM(SpmmSolvers):
         permuted space."""
         if isinstance(self.plan, _bs.RectPlan):
             resid = self.plan.resid
+            band = self.band()
             bmin, barg = _bs.band_minplus(
-                self.band(), self.plan, d, f, hopf_lax=hopf_lax,
-                track_arg=track, recip=recip)
+                band, self.plan, d, f, hopf_lax=hopf_lax, track_arg=track,
+                recip=recip, chunks=self.live_chunks(band))
         else:
             resid = self._tiles_resid
             bmin, barg = _bs.band_tiles_minplus(

@@ -52,6 +52,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from graphlearning_tpu_torch.core.sparse import segment_reduce
 from graphlearning_tpu_torch.ops import _build
@@ -451,16 +452,18 @@ class BandedPlan(_WindowPlan):
 # -- kernels ------------------------------------------------------------------
 
 _CUDA_BAND_DTYPES = (torch.float32, torch.bfloat16)
-# the FFMA CTAs: csrc/band_tiles_lip.cu and band_rect_spmm.cu ROWS and KC
+# the FFMA CTA of K9: csrc/band_tiles_lip.cu ROWS and KC
 _ROWS_PER_CTA = 128
 _COLS_PER_STEP = 32
-# the tensor-core CTA of K2, K3, K10 and K11: csrc/band_tiles_spmm.cu ROWS,
-# QROWS, KC, DMAX
-_TILES_ROWS = 64       # output rows per CTA (K2, K3; K10/K11 at least)
+# the tensor-core CTA of K2, K3, K5, K10 and K11: csrc/band_tiles_spmm.cu
+# ROWS, QROWS, KC, DMAX.  ROWS x KC is also the chunk of the live-chunk
+# list of K5 and K8 (rect_live_chunks; band_rect_minplus.cu ROWS and KC).
+_TILES_ROWS = 64       # output rows per CTA (K2, K3, K5; K10/K11 at least)
 _TILES_QROWS = 128     # ... of K10/K11 where R is a multiple of it
 _TILES_KC = 64         # band columns per ring stage
 _TILES_DMAX = 128      # widest d of one launch
 _MINPLUS_ROWS = 64     # csrc/band_tiles_minplus.cu ROWS
+_RECT_WIN_ALIGN = 8    # K5/K8 window starts: whole 16-byte pieces of X
 
 
 def _stream(t):
@@ -1306,6 +1309,99 @@ def _window_index(plan: _WindowPlan, b0: int, b1: int):
             + torch.arange(plan.W, device=plan.winstart.device))
 
 
+def rect_live_chunks(band, plan: RectPlan):
+    """The live-chunk list of a rectangular ``band``, which drives K5 and
+    K8: for each group of ``_TILES_ROWS`` rows (one CTA), the
+    ``_TILES_KC``-column chunks of its window that hold a nonzero cell,
+    ascending.  Returns int32 ``(chunk_ptr, chunk_col)`` on the band's
+    device: group ``i``'s chunks are ``chunk_col[chunk_ptr[i]:chunk_ptr[i
+    + 1]]``.
+
+    Built from the band the kernels read (K4's first ``kcap`` slots, in
+    the band's dtype), never from the plan's ELL, so no cell is dropped; in
+    pieces of row blocks, so no band-sized temporary is made.  A list
+    belongs to the band it was built from: after the band changes, build
+    it again."""
+    _require(band.shape == (plan.n, plan.W),
+             f"rect_live_chunks: band {tuple(band.shape)} does not match "
+             f"the plan ({plan.n}, {plan.W})")
+    rows, kc = _TILES_ROWS, _TILES_KC
+    _require(plan.n % rows == 0 and plan.W % kc == 0,
+             f"rect_live_chunks: rows {plan.n} must be a multiple of "
+             f"{rows} and W={plan.W} of {kc}")
+    live = [(band[b0 * plan.R:b1 * plan.R] != 0)
+            .reshape(-1, rows, plan.W // kc, kc).any(dim=3).any(dim=1)
+            for b0, b1 in _block_chunks(plan, plan.R * plan.W)]
+    live = (torch.cat(live) if live else
+            torch.zeros((0, plan.W // kc), dtype=torch.bool,
+                        device=band.device))
+    chunk_ptr = torch.zeros(plan.n // rows + 1, dtype=torch.int32,
+                            device=band.device)
+    torch.cumsum(live.sum(dim=1), 0, out=chunk_ptr[1:])
+    chunk_col = live.nonzero()[:, 1].to(torch.int32)
+    return chunk_ptr, chunk_col
+
+
+def _rect_launch_args(name, band, plan: RectPlan, chunks, **operands):
+    """The checks of K5's and K8's launch (the CTA geometry, window starts
+    and operands on 16-byte boundaries for the ``cp.async`` ring), and the
+    live-chunk list, built from ``band`` when ``chunks`` is None (the
+    caller holds the tensors until the launch is enqueued)."""
+    _require(plan.R % _TILES_ROWS == 0 and plan.W % _TILES_KC == 0,
+             f"{name}: the kernel takes R a multiple of {_TILES_ROWS} and "
+             f"W a multiple of {_TILES_KC}")
+    _require(not (plan.winstart_host % _RECT_WIN_ALIGN).any(),
+             f"{name}: window starts must be multiples of "
+             f"{_RECT_WIN_ALIGN} (16-byte chunks of X, d and f)")
+    for k, t in dict(operands, band=band).items():
+        _require(t.data_ptr() % 16 == 0,
+                 f"{name}: {k} must start on a 16-byte boundary")
+    if chunks is None:
+        return rect_live_chunks(band, plan)
+    chunk_ptr, chunk_col = chunks
+    _require_cuda(name, band.device, chunk_ptr=chunk_ptr,
+                  chunk_col=chunk_col)
+    _check_live_chunks(name, plan, chunk_ptr, chunk_col)
+    return chunk_ptr, chunk_col
+
+
+# chunk_col -> (chunk_ptr, W) of the lists that passed _check_live_chunks
+_CHECKED_CHUNKS = WeakIdKeyDictionary()
+
+
+def _check_live_chunks(name, plan: RectPlan, chunk_ptr, chunk_col):
+    """Refuse a live-chunk list that would read out of bounds or out of
+    order: int32, ``chunk_ptr`` of one entry a row group and one more,
+    from 0 to ``chunk_col``'s length without falling, and each group's
+    chunks ascending within the window.  The values are checked on the
+    host once per list (a list that passed is remembered by its tensors),
+    so the launches after the first wait on nothing.  Whether the list is
+    that of the band's current cells is not checked."""
+    seen = _CHECKED_CHUNKS.get(chunk_col)
+    if seen is not None and seen[0] is chunk_ptr and seen[1] == plan.W:
+        return
+    groups = plan.n // _TILES_ROWS
+    _require(chunk_ptr.dtype == torch.int32 and chunk_col.dtype == torch.int32
+             and chunk_ptr.shape == (groups + 1,) and chunk_col.dim() == 1,
+             f"{name}: chunks must be rect_live_chunks' int32 "
+             f"(chunk_ptr ({groups + 1},), chunk_col)")
+    ptr, col = chunk_ptr.long(), chunk_col.long()
+    _require(int(ptr[0]) == 0 and int(ptr[-1]) == col.numel()
+             and bool((ptr[1:] >= ptr[:-1]).all()),
+             f"{name}: chunk_ptr must rise from 0 to chunk_col's length "
+             f"{col.numel()}")
+    group = torch.repeat_interleave(
+        torch.arange(groups, device=col.device), ptr[1:] - ptr[:-1],
+        output_size=col.numel())
+    key = group * (plan.W // _TILES_KC) + col
+    _require(col.numel() == 0
+             or (int(col.min()) >= 0 and int(col.max()) < plan.W // _TILES_KC
+                 and bool((key[1:] > key[:-1]).all())),
+             f"{name}: each group's chunk_col must ascend within "
+             f"[0, {plan.W // _TILES_KC})")
+    _CHECKED_CHUNKS[chunk_col] = (chunk_ptr, plan.W)
+
+
 def _rect_spmm_plain(band, plan: RectPlan, X):
     """Plain twin of K5: each row block's (R, W) slice of the band times
     its X window.  Exact products in f32 (f64 for an f64 band) for an f32
@@ -1323,22 +1419,25 @@ def _rect_spmm_plain(band, plan: RectPlan, X):
     return torch.cat(out).reshape(plan.n, d)
 
 
-def band_spmm(band, plan: RectPlan, X):
+def band_spmm(band, plan: RectPlan, X, chunks=None):
     """K5: ``out = rectangular band @ X``, row block ``b`` against the X
     rows ``winstart[b] + [0, W)``; ``out`` is (plan.n, d) float32 (f64 for
-    the CPU twin on an f64 band).
+    the CPU twin on an f64 band).  ``chunks``: the band's
+    :func:`rect_live_chunks`, built here when None.
 
     Replaces ``graphlearning_tpu/ops/pallas_spmm.py:277`` ``band_spmm``
     (kernel ``_band_matmul_kernel``, :240).  On the H100 it is bound by the
-    band's bytes at small d (it streams every cell, zero or not) and by f32
-    FMA issue at d near 128.  K3's CTA: 128 threads own 128 rows of one
-    block and up to 32 columns of d, walk the block's window in 32-column
-    steps with the band chunk and the X window rows staged in shared
-    memory, and accumulate in registers with FFMA; each output is written
-    once, so the TPU's zeroing step is implicit.  d is not padded to the
-    TPU's 128 lanes.  Modes as K2: an f32 band with f32 X computes exact
-    f32 (the TPU's f32 and bf16x3); a bf16 band with bf16 X multiplies
-    exactly and sums in f32."""
+    bytes of the band's live chunks: the band is about 0.3 % nonzero, and
+    only its 64 x 64 chunks that hold a nonzero cell (16 % on the smoke's
+    band) are read.  K2's tensor-core CTA with a second producer: 64 rows
+    of one block a CTA, its live chunks and their X rows through the
+    ``cp.async`` ring, bf16 ``mma.sync`` or 3xTF32, all-zero fragments
+    skipped, one store per output (the TPU's zeroing step is implicit); d
+    up to 128 a launch, wider X in 128-column launches.  Modes as K2: an
+    f32 band with f32 X computes f32 to about 2^-21 (the TPU's f32 and
+    bf16x3); a bf16 band with bf16 X multiplies exactly and sums in f32.
+    R must be a multiple of 64, W of 64 and the window starts of 8;
+    ``band`` and ``X`` must start on 16-byte boundaries."""
     if not isinstance(plan, RectPlan):
         raise TypeError("band_spmm takes a RectPlan")
     if _dispatch_device("band_spmm", band, X, plan.winstart) == "cpu":
@@ -1354,18 +1453,16 @@ def band_spmm(band, plan: RectPlan, X):
              f"({plan.n}, {plan.W})")
     _require(X.dim() == 2 and X.shape[1] >= 1 and X.shape[0] >= plan.x_rows,
              f"{name}: X {tuple(X.shape)} needs >= {plan.x_rows} rows")
-    _require(plan.R % _ROWS_PER_CTA == 0 and plan.W % _COLS_PER_STEP == 0,
-             f"{name}: the kernel takes R a multiple of {_ROWS_PER_CTA} and "
-             f"W a multiple of {_COLS_PER_STEP}")
-    out = torch.empty((plan.n, X.shape[1]), dtype=torch.float32, device=dev)
-    lib = _build.load("band_rect_spmm")
-    rc = lib.glt_rect_spmm(
-        _ptr(band), int(band.dtype == torch.bfloat16), int(plan.W),
-        int(plan.R), _ptr(plan.winstart), int(plan.n // plan.R), _ptr(X),
-        int(X.shape[1]), _ptr(out), _stream(band))
-    if rc:
-        raise RuntimeError(f"{name}: CUDA error {rc}")
-    band_spmm.launches += 1
+    chunk_ptr, chunk_col = _rect_launch_args(name, band, plan, chunks, X=X)
+    d = X.shape[1]
+    out = torch.empty((plan.n, d), dtype=torch.float32, device=dev)
+    lib = _build.load("band_tiles_spmm")
+    band_spmm.launches += _column_blocks(name, X, out, lambda Xc, o, dc: (
+        lib.glt_rect_spmm(
+            _ptr(band), int(band.dtype == torch.bfloat16), int(plan.W),
+            int(plan.R), _ptr(plan.winstart), _ptr(chunk_ptr),
+            _ptr(chunk_col), int(plan.n // plan.R), _ptr(Xc), dc, o, int(d),
+            _stream(band))))
     return out
 
 
@@ -1463,7 +1560,7 @@ def _rect_minplus_plain(band, plan: RectPlan, d, f, hopf_lax: bool,
 
 
 def band_minplus(band, plan: RectPlan, d, f, hopf_lax: bool = False,
-                 track_arg: bool = False, recip: bool = False):
+                 track_arg: bool = False, recip: bool = False, chunks=None):
     """K8: one min-plus relaxation round over the rectangular band: per row
     the least of ``d[c] + A f[c]`` (or the Hopf-Lax ``(f A + sqrt((f A)^2
     + 4 d[c]^2)) / 2``) over its window's cells ``c`` with ``A > 0``;
@@ -1471,20 +1568,25 @@ def band_minplus(band, plan: RectPlan, d, f, hopf_lax: bool = False,
     (plan.n,) float32 (f64 for the CPU twin on an f64 band),
     ``MINPLUS_BIG`` where no candidate is smaller; ``arg`` (plan.n,) int32,
     the smallest column among the least candidates, or -1, and None
-    without ``track_arg``.
+    without ``track_arg``.  ``chunks``: the band's
+    :func:`rect_live_chunks`, built here when None.
 
     Replaces ``graphlearning_tpu/ops/pallas_spmm.py:369`` ``band_minplus``
     (kernel ``_band_minplus_kernel``, :320).  On the H100 it is bound by
-    the band's bytes (a few flops per cell).  K7's CTA: 8 warps own 64 rows
-    of one block and walk its window in ``WT``-column chunks with that
-    chunk of ``d`` and ``f`` in shared memory; a warp reads each band row
-    coalesced and reduces (min, column) with shuffles, the smaller column
-    on ties, and a later chunk wins only when strictly smaller: the
-    column JAX's smallest lane and strict ``<`` across tiles give.  The
-    candidates use the same f32 operations as the twin, rounded to nearest
-    without contraction, so the two agree exactly.  The argmin comes back
-    as int32, not the TPU's float-coded lane, and the output is (n,), not
-    the TPU's 128 lanes."""
+    the bytes of the band's live chunks (a few flops per cell); a skipped
+    chunk holds no edge, so no candidate.  One CTA of 8 warps owns 64 rows
+    of one block and walks their live 64-column chunks, ascending, through
+    a 4-stage ``cp.async`` ring of the chunk's cells as stored and its
+    ``d`` and ``f``; a lane keeps each of its warp's 8 rows' least
+    candidate and its column over its two columns of every chunk, and one
+    shuffle reduction a row at the end takes the least, the smaller column
+    on ties: the column JAX's smallest lane and strict ``<`` across tiles
+    give.  The candidates use the same f32 operations as the twin, rounded
+    to nearest without contraction, so the two agree exactly.  The argmin
+    comes back as int32, not the TPU's float-coded lane, and the output is
+    (n,), not the TPU's 128 lanes.  R must be a multiple of 64, W of 64 and
+    the window starts of 8; ``band``, ``d`` and ``f`` must start on 16-byte
+    boundaries."""
     if not isinstance(plan, RectPlan):
         raise TypeError("band_minplus takes a RectPlan")
     if _dispatch_device("band_minplus", band, d, f, plan.winstart) == "cpu":
@@ -1503,16 +1605,15 @@ def band_minplus(band, plan: RectPlan, d, f, hopf_lax: bool = False,
     _require(d.dim() == 1 and d.shape == f.shape
              and d.shape[0] >= plan.x_rows,
              f"{name}: d and f must be (>= {plan.x_rows},)")
-    _require(plan.R % _MINPLUS_ROWS == 0 and plan.WT * 8 <= 48 * 1024,
-             f"{name}: the kernel takes R a multiple of {_MINPLUS_ROWS} and "
-             "WT <= 6144")
+    chunk_ptr, chunk_col = _rect_launch_args(name, band, plan, chunks, d=d,
+                                             f=f)
     out = torch.empty((plan.n,), dtype=torch.float32, device=dev)
     arg = (torch.empty((plan.n,), dtype=torch.int32, device=dev)
            if track_arg else None)
     lib = _build.load("band_rect_minplus")
     rc = lib.glt_rect_minplus(
         _ptr(band), int(band.dtype == torch.bfloat16), int(plan.W),
-        int(plan.R), int(plan.WT), _ptr(plan.winstart),
+        int(plan.R), _ptr(plan.winstart), _ptr(chunk_ptr), _ptr(chunk_col),
         int(plan.n // plan.R), _ptr(d), _ptr(f), _ptr(out),
         _ptr(arg) if track_arg else ctypes.c_void_p(0), int(hopf_lax),
         int(recip), int(track_arg), _stream(band))

@@ -605,9 +605,11 @@ def _constexprs(source):
     ("band_tiles_spmm.cu", {"QROWS": "_TILES_QROWS", "KC": "_TILES_KC",
                             "DMAX": "_TILES_DMAX"}),
     ("band_tiles_lip.cu", {"ROWS": "_ROWS_PER_CTA", "KC": "_COLS_PER_STEP"}),
-    ("band_rect_spmm.cu", {"ROWS": "_ROWS_PER_CTA", "KC": "_COLS_PER_STEP"}),
+    # K5 on the same CTA: the window starts' alignment its X chunks need
+    ("band_tiles_spmm.cu", {"WIN_ALIGN": "_RECT_WIN_ALIGN"}),
     ("band_tiles_minplus.cu", {"ROWS": "_MINPLUS_ROWS"}),
-    ("band_rect_minplus.cu", {"ROWS": "_MINPLUS_ROWS"}),
+    # K8 walks the same list: a CTA a row group, a stage a chunk
+    ("band_rect_minplus.cu", {"ROWS": "_TILES_ROWS", "KC": "_TILES_KC"}),
 ])
 def test_kernel_geometry_matches_the_wrapper_checks(source, names):
     """Each CUDA source's CTA geometry is the one its wrapper checks."""

@@ -1,5 +1,5 @@
 """The CUDA kernels K1-K11 of graphlearning_tpu_torch against their plain
-torch twins, on a GPU.
+torch twins, on a GPU (K5 and K8 on the band's live chunks).
 
 Every test here needs the card: it carries the ``cuda`` marker and skips
 without one.  The file imports neither JAX nor the JAX package, so it runs
@@ -445,6 +445,144 @@ def test_cuda_rect_minplus_matches_twin(rect_case, cuda_device, dtype,
         assert arg is None
 
 
+def _chunk_band(rect_case, dev, kind, dtype):
+    """K5's and K8's bands: ``rcm``, K4's band of the plan; ``empty_group``,
+    the same with rows 64-127 (one CTA's row group) zeroed; ``all_live``,
+    random positive cells, about 5 % nonzero, so every 64 x 64 chunk is
+    live."""
+    _, _, band, plan = _rect(rect_case, dev, bs.RectPlan, dtype)
+    if kind == "empty_group":
+        band[bs._TILES_ROWS:2 * bs._TILES_ROWS] = 0
+    elif kind == "all_live":
+        rs = np.random.RandomState(7)
+        cells = rs.rand(plan.n, plan.W) * (rs.rand(plan.n, plan.W) < 0.05)
+        band = torch.as_tensor(cells, dtype=torch.float32,
+                               device=dev).to(dtype)
+    chunks = bs.rect_live_chunks(band, plan)
+    n_live = chunks[1].numel()
+    n_all = (plan.n // bs._TILES_ROWS) * (plan.W // bs._TILES_KC)
+    assert n_live == n_all if kind == "all_live" else 0 < n_live < n_all
+    if kind == "empty_group":
+        assert int(chunks[0][2]) == int(chunks[0][1])
+    return band, plan, chunks
+
+
+CHUNK_KINDS = ["rcm", "empty_group", "all_live"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", CHUNK_KINDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 2, 3, 8, 10, 40, 128, 130])
+def test_cuda_rect_spmm_on_the_live_chunks(rect_case, cuda_device, kind,
+                                           dtype, d):
+    """K5 on K2's CTA, driven by the live-chunk list, against its dense
+    twin: the MMA's n = 8 padding, one and several 32-column warp groups,
+    and two launches above 128 columns; an empty row group writes zeros."""
+    dev = cuda_device
+    band, plan, chunks = _chunk_band(rect_case, dev, kind, dtype)
+    X = torch.randn((1024, d), device=dev).to(dtype)
+    n0 = bs.band_spmm.launches
+    out = bs.band_spmm(band, plan, X, chunks)
+    assert bs.band_spmm.launches == n0 + _tiles_launches(d)
+    ref = bs._rect_spmm_plain(band, plan, X)
+    _close(out, ref, dtype)
+    if kind == "empty_group":
+        assert not out[bs._TILES_ROWS:2 * bs._TILES_ROWS].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["empty_group", "all_live"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hopf_lax", [False, True])
+@pytest.mark.parametrize("recip", [False, True])
+@pytest.mark.parametrize("track_arg", [False, True])
+def test_cuda_rect_minplus_on_the_live_chunks(rect_case, cuda_device, kind,
+                                              dtype, hopf_lax, recip,
+                                              track_arg):
+    """K8 on the list: min and argmin identical to the dense twin; the
+    empty row group gets MINPLUS_BIG and -1."""
+    dev = cuda_device
+    band, plan, chunks = _chunk_band(rect_case, dev, kind, dtype)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    d = torch.rand(1024, generator=gen, device=dev) * 3
+    d[torch.rand(1024, generator=gen, device=dev) < 0.3] = bs.MINPLUS_BIG
+    f = torch.rand(1024, generator=gen, device=dev) + 0.5
+    n0 = bs.band_minplus.launches
+    m, arg = bs.band_minplus(band, plan, d, f, hopf_lax=hopf_lax,
+                             track_arg=track_arg, recip=recip, chunks=chunks)
+    assert bs.band_minplus.launches == n0 + 1
+    rm, rarg = bs._rect_minplus_plain(band, plan, d, f, hopf_lax, track_arg,
+                                      recip)
+    torch.testing.assert_close(m, rm, rtol=0, atol=0)
+    if track_arg:
+        torch.testing.assert_close(arg, rarg, rtol=0, atol=0)
+    if kind == "empty_group":
+        rows = slice(bs._TILES_ROWS, 2 * bs._TILES_ROWS)
+        assert bool((m[rows] == bs.MINPLUS_BIG).all())
+        if track_arg:
+            assert bool((arg[rows] == -1).all())
+
+
+@pytest.mark.cuda
+def test_cuda_rect_chunks_none_matches_the_cached_list(cuda_device,
+                                                       monkeypatch):
+    """K5 and K8 without a list build their own from the band: the same
+    outputs, bit for bit, as with the list ``AccelSpMM`` caches beside its
+    band, which is the list the CPU builds from the same band."""
+    monkeypatch.setenv("GLT_NO_BAND", "1")
+    W = _knn_csr(9000, 10, seed=1)
+    acc = AccelSpMM(W, device=cuda_device, materialize=True)
+    band, plan = acc.band(), acc.plan
+    chunks = acc.live_chunks(band)
+    assert acc.live_chunks(acc.band()) is chunks
+    for a, b in zip(chunks, bs.rect_live_chunks(band.cpu(), _cpu_plan(plan))):
+        assert torch.equal(a.cpu(), b)
+    X = torch.randn((acc.n_pad, 3), device=cuda_device)
+    assert torch.equal(bs.band_spmm(band, plan, X),
+                       bs.band_spmm(band, plan, X, chunks))
+    d = torch.rand(acc.n_pad, device=cuda_device) * 3
+    f = torch.rand(acc.n_pad, device=cuda_device) + 0.5
+    for a, b in zip(bs.band_minplus(band, plan, d, f, track_arg=True),
+                    bs.band_minplus(band, plan, d, f, track_arg=True,
+                                    chunks=chunks)):
+        assert torch.equal(a, b)
+    b16 = acc.build_band(torch.bfloat16)
+    assert acc.live_chunks(b16) is not chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 40])
+def test_cuda_exact_grade_sums_are_unbiased(banded_tiles, rect_case,
+                                            cuda_device, d):
+    """The exact grade's tensor-core sums round toward zero; added to the
+    accumulators by FADD (rounded to nearest) the mean relative error of
+    K5 and K3 on a positive X stays within 3e-8 of zero (about -6e-8
+    accumulated in the MMA, -1.8e-8 measured with the FADD)."""
+    dev = cuda_device
+    cols, vals, tb, ts, _, R, WT = banded_tiles
+    args = tuple(torch.as_tensor(a, device=dev) for a in (cols, vals, tb, ts))
+    tband = bs.materialize_band_tiles(*args, R=R, WT=WT,
+                                      out_dtype=torch.float32)
+    tplan = bs.TilesPlan.from_tiles(tb, ts, 1024, R, WT, dev)
+    rband, rplan, chunks = _chunk_band(rect_case, dev, "rcm", torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    X = torch.rand((1024, d), generator=gen, device=dev)
+    for out, ref in (
+            (bs.band_tiles_spmm(tband, tplan, X),
+             bs._tiles_spmm_plain(tband.double(), tplan, X.double())),
+            (bs.band_spmm(rband, rplan, X, chunks),
+             bs._rect_spmm_plain(rband.double(), rplan, X.double()))):
+        live = ref.abs() > 1e-3
+        rel = (out.double() - ref)[live] / ref[live]
+        assert abs(float(rel.mean())) < 3e-8, float(rel.mean())
+
+
+def _cpu_plan(plan):
+    return bs.RectPlan.from_numpy(plan.winstart_host, plan.n, plan.R,
+                                  plan.WT, plan.W, plan.kcap, "cpu")
+
+
 @pytest.mark.cuda
 def test_cuda_rect_wrappers_refuse(rect_case, cuda_device):
     dev = cuda_device
@@ -469,6 +607,38 @@ def test_cuda_rect_wrappers_refuse(rect_case, cuda_device):
         bs.band_minplus(band, plan, d.double(), d.double() + 1)
     with pytest.raises(ValueError):          # a band of another width
         bs.band_minplus(band[:, :64].contiguous(), plan, d, d + 1)
+    # the cp.async ring's 16-byte pieces: a band, X or d off the boundary
+    shifted = torch.zeros(band.numel() + 1, device=dev)[1:].view(band.shape)
+    shifted.copy_(band)
+    with pytest.raises(ValueError):
+        bs.band_spmm(shifted, plan, X)
+    with pytest.raises(ValueError):
+        bs.band_minplus(shifted, plan, d, d + 1)
+    with pytest.raises(ValueError):
+        bs.band_spmm(band, plan, torch.zeros(2049, device=dev)[1:].view(
+            1024, 2))
+    with pytest.raises(ValueError):
+        bs.band_minplus(band, plan, torch.zeros(1025, device=dev)[1:],
+                        d + 1)
+    # window starts off multiples of 8, and a list of another length
+    odd = bs.RectPlan.from_numpy(np.full(8, 4, np.int32), 1024, 128, 64,
+                                 plan.W, plan.kcap, dev)
+    with pytest.raises(ValueError):
+        bs.band_spmm(band, odd, torch.zeros((2048, 2), device=dev))
+    chunk_ptr, chunk_col = bs.rect_live_chunks(band, plan)
+    with pytest.raises(ValueError):
+        bs.band_spmm(band, plan, X, (chunk_ptr[:-1], chunk_col))
+    with pytest.raises(ValueError):
+        bs.band_minplus(band, plan, d, d + 1,
+                        chunks=(chunk_ptr.long(), chunk_col))
+    # a list that ends short of chunk_col, or names a chunk past the window
+    with pytest.raises(ValueError):
+        bs.band_spmm(band, plan, X, (chunk_ptr - (chunk_ptr == chunk_ptr[
+            -1]).int(), chunk_col))
+    wide = chunk_col.clone()
+    wide[-1] = plan.W // bs._TILES_KC
+    with pytest.raises(ValueError):
+        bs.band_minplus(band, plan, d, d + 1, chunks=(chunk_ptr, wide))
 
 
 @pytest.mark.cuda
