@@ -12,8 +12,8 @@ Phases (any failure exits non-zero before the result line):
    Hilbert order): K1, K2 and K3 against their twins, f32 and bf16, at
    d in {10, 128}, timed with CUDA events beside ``torch.sparse.mm``; K7
    (min-plus, Hopf-Lax, reciprocal, with and without the argmin) and K9
-   (C in {2, 10}, f32 and bf16) on the unpacked tiles, and K4 where the
-   rectangular band fits the budget;
+   (C in {2, 10}, f32 and bf16) on the unpacked tiles' live chunks, and
+   K4 where the rectangular band fits the budget;
 3. fits on two moons (n=65536, noise 0.1, k=10, 5 labels per class):
    Laplace, Poisson (CG) and Poisson (gradient descent) through the public
    entry points on the packed band path (K1 + K2), Laplace again on the
@@ -27,8 +27,10 @@ Phases (any failure exits non-zero before the result line):
    ``ssl.plaplace`` and ``ssl.amle`` on the band (K2 warm start, K4 band,
    block-Gauss-Seidel sweeps), ``AccelSpMM.lip_iterate_mc`` (K9), each
    held to the plain ELL path; graph nearest neighbor and p-eikonal on the
-   plain path (no kernel); then K4, K7 and K9 against their twins at
-   these shapes;
+   plain path (no kernel); then K4, K7 (the plain, reciprocal and
+   Hopf-Lax rounds the path launches) and K9 (C in {2, 10}) against their
+   twins at these shapes, with the time of the tiles band's live-chunk
+   list;
 5. the rectangular route: the same graph under ``GLT_NO_BAND=1``
    (Laplace and Poisson on the unstored band, K6; ``graph.dijkstra`` on
    the plain path), then ``AccelSpMM(W, materialize=True)`` (K4 band; the
@@ -54,8 +56,9 @@ it exceeds the host's, else the host's) and, but for the band builds,
 ``graph_ms`` (20 calls captured in a CUDA graph and replayed between two
 events, over 20: the device's time alone), and the same three for its
 library call.  ``bound_ms`` counts what the function needs of this run's
-data; K5 and K8 also give ``live_bound_ms`` (the bytes their live-chunk
-design reads) and ``dense_bound_ms`` (every cell of the band).
+data; K5, K7, K8 and K9 also give ``live_bound_ms`` (the bytes their
+live-chunk design reads) and ``dense_bound_ms`` (every cell of the band),
+and K7 and K9 ``list_ms``, the time of their list's build.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -281,9 +284,9 @@ def report(entry):
     say("  " + json.dumps({k: entry[k] for k in (
         "variant", "ms", "chain_ms", "graph_ms", "plain_ms", "bound_ms",
         "bound_by", "live_bound_ms", "dense_bound_ms", "live_share",
-        "library_ms",
-        "library_chain_ms", "library_graph_ms", "sums_library_ms",
-        "sums_library_chain_ms", "gb_s", "bound_share") if k in entry}))
+        "list_ms", "library_ms", "library_chain_ms", "library_graph_ms",
+        "sums_library_ms", "sums_library_chain_ms", "sums_library_graph_ms",
+        "gb_s", "bound_share") if k in entry}))
     return entry
 
 
@@ -380,13 +383,15 @@ def coo_of(torch, acc):
             as_t(Wp.data, torch.float32))
 
 
-def minplus_entry(torch, bs, name, label, run, plain, band, nbytes, d, f,
-                  hopf, track, coo, shapes, extra=None):
+def minplus_entry(torch, bs, name, label, run, plain, band, d, f, track,
+                  coo, shapes, bounds, recip=False):
     """A min-plus kernel (K7 or K8) against its twin: min and argmin
-    identical.  ``coo`` gives the yardstick of plain min-plus: one
-    ``addcmul`` forms the candidates of the COO edges (their d and f
-    gathered beforehand) and one ``scatter_reduce(amin)`` reduces them per
-    row, timed together.  ``extra``: more keys of the entry."""
+    identical.  ``coo`` gives the yardstick of the plain (or ``recip``)
+    min-plus round: one ``addcmul`` (``addcdiv``) forms the candidates of
+    the COO edges (their d and f gathered beforehand) and one
+    ``scatter_reduce(amin)`` reduces them per row, timed together.
+    ``bounds``: the entry's bounds and live-chunk counts
+    (:func:`chunk_bounds`)."""
     m, a = run()
     torch.cuda.synchronize()
     rm, ra = plain()
@@ -396,53 +401,81 @@ def minplus_entry(torch, bs, name, label, run, plain, band, nbytes, d, f,
     reached = int((m < bs.MINPLUS_BIG).sum())
     say(f"  {label}: min{' and argmin' if track else ''} identical to the "
         f"twin ({reached} of {m.numel()} rows with a candidate)")
-    nnz_band = int((band != 0).sum())
-    b_ms, b_by = bound(nbytes + m.numel() * (8 if track else 4),
-                       nnz_band * (8 if hopf else 3), "float32")
     library = None
     if coo is not None:
         row, col, w = coo
         dcol, fcol = d[col], f[col]
         base = torch.full_like(d, bs.MINPLUS_BIG)
-        library = lambda: base.scatter_reduce(
-            0, row, torch.addcmul(dcol, w, fcol), "amin")
+        cand = ((lambda: torch.addcdiv(dcol, fcol, w)) if recip
+                else (lambda: torch.addcmul(dcol, w, fcol)))
+        library = lambda: base.scatter_reduce(0, row, cand(), "amin")
     return report({
         "name": name, "variant": label, "max_abs_err": 0.0,
         **timings(torch, run, plain, library),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library": ("addcmul + scatter_reduce(amin) over the COO edges"
+        "library": (f"{'addcdiv' if recip else 'addcmul'} + "
+                    "scatter_reduce(amin) over the COO edges"
                     if library else None),
-        **(extra or {}),
-        "shapes": dict(shapes, band=list(band.shape), band_nnz=nnz_band,
-                       track_arg=track,
+        **bounds,
+        "shapes": dict(shapes, track_arg=track,
                        dtype=str(band.dtype).split(".")[-1])})
 
 
-def k7_entry(torch, bs, label, band, plan, d, f, hopf, recip, track,
-             coo=None):
-    """K7 against its twin (:func:`minplus_entry`); ``coo``: the permuted
-    graph's edges."""
+def chunk_bounds(torch, bs, band, plan, chunks, row_bytes, out_bytes, ops,
+                 dense_bytes):
+    """``bound_ms`` of a live-chunk kernel from its function (the bytes
+    :func:`needed_bytes` counts, the outputs and ``ops`` f32 operations),
+    its ``live_bound_ms`` (the bytes of :func:`live_bytes`, what the design
+    reads) and ``dense_bound_ms`` (``dense_bytes``: every cell of the band
+    read once), with the live chunks' count and share; and the shapes'
+    keys of the band's nonzero sectors and chunks."""
+    nbytes, sectors = needed_bytes(torch, bs, band, plan, row_bytes)
+    lbytes, live, n_chunks = live_bytes(torch, bs, band, plan, chunks,
+                                        row_bytes)
+    b_ms, b_by = bound(nbytes + out_bytes, ops, "float32")
+    return ({"bound_ms": b_ms, "bound_by": b_by,
+             "live_bound_ms": bound(lbytes + out_bytes, ops, "float32")[0],
+             "dense_bound_ms": bound(dense_bytes + out_bytes, ops,
+                                     "float32")[0],
+             "live_chunks": live, "live_share": live / n_chunks},
+            {"band_sectors": sectors, "chunks": n_chunks})
+
+
+def k7_entry(torch, bs, label, band, plan, chunks, d, f, hopf, recip, track,
+             coo=None, list_ms=None):
+    """K7 on the tiles band's live chunks against its twin
+    (:func:`minplus_entry`); ``coo``: the permuted graph's edges.  Bounds
+    as :func:`chunk_bounds`: the function's bytes with their d and f, the
+    live 16 x 32 chunks', and the dense tiles' (the bound of PRs 2-7).
+    ``list_ms``: the time of the list's build, for the record."""
     G = int(plan.slab_block.numel())
-    nbytes = (_real_cells(plan) * band.element_size() + G * plan.WT * 8
-              + (plan.slab_starts.numel() + plan.block_ptr.numel()) * 4)
+    nnz_band = int((band != 0).sum())
+    bounds, counts = chunk_bounds(
+        torch, bs, band, plan, chunks, 8, plan.n * (8 if track else 4),
+        nnz_band * (8 if hopf else 3),
+        _real_cells(plan) * band.element_size() + G * plan.WT * 8
+        + (plan.slab_starts.numel() + plan.block_ptr.numel()) * 4)
     return minplus_entry(
         torch, bs, "band_tiles_minplus", label,
         lambda: bs.band_tiles_minplus(band, plan, d, f, hopf_lax=hopf,
-                                      track_arg=track, recip=recip),
+                                      track_arg=track, recip=recip,
+                                      chunks=chunks),
         lambda: bs._tiles_minplus_plain(band, plan, d, f, hopf, track,
                                         recip),
-        band, nbytes, d, f, hopf, track, coo,
-        {"tiles": G, "R": plan.R, "WT": plan.WT, "hopf_lax": hopf,
-         "recip": recip})
+        band, d, f, track, coo,
+        dict(counts, tiles=G, R=plan.R, WT=plan.WT, hopf_lax=hopf,
+             recip=recip, band=list(band.shape), band_nnz=nnz_band),
+        dict(bounds, list_ms=list_ms), recip=recip)
 
 
-def k9_entry(torch, bs, label, band, plan, U, csr=None):
-    """K9 against its twin: sums within TOL of max|ref|, min and max
-    identical.  No PyTorch call computes K9's function (the sums with the
-    neighbors' min and max), so ``library_ms`` is None; ``csr`` gives
-    ``sums_library_ms``, ``torch.sparse.mm`` on the permuted graph, which
-    computes the sums alone."""
-    run = lambda: bs.band_tiles_lip(band, plan, U)
+def k9_entry(torch, bs, label, band, plan, chunks, U, csr=None,
+             list_ms=None):
+    """K9 on the tiles band's live chunks against its twin: sums within TOL
+    of max|ref|, min and max identical.  No PyTorch call computes K9's
+    function (the sums with the neighbors' min and max), so ``library_ms``
+    is None; ``csr`` gives ``sums_library_ms``, ``torch.sparse.mm`` on the
+    permuted graph, which computes the sums alone.  Bounds as
+    :func:`chunk_bounds`, with U's C values a column."""
+    run = lambda: bs.band_tiles_lip(band, plan, U, chunks)
     plain = lambda: bs._tiles_lip_plain(band, plan, U)
     out = run()
     torch.cuda.synchronize()
@@ -455,19 +488,33 @@ def k9_entry(torch, bs, label, band, plan, U, csr=None):
     C = U.shape[1]
     nnz_band = int((band != 0).sum())
     G = int(plan.slab_block.numel())
-    nbytes = (_real_cells(plan) * band.element_size() + G * plan.WT * C * 4
-              + 3 * plan.n * C * 4
-              + (plan.slab_starts.numel() + plan.block_ptr.numel()) * 4)
-    b_ms, b_by = bound(nbytes, 4 * nnz_band * C, "float32")
+    bounds, counts = chunk_bounds(
+        torch, bs, band, plan, chunks, C * 4, 3 * plan.n * C * 4,
+        4 * nnz_band * C,
+        _real_cells(plan) * band.element_size() + G * plan.WT * C * 4
+        + (plan.slab_starts.numel() + plan.block_ptr.numel()) * 4)
     sums = (lambda: torch.sparse.mm(csr, U)) if csr is not None else None
     return report({
         "name": "band_tiles_lip", "variant": label, "max_abs_err": err,
-        **timings(torch, run, plain), "bound_ms": b_ms, "bound_by": b_by,
+        **timings(torch, run, plain), **bounds,
         "sums_library_ms": time_ms(torch, sums) if sums else None,
         "sums_library_chain_ms": chain_ms(torch, sums) if sums else None,
-        "shapes": {"band": list(band.shape), "tiles": G, "R": plan.R,
-                   "WT": plan.WT, "C": C, "band_nnz": nnz_band,
-                   "dtype": dname}})
+        "sums_library_graph_ms": (graph_ms(torch, sums, library=True)
+                                  if sums else None),
+        "list_ms": list_ms,
+        "shapes": dict(counts, band=list(band.shape), tiles=G, R=plan.R,
+                       WT=plan.WT, C=C, band_nnz=nnz_band, dtype=dname)})
+
+
+def list_build_ms(torch, bs, band, plan, label):
+    """The time of ``tiles_live_chunks`` on ``band`` (median of single
+    calls between CUDA events: it waits on the host for its nonzero
+    count), printed; returns ``(chunks, ms)``."""
+    ms = time_ms(torch, lambda: bs.tiles_live_chunks(band, plan), reps=5)
+    chunks = bs.tiles_live_chunks(band, plan)
+    say(f"  {label}: tiles_live_chunks {ms:.4f} ms, {chunks[1].numel()} "
+        f"live 16 x 32 chunks")
+    return chunks, ms
 
 
 def permuted_csr(torch, acc):
@@ -561,6 +608,8 @@ def kernel_phase(torch, accel, bs):
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[-1]
         band = acc_u.build_band(dt, tiles=True)
+        chunks, list_ms = list_build_ms(torch, bs, band, plan,
+                                        f"bench/{dname}")
         variants = ((False, False, False), (False, False, True),
                     (True, False, True), (False, True, True))
         if dt == torch.bfloat16:
@@ -569,14 +618,15 @@ def kernel_phase(torch, accel, bs):
             tag = ("hopf_lax" if hopf else "recip" if recip else "plain") \
                 + ("/arg" if track else "")
             entries.append(k7_entry(
-                torch, bs, f"bench/{dname}/{tag}", band, plan, d, f, hopf,
-                recip, track, coo if not (hopf or recip) else None))
+                torch, bs, f"bench/{dname}/{tag}", band, plan, chunks, d, f,
+                hopf, recip, track, None if hopf else coo, list_ms))
         for C in (2, 10):
             U = torch.randn((n_pad, C), generator=gen, device="cuda")
             entries.append(k9_entry(torch, bs, f"bench/{dname}/C={C}", band,
-                                    plan, U, csr if dt == torch.float32
-                                    else None))
-        del band
+                                    plan, chunks, U,
+                                    csr if dt == torch.float32 else None,
+                                    list_ms))
+        del band, chunks
         torch.cuda.empty_cache()
     del csr, coo
     torch.cuda.empty_cache()
@@ -858,16 +908,28 @@ def distance_phase(torch, gl, accel, bs, W, labels, ti):
                                       dtype=torch.float32, device="cuda"),
                       fill=bs.MINPLUS_BIG)
     f_p = acc.to_perm(torch.ones(n, device="cuda"))
-    band = acc.tiles_band()
-    entries.append(k7_entry(torch, bs, "fit/float32/plain/arg", band,
-                            acc.tiles_plan, d_p, f_p, False, False, True,
-                            coo_of(torch, acc)))
-    entries.append(k7_entry(torch, bs, "fit/float32/plain", band,
-                            acc.tiles_plan, d_p, f_p, False, False, False,
-                            coo_of(torch, acc)))
+    band, plan = acc.tiles_band(), acc.tiles_plan
+    _, list_ms = list_build_ms(torch, bs, band, plan, "fit/float32")
+    chunks = acc.live_chunks(band)          # the list the path ran on
+    coo = coo_of(torch, acc)
+    # the variants the path launches: each fit's rounds without the
+    # argmin, then one with it
+    for hopf, recip in ((False, False), (False, True), (True, False)):
+        for track in (True, False):
+            tag = ("hopf_lax" if hopf else "recip" if recip else "plain") \
+                + ("/arg" if track else "")
+            entries.append(k7_entry(
+                torch, bs, f"fit/float32/{tag}", band, plan, chunks, d_p,
+                f_p, hopf, recip, track, None if hopf else coo, list_ms))
     U = acc.to_perm(u_k9.contiguous())
-    entries.append(k9_entry(torch, bs, "fit/float32/C=2", band,
-                            acc.tiles_plan, U, permuted_csr(torch, acc)))
+    csr = permuted_csr(torch, acc)
+    entries.append(k9_entry(torch, bs, "fit/float32/C=2", band, plan,
+                            chunks, U, csr, list_ms))
+    U = torch.randn((acc.n_pad, 10), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9))
+    entries.append(k9_entry(torch, bs, "fit/float32/C=10", band, plan,
+                            chunks, U, csr, list_ms))
+    del coo, csr
     for dt in (torch.bfloat16, torch.float32):
         entries.append(k4_entry(torch, bs, f"fit/{str(dt).split('.')[-1]}",
                                 acc, dt))
@@ -910,41 +972,61 @@ def window_csr(torch, acc, coo=None):
 
 
 def needed_bytes(torch, bs, band, plan, row_bytes):
-    """The bytes that K5's (or K8's) function needs, whatever the design
-    reads: each 32-byte sector of ``band`` that holds a nonzero cell (the
-    card's least read) and each X (or d and f) row of ``row_bytes`` that a
-    nonzero cell multiplies, once.  Returns ``(bytes, sectors)``."""
+    """The bytes that the function of a band kernel (K5 or K8 on a
+    ``RectPlan``'s band, K7 or K9 on a ``TilesPlan``'s) needs, whatever
+    the design reads: each 32-byte sector of ``band`` that holds a nonzero
+    cell (the card's least read) and each X (d and f, or U) row of
+    ``row_bytes`` that a nonzero cell multiplies, once.  Returns
+    ``(bytes, sectors)``."""
     per = 32 // band.element_size()
+    dev = band.device
+    if isinstance(plan, bs.TilesPlan):
+        width, pieces = plan.WT, bs._tile_chunks(plan, plan.R * plan.WT)
+        columns = lambda p0, p1: (plan.slab_starts[p0:p1, :1].long()
+                                  + torch.arange(width, device=dev))
+    else:
+        width, pieces = plan.W, bs._block_chunks(plan, plan.R * plan.W)
+        columns = lambda p0, p1: bs._window_index(plan, p0, p1)
     sectors = 0
-    used = torch.zeros(plan.x_rows, dtype=torch.bool, device=band.device)
-    for b0, b1 in bs._block_chunks(plan, plan.R * plan.W):
-        nz = (band[b0 * plan.R:b1 * plan.R] != 0).reshape(b1 - b0, plan.R,
-                                                          plan.W)
-        sectors += int(nz.reshape(b1 - b0, plan.R, plan.W // per, per)
+    used = torch.zeros(plan.x_rows, dtype=torch.bool, device=dev)
+    for p0, p1 in pieces:
+        nz = (band[p0 * plan.R:p1 * plan.R] != 0).reshape(p1 - p0, plan.R,
+                                                          width)
+        sectors += int(nz.reshape(p1 - p0, plan.R, width // per, per)
                        .any(dim=3).sum())
-        used[bs._window_index(plan, b0, b1)[nz.any(dim=1)]] = True
+        used[columns(p0, p1)[nz.any(dim=1)]] = True
     return sectors * 32 + int(used.sum()) * row_bytes, sectors
 
 
 def live_bytes(torch, bs, band, plan, chunks, row_bytes):
     """The bytes that reading only the live chunks of ``band`` needs: each
-    live (64, 64) chunk's cells, each X (or d and f) chunk of ``row_bytes``
-    a row that a live chunk multiplies once (X rows are absolute, so row
-    blocks whose windows overlap share them), and the list.  Returns
+    live chunk's cells (64 x 64 on a ``RectPlan``'s band, 16 x 32 on a
+    ``TilesPlan``'s), each X (d and f, or U) chunk of ``row_bytes`` a row
+    that a live chunk multiplies once (the rows are absolute, so row
+    groups whose columns overlap share them), and the list.  Returns
     ``(bytes, live chunks, all chunks)``."""
-    chunk_ptr, chunk_col = chunks
-    rows, kc = bs._TILES_ROWS, bs._TILES_KC
-    live = int(chunk_col.numel())
-    group = torch.repeat_interleave(
-        torch.arange(plan.n // rows, device=band.device),
-        (chunk_ptr[1:] - chunk_ptr[:-1]).long())
-    x_chunk = (plan.winstart[group * rows // plan.R].long() // kc
-               + chunk_col.long())
+    chunk_ptr, chunk_id = chunks
+    live = int(chunk_id.numel())
+    ids = chunk_id.long()
+    if isinstance(plan, bs.TilesPlan):
+        rows, kc = bs._LIVE_ROWS, bs._LIVE_KC
+        cpt = plan.WT // kc
+        x_chunk = plan.slab_starts[ids // cpt, 0].long() // kc + ids % cpt
+        n_chunks = band.numel() // (rows * kc)
+        plan_bytes = plan.slab_starts.numel() * 4
+    else:
+        rows, kc = bs._TILES_ROWS, bs._TILES_KC
+        group = torch.repeat_interleave(
+            torch.arange(plan.n // rows, device=band.device),
+            (chunk_ptr[1:] - chunk_ptr[:-1]).long())
+        x_chunk = plan.winstart[group * rows // plan.R].long() // kc + ids
+        n_chunks = (plan.n // rows) * (plan.W // kc)
+        plan_bytes = plan.winstart.numel() * 4
     x_chunks = int(torch.unique(x_chunk).numel())
     nbytes = (live * rows * kc * band.element_size()
               + x_chunks * kc * row_bytes
-              + (chunk_ptr.numel() + live) * 4 + plan.winstart.numel() * 4)
-    return nbytes, live, (plan.n // rows) * (plan.W // kc)
+              + (chunk_ptr.numel() + live) * 4 + plan_bytes)
+    return nbytes, live, n_chunks
 
 
 def k5_entry(torch, bs, label, band, plan, X, chunks, csr=None):
@@ -1023,33 +1105,26 @@ def k6_entry(torch, bs, label, cols, vals, plan, X, csr=None):
 def k8_entry(torch, bs, label, band, plan, chunks, d, f, hopf, recip,
              track, coo=None):
     """K8 on the band's live chunks against its twin
-    (:func:`minplus_entry`); ``coo``: the in-window edges.  ``bound_ms``:
-    the bytes the function needs with their d and f (:func:`needed_bytes`)
-    and the outputs; ``live_bound_ms``: the live chunks' bytes with their d
-    and f (:func:`live_bytes`) and the outputs; ``dense_bound_ms``: every
-    cell of the band read once."""
+    (:func:`minplus_entry`); ``coo``: the in-window edges.  Bounds as
+    :func:`chunk_bounds`: the function's bytes with their d and f, the
+    live 64 x 64 chunks', and the dense band's."""
     nblocks = plan.n // plan.R
-    nbytes, sectors = needed_bytes(torch, bs, band, plan, 8)
-    lbytes, live, n_chunks = live_bytes(torch, bs, band, plan, chunks, 8)
-    out_bytes = plan.n * (8 if track else 4)
-    live_ms, _ = bound(lbytes + out_bytes,
-                       int((band != 0).sum()) * (8 if hopf else 3),
-                       "float32")
-    dense_ms, _ = bound(band.numel() * band.element_size()
-                        + nblocks * plan.W * 8 + nblocks * 4 + out_bytes, 0,
-                        "float32")
+    nnz_band = int((band != 0).sum())
+    bounds, counts = chunk_bounds(
+        torch, bs, band, plan, chunks, 8, plan.n * (8 if track else 4),
+        nnz_band * (8 if hopf else 3),
+        band.numel() * band.element_size() + nblocks * plan.W * 8
+        + nblocks * 4)
     return minplus_entry(
         torch, bs, "band_minplus", label,
         lambda: bs.band_minplus(band, plan, d, f, hopf_lax=hopf,
                                 track_arg=track, recip=recip, chunks=chunks),
         lambda: bs._rect_minplus_plain(band, plan, d, f, hopf, track,
                                        recip),
-        band, nbytes, d, f, hopf, track, coo,
-        {"R": plan.R, "W": plan.W, "hopf_lax": hopf, "recip": recip,
-         "chunks": n_chunks, "band_sectors": sectors},
-        {"live_bound_ms": live_ms, "dense_bound_ms": dense_ms,
-         "live_chunks": live,
-         "live_share": live / n_chunks})
+        band, d, f, track, coo,
+        dict(counts, R=plan.R, W=plan.W, hopf_lax=hopf, recip=recip,
+             band=list(band.shape), band_nnz=nnz_band),
+        bounds, recip=recip)
 
 
 def harmonic_reference(W, mask, bdy):

@@ -41,10 +41,11 @@ SIGNATURES = {
         "glt_rect_build": [_P, _P, _I, _P, _L, _I, _I, _I, _P, _I, _P]},
     "band_tiles_minplus": {
         "glt_tiles_minplus":
-            [_P, _I, _I, _I, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P]},
+            [_P, _I, _I, _I, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I,
+             _P]},
     "band_tiles_lip": {
         "glt_tiles_lip":
-            [_P, _I, _I, _I, _P, _P, _L, _P, _I, _P, _P, _P, _P]},
+            [_P, _I, _I, _I, _P, _P, _P, _L, _P, _I, _P, _P, _P, _P]},
     "band_ell_spmm": {
         "glt_ell_spmm": [_P, _P, _I, _I, _P, _L, _I, _I, _P, _I, _P, _P]},
     "band_rect_minplus": {

@@ -29,10 +29,11 @@ The distance and Lipschitz solvers stream other layouts:
 
 * :meth:`AccelSpMM.bellman_ford` K8 over a ``RectPlan``'s band, else K7
   over the unpacked tiles band, which K1 builds lazily from the
-  :class:`~band_spmm.TilesPlan` when the matvec plan is packed; a
-  ``BandedPlan`` has none (``materialize`` is False) and the solvers take
-  the plain path;
-* :meth:`AccelSpMM.lip_iterate_mc` (K9) the unpacked tiles band only;
+  :class:`~band_spmm.TilesPlan` when the matvec plan is packed, both on
+  the band's live chunks; a ``BandedPlan`` has none (``materialize`` is
+  False) and the solvers take the plain path;
+* :meth:`AccelSpMM.lip_iterate_mc` (K9) the unpacked tiles band only, on
+  its live chunks;
 * :meth:`AccelSpMM.lip_gs_mc` the rectangular ``(n_pad, Wr)`` band of the
   ``plan_banded`` plan, which K4 builds lazily (a ``RectPlan``'s own band).
 
@@ -346,7 +347,7 @@ class AccelSpMM(SpmmSolvers):
         self._rect = None
         self._band = None
         self._tiles_band = None
-        self._chunks = WeakIdKeyDictionary()   # rectangular band -> its list
+        self._chunks = WeakIdKeyDictionary()   # band -> its live-chunk list
         self._ell = None
         if band_intent:
             self._plan_tiles(cols_np, deg_np, vals_host, bytes_per, packed)
@@ -492,17 +493,26 @@ class AccelSpMM(SpmmSolvers):
         return self._band
 
     def live_chunks(self, band):
-        """The live-chunk list of ``band``, a rectangular band of the
-        ``RectPlan`` (:meth:`band` or :meth:`build_band`), for K5 and K8:
-        built by :func:`~band_spmm.rect_live_chunks` on first use and kept
+        """The live-chunk list of ``band``: for a ``RectPlan``, its
+        rectangular band (:meth:`band` or :meth:`build_band`), the list of
+        K5 and K8 (:func:`~band_spmm.rect_live_chunks`); else the unpacked
+        tiles band (:meth:`tiles_band`, or :meth:`build_band` with
+        ``tiles``), the list of K7 and K9
+        (:func:`~band_spmm.tiles_live_chunks`).  Built on first use and kept
         beside that band tensor, keyed by the tensor itself, so a band
         built anew gets its own list.  An edit of the band in place leaves
         its list stale (a cell made nonzero in a chunk not listed is never
         read): build the band anew instead."""
         chunks = self._chunks.get(band)
         if chunks is None:
-            chunks = self._chunks[band] = _bs.rect_live_chunks(band,
-                                                               self.plan)
+            if isinstance(self.plan, _bs.RectPlan):
+                chunks = _bs.rect_live_chunks(band, self.plan)
+            elif self.tiles_plan is not None:
+                chunks = _bs.tiles_live_chunks(band, self.tiles_plan)
+            else:
+                raise ValueError(f"a {type(self.plan).__name__} stores no "
+                                 "band")
+            self._chunks[band] = chunks
         return chunks
 
     def tiles_band(self):
@@ -574,9 +584,10 @@ class AccelSpMM(SpmmSolvers):
                 recip=recip, chunks=self.live_chunks(band))
         else:
             resid = self._tiles_resid
+            band = self.tiles_band()
             bmin, barg = _bs.band_tiles_minplus(
-                self.tiles_band(), self.tiles_plan, d, f, hopf_lax=hopf_lax,
-                track_arg=track, recip=recip)
+                band, self.tiles_plan, d, f, hopf_lax=hopf_lax,
+                track_arg=track, recip=recip, chunks=self.live_chunks(band))
         if resid is not None:
             rmin, rarg = _bs.residual_minplus(d, f, resid,
                                               hopf_lax=hopf_lax,
@@ -651,9 +662,11 @@ class AccelSpMM(SpmmSolvers):
             raise ValueError("lip_iterate_mc requires the tiled band")
         u0_p, bdy_p, gv_p, inv_wsum = self._lip_inputs(u0, bdy_mask, gvals)
         band, resid = self.tiles_band(), self._tiles_resid
+        chunks = self.live_chunks(band)
 
         def step(u):
-            sumu, minu, maxu = _bs.band_tiles_lip(band, self.tiles_plan, u)
+            sumu, minu, maxu = _bs.band_tiles_lip(band, self.tiles_plan, u,
+                                                  chunks)
             if resid is not None:
                 sa, mr, xr = _bs.residual_lip(u, resid, self.n_pad)
                 sumu = sumu + sa

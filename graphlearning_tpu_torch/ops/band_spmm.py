@@ -452,9 +452,12 @@ class BandedPlan(_WindowPlan):
 # -- kernels ------------------------------------------------------------------
 
 _CUDA_BAND_DTYPES = (torch.float32, torch.bfloat16)
-# the FFMA CTA of K9: csrc/band_tiles_lip.cu ROWS and KC
-_ROWS_PER_CTA = 128
-_COLS_PER_STEP = 32
+# the chunk of the tiles band's live-chunk list (tiles_live_chunks), which
+# drives K7 and K9: a warp owns _LIVE_ROWS output rows and reads their
+# _LIVE_KC-column chunks (csrc/band_tiles_minplus.cu and band_tiles_lip.cu
+# ROWS and KC)
+_LIVE_ROWS = 16
+_LIVE_KC = 32
 # the tensor-core CTA of K2, K3, K5, K10 and K11: csrc/band_tiles_spmm.cu
 # ROWS, QROWS, KC, DMAX.  ROWS x KC is also the chunk of the live-chunk
 # list of K5 and K8 (rect_live_chunks; band_rect_minplus.cu ROWS and KC).
@@ -462,7 +465,6 @@ _TILES_ROWS = 64       # output rows per CTA (K2, K3, K5; K10/K11 at least)
 _TILES_QROWS = 128     # ... of K10/K11 where R is a multiple of it
 _TILES_KC = 64         # band columns per ring stage
 _TILES_DMAX = 128      # widest d of one launch
-_MINPLUS_ROWS = 64     # csrc/band_tiles_minplus.cu ROWS
 _RECT_WIN_ALIGN = 8    # K5/K8 window starts: whole 16-byte pieces of X
 
 
@@ -1070,7 +1072,8 @@ def _tiles_minplus_plain(band, plan: TilesPlan, d, f, hopf_lax: bool,
 
 
 def band_tiles_minplus(band, plan: TilesPlan, d, f, hopf_lax: bool = False,
-                       track_arg: bool = False, recip: bool = False):
+                       track_arg: bool = False, recip: bool = False,
+                       chunks=None):
     """K7: one min-plus relaxation round over the unpacked tiles.  For each
     output row, the least of ``d[c] + A f[c]`` (or the Hopf-Lax
     ``(f A + sqrt((f A)^2 + 4 d[c]^2)) / 2``) over the tile cells ``c``
@@ -1078,20 +1081,27 @@ def band_tiles_minplus(band, plan: TilesPlan, d, f, hopf_lax: bool = False,
     arg)``: ``min`` (plan.n,) float32 (f64 for the CPU twin on an f64
     band), ``MINPLUS_BIG`` where no candidate is smaller; ``arg`` (plan.n,)
     int32, the column of the least candidate (earlier tile, then smaller
-    column, on ties) or -1, and None without ``track_arg``.
+    column, on ties) or -1, and None without ``track_arg``.  ``chunks``:
+    the band's :func:`tiles_live_chunks`, built here when None.
 
     Replaces ``graphlearning_tpu/ops/pallas_spmm.py:824``
     ``band_tiles_minplus`` (kernel ``_tiles_minplus_kernel``, :781).  On
-    the H100 it is bound by the band's bytes (a few flops per cell).  One
-    CTA owns 64 rows of one row block and walks that block's tiles in
-    plan order through ``block_ptr``, so no atomics are needed and the
-    TPU's first-tile reset is implicit; each tile's ``WT`` window of
-    ``d`` and ``f`` is staged in shared memory, a warp reads each band
-    row coalesced and reduces (min, column) with shuffles.  The
-    candidates are formed with the same f32 operations as the twin, in
-    round-to-nearest without contraction, so the two agree exactly.  The
-    argmin comes back as int32, not as the TPU's float-coded lane, and
-    the output is (n,), not the TPU's 128 lanes."""
+    the H100 it is bound by the bytes of the band's live chunks (a few
+    flops per cell); a skipped chunk holds no edge, so no candidate.  One
+    warp owns 16 output rows and walks their live 16 x 32 chunks in list
+    order (tile, then column); two lanes serve a row, each with 16-byte
+    loads of 16 cells and their ``d`` and ``f`` straight from global
+    memory, the next chunk's loads in flight while the current one is
+    reduced.  Each lane keeps its row's least candidate and that
+    candidate's column and place in the list (a later cell wins only when
+    strictly smaller), and one shuffle combines the two lanes, the
+    earlier place on ties: the TPU's first-tile reset and smallest lane.
+    The candidates are formed with the same f32 operations as the twin,
+    in round-to-nearest without contraction, so the two agree exactly.
+    The argmin comes back as int32, not as the TPU's float-coded lane, and
+    the output is (n,), not the TPU's 128 lanes.  R must be a multiple of
+    16 and WT of 32; ``band``, ``d`` and ``f`` must start on 16-byte
+    boundaries."""
     if not isinstance(plan, TilesPlan):
         raise TypeError("band_tiles_minplus takes a TilesPlan")
     if _dispatch_device("band_tiles_minplus", band, d, f,
@@ -1101,31 +1111,27 @@ def band_tiles_minplus(band, plan: TilesPlan, d, f, hopf_lax: bool = False,
     dev = band.device
     name = "band_tiles_minplus"
     _require_cuda(name, dev, band=band, d=d, f=f,
-                  tile_start=plan.slab_starts, block_ptr=plan.block_ptr)
+                  tile_start=plan.slab_starts)
     _require(band.dtype in _CUDA_BAND_DTYPES,
              f"{name}: band must be float32 or bfloat16 on CUDA")
     _require(d.dtype == torch.float32 and f.dtype == torch.float32,
              f"{name}: d and f must be float32 on CUDA")
-    G = plan.slab_block.shape[0]
-    _require(band.shape == (G * plan.R, plan.WT),
-             f"{name}: band {tuple(band.shape)} does not match the plan "
-             f"({G * plan.R}, {plan.WT})")
+    _require_tiles_band(name, band, plan)
     _require(d.dim() == 1 and d.shape == f.shape
              and d.shape[0] >= plan.x_rows,
              f"{name}: d and f must be (>= {plan.x_rows},)")
-    _require(plan.R % _MINPLUS_ROWS == 0 and plan.WT * 8 <= 48 * 1024,
-             f"{name}: the kernel takes R a multiple of {_MINPLUS_ROWS} and "
-             "WT <= 6144")
+    chunk_ptr, chunk_id = _chunk_launch_args(name, band, plan, chunks, d=d,
+                                             f=f)
     out = torch.empty((plan.n,), dtype=torch.float32, device=dev)
     arg = (torch.empty((plan.n,), dtype=torch.int32, device=dev)
            if track_arg else None)
     lib = _build.load("band_tiles_minplus")
     rc = lib.glt_tiles_minplus(
         _ptr(band), int(band.dtype == torch.bfloat16), int(plan.R),
-        int(plan.WT), _ptr(plan.block_ptr), _ptr(plan.slab_starts),
-        int(plan.n // plan.R), _ptr(d), _ptr(f), _ptr(out),
-        _ptr(arg) if track_arg else ctypes.c_void_p(0), int(hopf_lax),
-        int(recip), int(track_arg), _stream(band))
+        int(plan.WT), _ptr(chunk_ptr), _ptr(chunk_id),
+        _ptr(plan.slab_starts), int(plan.n // _LIVE_ROWS), _ptr(d), _ptr(f),
+        _ptr(out), _ptr(arg) if track_arg else ctypes.c_void_p(0),
+        int(hopf_lax), int(recip), int(track_arg), _stream(band))
     if rc:
         raise RuntimeError(f"{name}: CUDA error {rc}")
     band_tiles_minplus.launches += 1
@@ -1203,56 +1209,55 @@ def _tiles_lip_plain(band, plan: TilesPlan, U):
             maxs.reshape(plan.n, C))
 
 
-def band_tiles_lip(band, plan: TilesPlan, U):
+def band_tiles_lip(band, plan: TilesPlan, U, chunks=None):
     """K9: one pass of the Lipschitz-round reductions over the unpacked
     tiles.  ``U`` is ``(>= plan.x_rows, C)``, C <= 32 on CUDA.  Returns
     ``(sums, mins, maxs)``, each (plan.n, C) float32 (f64 for the CPU twin
     on an f64 band): the band-weighted neighbor sum, and the neighbor min
     and max (``LIP_BIG`` / ``-LIP_BIG`` where a row has no band edge).
+    ``chunks``: the band's :func:`tiles_live_chunks`, built here when
+    None.
 
     Replaces ``graphlearning_tpu/ops/pallas_spmm.py:902``
     ``band_tiles_lip`` (kernel ``_tiles_lip_kernel``, :861).  On the H100
-    it is bound by the band's bytes at small C and by f32 issue near
-    C = 32 (a multiply-add and a compare pair per cell and class).  One
-    CTA of 128 threads owns 128 rows of one row block and walks that
-    block's tiles in plan order (no atomics); it stages 32-column band
-    chunks and the matching ``(32, C)`` rows of ``U`` in shared memory,
-    and each thread keeps its row's C sums (exact f32 FFMA; a bf16 band is
-    widened on load), mins and maxes in registers and writes each output
-    once.  The min and max test ``A > 0`` on the stored value.  ``U`` is
-    not padded to the TPU's 128 lanes, and the three results are
-    separate arrays, not one (n, 384) block."""
+    it is bound by the bytes of the band's live chunks at small C and by
+    f32 instructions on the nonzero cells near C = 32 (a multiply-add and a
+    compare pair per cell and class).  K7's walk: a warp owns 16 output
+    rows and their live 16 x 32 chunks, two lanes a row, the next chunk's
+    loads in flight while the current one is reduced, and the chunk's 32
+    rows of ``U`` staged in shared memory by ``cp.async``, also one chunk
+    ahead; a lane visits only its nonzero cells, reads their C values of
+    ``U`` from the stage and keeps its row's C sums (exact f32 FFMA; a bf16
+    band is widened on load), mins and maxes in registers; one shuffle
+    combines the two lanes and each output is written once.  The min and max test ``A > 0`` on the stored value.
+    ``U`` is not padded to the TPU's 128 lanes, and the three results are
+    separate arrays, not one (n, 384) block.  R must be a multiple of 16
+    and WT of 32; ``band`` and ``U`` must start on 16-byte boundaries."""
     if not isinstance(plan, TilesPlan):
         raise TypeError("band_tiles_lip takes a TilesPlan")
     if _dispatch_device("band_tiles_lip", band, U, plan.slab_starts) == "cpu":
         return _tiles_lip_plain(band, plan, U)
     dev = band.device
     name = "band_tiles_lip"
-    _require_cuda(name, dev, band=band, U=U, tile_start=plan.slab_starts,
-                  block_ptr=plan.block_ptr)
+    _require_cuda(name, dev, band=band, U=U, tile_start=plan.slab_starts)
     _require(band.dtype in _CUDA_BAND_DTYPES and U.dtype == torch.float32,
              f"{name}: band must be float32 or bfloat16 and U float32 on "
              "CUDA")
-    G = plan.slab_block.shape[0]
-    _require(band.shape == (G * plan.R, plan.WT),
-             f"{name}: band {tuple(band.shape)} does not match the plan "
-             f"({G * plan.R}, {plan.WT})")
+    _require_tiles_band(name, band, plan)
     _require(U.dim() == 2 and 1 <= U.shape[1] <= 32
              and U.shape[0] >= plan.x_rows,
              f"{name}: U {tuple(U.shape)} must be (>= {plan.x_rows}, C) "
              "with 1 <= C <= 32")
-    _require(plan.R % _ROWS_PER_CTA == 0 and plan.WT % _COLS_PER_STEP == 0,
-             f"{name}: the kernel takes R a multiple of {_ROWS_PER_CTA} and "
-             f"WT a multiple of {_COLS_PER_STEP}")
+    chunk_ptr, chunk_id = _chunk_launch_args(name, band, plan, chunks, U=U)
     C = U.shape[1]
     sums, mins, maxs = (torch.empty((plan.n, C), dtype=torch.float32,
                                     device=dev) for _ in range(3))
     lib = _build.load("band_tiles_lip")
     rc = lib.glt_tiles_lip(
         _ptr(band), int(band.dtype == torch.bfloat16), int(plan.R),
-        int(plan.WT), _ptr(plan.block_ptr), _ptr(plan.slab_starts),
-        int(plan.n // plan.R), _ptr(U), int(C), _ptr(sums), _ptr(mins),
-        _ptr(maxs), _stream(band))
+        int(plan.WT), _ptr(chunk_ptr), _ptr(chunk_id),
+        _ptr(plan.slab_starts), int(plan.n // _LIVE_ROWS), _ptr(U), int(C),
+        _ptr(sums), _ptr(mins), _ptr(maxs), _stream(band))
     if rc:
         raise RuntimeError(f"{name}: CUDA error {rc}")
     band_tiles_lip.launches += 1
@@ -1342,64 +1347,144 @@ def rect_live_chunks(band, plan: RectPlan):
     return chunk_ptr, chunk_col
 
 
-def _rect_launch_args(name, band, plan: RectPlan, chunks, **operands):
-    """The checks of K5's and K8's launch (the CTA geometry, window starts
-    and operands on 16-byte boundaries for the ``cp.async`` ring), and the
-    live-chunk list, built from ``band`` when ``chunks`` is None (the
-    caller holds the tensors until the launch is enqueued)."""
-    _require(plan.R % _TILES_ROWS == 0 and plan.W % _TILES_KC == 0,
-             f"{name}: the kernel takes R a multiple of {_TILES_ROWS} and "
-             f"W a multiple of {_TILES_KC}")
-    _require(not (plan.winstart_host % _RECT_WIN_ALIGN).any(),
-             f"{name}: window starts must be multiples of "
-             f"{_RECT_WIN_ALIGN} (16-byte chunks of X, d and f)")
+def _require_tiles_band(name, band, plan: TilesPlan):
+    G = plan.slab_block.shape[0]
+    _require(band.dim() == 2 and band.shape == (G * plan.R, plan.WT),
+             f"{name}: band {tuple(band.shape)} does not match the plan "
+             f"({G * plan.R}, {plan.WT})")
+
+
+def tiles_live_chunks(band, plan: TilesPlan):
+    """The live-chunk list of the unpacked tiles ``band``, which drives K7
+    and K9: for each group of ``_LIVE_ROWS`` output rows (one warp), the
+    ``(_LIVE_ROWS, _LIVE_KC)`` chunks of its row block's tiles that hold a
+    nonzero cell, by tile in plan order, then by column.  Returns int32
+    ``(chunk_ptr, chunk_id)`` on the band's device: group ``i``'s chunks
+    are ``chunk_id[chunk_ptr[i]:chunk_ptr[i + 1]]``, and chunk ``g * (WT //
+    _LIVE_KC) + c`` is columns ``[c, c + 1) * _LIVE_KC`` of tile ``g``.
+
+    Built from the band the kernels read (K1's tiles, in the band's dtype),
+    never from the plan's ELL, so no cell is dropped; in pieces of tiles,
+    so no band-sized temporary is made.  A list belongs to the band it was
+    built from: after the band changes, build it again."""
+    name = "tiles_live_chunks"
+    _require_tiles_band(name, band, plan)
+    rows, kc, R, WT = _LIVE_ROWS, _LIVE_KC, plan.R, plan.WT
+    _require(R % rows == 0 and WT % kc == 0,
+             f"{name}: R={R} must be a multiple of {rows} and WT={WT} of "
+             f"{kc}")
+    rg, cpt = R // rows, WT // kc
+    dev = band.device
+    hits = []                                  # (tile, row group, chunk)
+    for g0, g1 in _tile_chunks(plan, R * WT):
+        live = ((band[g0 * R:g1 * R] != 0)
+                .reshape(g1 - g0, rg, rows, cpt, kc).any(dim=4).any(dim=2))
+        hit = live.nonzero()
+        hit[:, 0] += g0
+        hits.append(hit)
+    hit = (torch.cat(hits) if hits else
+           torch.zeros((0, 3), dtype=torch.long, device=dev))
+    group = plan.slab_block.long()[hit[:, 0]] * rg + hit[:, 1]
+    chunk_id = hit[:, 0] * cpt + hit[:, 2]
+    order = torch.argsort(group * (plan.slab_block.shape[0] * cpt)
+                          + chunk_id)
+    groups = plan.n // rows
+    chunk_ptr = torch.zeros(groups + 1, dtype=torch.int32, device=dev)
+    torch.cumsum(torch.bincount(group, minlength=groups), 0,
+                 out=chunk_ptr[1:])
+    return chunk_ptr, chunk_id[order].to(torch.int32)
+
+
+def _chunk_launch_args(name, band, plan, chunks, **operands):
+    """The checks of a launch driven by a live-chunk list (K5 and K8 on a
+    ``RectPlan``'s band, K7 and K9 on a ``TilesPlan``'s): the geometry of
+    the list's chunk; for a ``RectPlan`` the window starts on whole 16-byte
+    pieces of X, d and f; ``band`` and the operands on 16-byte boundaries
+    for the kernels' vector loads.  Returns the list, built from ``band``
+    when ``chunks`` is None (the caller holds the tensors until the launch
+    is enqueued), else ``chunks`` once :func:`_check_live_chunks` passes
+    it."""
+    if isinstance(plan, TilesPlan):
+        rows, kc, width, build = _LIVE_ROWS, _LIVE_KC, plan.WT, \
+            tiles_live_chunks
+        what = f"WT={plan.WT}"
+    else:
+        rows, kc, width, build = _TILES_ROWS, _TILES_KC, plan.W, \
+            rect_live_chunks
+        what = f"W={plan.W}"
+        _require(not (plan.winstart_host % _RECT_WIN_ALIGN).any(),
+                 f"{name}: window starts must be multiples of "
+                 f"{_RECT_WIN_ALIGN} (16-byte chunks of X, d and f)")
+    _require(plan.R % rows == 0 and width % kc == 0,
+             f"{name}: the kernel takes R a multiple of {rows} and {what} "
+             f"a multiple of {kc}")
     for k, t in dict(operands, band=band).items():
         _require(t.data_ptr() % 16 == 0,
                  f"{name}: {k} must start on a 16-byte boundary")
     if chunks is None:
-        return rect_live_chunks(band, plan)
-    chunk_ptr, chunk_col = chunks
-    _require_cuda(name, band.device, chunk_ptr=chunk_ptr,
-                  chunk_col=chunk_col)
-    _check_live_chunks(name, plan, chunk_ptr, chunk_col)
-    return chunk_ptr, chunk_col
+        return build(band, plan)
+    chunk_ptr, chunk_id = chunks
+    _require_cuda(name, band.device, chunk_ptr=chunk_ptr, chunk_id=chunk_id)
+    _check_live_chunks(name, plan, chunk_ptr, chunk_id)
+    return chunk_ptr, chunk_id
 
 
-# chunk_col -> (chunk_ptr, W) of the lists that passed _check_live_chunks
+# chunk_id -> (chunk_ptr, plan geometry) of the lists that passed
+# _check_live_chunks
 _CHECKED_CHUNKS = WeakIdKeyDictionary()
 
 
-def _check_live_chunks(name, plan: RectPlan, chunk_ptr, chunk_col):
+def _check_live_chunks(name, plan, chunk_ptr, chunk_id):
     """Refuse a live-chunk list that would read out of bounds or out of
     order: int32, ``chunk_ptr`` of one entry a row group and one more,
-    from 0 to ``chunk_col``'s length without falling, and each group's
-    chunks ascending within the window.  The values are checked on the
-    host once per list (a list that passed is remembered by its tensors),
-    so the launches after the first wait on nothing.  Whether the list is
-    that of the band's current cells is not checked."""
-    seen = _CHECKED_CHUNKS.get(chunk_col)
-    if seen is not None and seen[0] is chunk_ptr and seen[1] == plan.W:
+    from 0 to ``chunk_id``'s length without falling, and each group's
+    entries ascending within their range: the window's chunks ``[0, W //
+    _TILES_KC)`` for a ``RectPlan`` (:func:`rect_live_chunks`), the chunks
+    of the group's row block's tiles for a ``TilesPlan``
+    (:func:`tiles_live_chunks`).  The values are checked on the host once
+    per list (a list that passed is remembered by its tensors and the
+    plan's geometry), so the launches after the first wait on nothing.
+    Whether the list is that of the band's current cells is not
+    checked."""
+    tiles = isinstance(plan, TilesPlan)
+    if tiles:
+        rows, lister = _LIVE_ROWS, "tiles_live_chunks"
+        token = ("tiles", plan.n, plan.R, plan.WT,
+                 int(plan.slab_block.shape[0]))
+    else:
+        rows, lister = _TILES_ROWS, "rect_live_chunks"
+        token = ("rect", plan.n, plan.W)
+    seen = _CHECKED_CHUNKS.get(chunk_id)
+    if seen is not None and seen[0] is chunk_ptr and seen[1] == token:
         return
-    groups = plan.n // _TILES_ROWS
-    _require(chunk_ptr.dtype == torch.int32 and chunk_col.dtype == torch.int32
-             and chunk_ptr.shape == (groups + 1,) and chunk_col.dim() == 1,
-             f"{name}: chunks must be rect_live_chunks' int32 "
-             f"(chunk_ptr ({groups + 1},), chunk_col)")
-    ptr, col = chunk_ptr.long(), chunk_col.long()
-    _require(int(ptr[0]) == 0 and int(ptr[-1]) == col.numel()
+    groups = plan.n // rows
+    _require(chunk_ptr.dtype == torch.int32 and chunk_id.dtype == torch.int32
+             and chunk_ptr.shape == (groups + 1,) and chunk_id.dim() == 1,
+             f"{name}: chunks must be {lister}' int32 "
+             f"(chunk_ptr ({groups + 1},), chunk_id)")
+    ptr, ids = chunk_ptr.long(), chunk_id.long()
+    _require(int(ptr[0]) == 0 and int(ptr[-1]) == ids.numel()
              and bool((ptr[1:] >= ptr[:-1]).all()),
-             f"{name}: chunk_ptr must rise from 0 to chunk_col's length "
-             f"{col.numel()}")
+             f"{name}: chunk_ptr must rise from 0 to the list's length "
+             f"{ids.numel()}")
     group = torch.repeat_interleave(
-        torch.arange(groups, device=col.device), ptr[1:] - ptr[:-1],
-        output_size=col.numel())
-    key = group * (plan.W // _TILES_KC) + col
-    _require(col.numel() == 0
-             or (int(col.min()) >= 0 and int(col.max()) < plan.W // _TILES_KC
-                 and bool((key[1:] > key[:-1]).all())),
-             f"{name}: each group's chunk_col must ascend within "
-             f"[0, {plan.W // _TILES_KC})")
-    _CHECKED_CHUNKS[chunk_col] = (chunk_ptr, plan.W)
+        torch.arange(groups, device=ids.device), ptr[1:] - ptr[:-1],
+        output_size=ids.numel())
+    if tiles:
+        cpt = plan.WT // _LIVE_KC
+        block_ptr = plan.block_ptr.long().to(ids.device)
+        blk = group * rows // plan.R
+        lo, hi = block_ptr[blk] * cpt, block_ptr[blk + 1] * cpt
+        span = "the chunks of its row block's tiles"
+    else:
+        lo, hi = 0, plan.W // _TILES_KC
+        span = f"[0, {hi})"
+    _require(ids.numel() == 0
+             or (bool((ids >= lo).all()) and bool((ids < hi).all())
+                 and bool(((ids[1:] > ids[:-1])
+                           | (group[1:] != group[:-1])).all())),
+             f"{name}: each group's chunks must ascend within {span}")
+    _CHECKED_CHUNKS[chunk_id] = (chunk_ptr, token)
 
 
 def _rect_spmm_plain(band, plan: RectPlan, X):
@@ -1453,7 +1538,7 @@ def band_spmm(band, plan: RectPlan, X, chunks=None):
              f"({plan.n}, {plan.W})")
     _require(X.dim() == 2 and X.shape[1] >= 1 and X.shape[0] >= plan.x_rows,
              f"{name}: X {tuple(X.shape)} needs >= {plan.x_rows} rows")
-    chunk_ptr, chunk_col = _rect_launch_args(name, band, plan, chunks, X=X)
+    chunk_ptr, chunk_col = _chunk_launch_args(name, band, plan, chunks, X=X)
     d = X.shape[1]
     out = torch.empty((plan.n, d), dtype=torch.float32, device=dev)
     lib = _build.load("band_tiles_spmm")
@@ -1605,8 +1690,8 @@ def band_minplus(band, plan: RectPlan, d, f, hopf_lax: bool = False,
     _require(d.dim() == 1 and d.shape == f.shape
              and d.shape[0] >= plan.x_rows,
              f"{name}: d and f must be (>= {plan.x_rows},)")
-    chunk_ptr, chunk_col = _rect_launch_args(name, band, plan, chunks, d=d,
-                                             f=f)
+    chunk_ptr, chunk_col = _chunk_launch_args(name, band, plan, chunks, d=d,
+                                              f=f)
     out = torch.empty((plan.n,), dtype=torch.float32, device=dev)
     arg = (torch.empty((plan.n,), dtype=torch.int32, device=dev)
            if track_arg else None)

@@ -5,6 +5,7 @@ kernels K1-K9 are held against the Pallas kernels in interpret mode; the
 CUDA kernels are held against the twins in ``test_torch_cuda_kernels.py``.
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -19,6 +20,7 @@ from scipy.spatial import cKDTree
 from graphlearning_tpu.core.sparse import SparseGraph as JSparseGraph
 from graphlearning_tpu.ops import pallas_spmm as jps
 from graphlearning_tpu.ops.accel import AccelSpMM as JAccelSpMM
+from graphlearning_tpu_torch.ops import _build
 from graphlearning_tpu_torch.ops import band_spmm as bs
 from graphlearning_tpu_torch.ops.accel import AccelSpMM
 
@@ -604,10 +606,12 @@ def _constexprs(source):
     # K10/K11 on the same CTA: its wide rows, chunk and width
     ("band_tiles_spmm.cu", {"QROWS": "_TILES_QROWS", "KC": "_TILES_KC",
                             "DMAX": "_TILES_DMAX"}),
-    ("band_tiles_lip.cu", {"ROWS": "_ROWS_PER_CTA", "KC": "_COLS_PER_STEP"}),
+    # K9 and K7 walk the tiles band's live-chunk list: a warp a row group,
+    # a chunk of KC columns
+    ("band_tiles_lip.cu", {"ROWS": "_LIVE_ROWS", "KC": "_LIVE_KC"}),
     # K5 on the same CTA: the window starts' alignment its X chunks need
     ("band_tiles_spmm.cu", {"WIN_ALIGN": "_RECT_WIN_ALIGN"}),
-    ("band_tiles_minplus.cu", {"ROWS": "_MINPLUS_ROWS"}),
+    ("band_tiles_minplus.cu", {"ROWS": "_LIVE_ROWS", "KC": "_LIVE_KC"}),
     # K8 walks the same list: a CTA a row group, a stage a chunk
     ("band_rect_minplus.cu", {"ROWS": "_TILES_ROWS", "KC": "_TILES_KC"}),
 ])
@@ -616,6 +620,23 @@ def test_kernel_geometry_matches_the_wrapper_checks(source, names):
     consts = _constexprs(source)
     for cname, pyname in names.items():
         assert consts[cname] == getattr(bs, pyname), (source, cname)
+
+
+@pytest.mark.parametrize("library", sorted(_build.SIGNATURES))
+def test_ctypes_signatures_match_the_sources(library):
+    """Each ``extern "C"`` entry of a CUDA source takes the arguments its
+    ctypes signature passes: a pointer for each pointer, a 32-bit int for
+    each int and a 64-bit int for each long long."""
+    text = (_CSRC / f"{library}.cu").read_text()
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+    for fname, argtypes in _build.SIGNATURES[library].items():
+        found = re.search(r'extern "C" int ' + fname + r"\(([^)]*)\)", text)
+        assert found, fname
+        params = [" ".join(p.split()) for p in found.group(1).split(",")]
+        want = [ctypes.c_void_p if "*" in p else
+                kinds[p.rsplit(" ", 1)[0].replace("const ", "")]
+                for p in params]
+        assert argtypes == want, (fname, params)
 
 
 def test_tiles_spmm_geometry_admits_the_main_path_plans():

@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K11 of graphlearning_tpu_torch against their plain
-torch twins, on a GPU (K5 and K8 on the band's live chunks).
+torch twins, on a GPU (K5 and K8 on the rectangular band's live chunks,
+K7 and K9 on the tiles band's).
 
 Every test here needs the card: it carries the ``cuda`` marker and skips
 without one.  The file imports neither JAX nor the JAX package, so it runs
@@ -362,6 +363,181 @@ def test_cuda_accel_distance_and_lip_take_the_kernels(cuda_device):
     acc.lip_gs_mc(u_pl, mask, gv, 0.0, 1.0, 1e-3, 30)
     assert bs.launches()["materialize_band"] == after["materialize_band"] + 1
     assert bs.launches()["band_tiles_lip"] >= after["band_tiles_lip"] + 200
+
+
+def _tiles_chunk_band(banded_tiles, dev, kind, dtype):
+    """K7's and K9's bands on the tiles plan: ``rcm``, K1's band;
+    ``empty_group``, the same with output rows 16-31 (one warp's row
+    group, in every tile of block 0) zeroed; ``all_live``, random positive
+    cells, about 5 % nonzero, so every 16 x 32 chunk is live; ``ties``,
+    every nonzero cell of K1's band 1.  Returns the band, the plan and its
+    list."""
+    band, plan, _, _ = _minplus_case(banded_tiles, dev, dtype)
+    rows, kc = bs._LIVE_ROWS, bs._LIVE_KC
+    if kind == "empty_group":
+        band.view(-1, plan.R, plan.WT)[plan.slab_block == 0,
+                                       rows:2 * rows] = 0
+    elif kind == "all_live":
+        rs = np.random.RandomState(7)
+        shape = tuple(band.shape)
+        cells = rs.rand(*shape) * (rs.rand(*shape) < 0.05)
+        band = torch.as_tensor(cells, dtype=torch.float32,
+                               device=dev).to(dtype)
+    elif kind == "ties":
+        band = (band != 0).to(dtype)
+    chunks = bs.tiles_live_chunks(band, plan)
+    n_live = chunks[1].numel()
+    n_all = band.numel() // (rows * kc)
+    assert n_live == n_all if kind == "all_live" else 0 < n_live < n_all
+    if kind == "empty_group":
+        assert int(chunks[0][2]) == int(chunks[0][1])
+    return band, plan, chunks
+
+
+TILES_CHUNK_KINDS = ["rcm", "empty_group", "all_live", "ties"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", TILES_CHUNK_KINDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hopf_lax", [False, True])
+@pytest.mark.parametrize("recip", [False, True])
+@pytest.mark.parametrize("track_arg", [False, True])
+def test_cuda_tiles_minplus_on_the_live_chunks(banded_tiles, cuda_device,
+                                               kind, dtype, hopf_lax, recip,
+                                               track_arg):
+    """K7 on the list: min and argmin identical to the dense twin, on the
+    tie band (constant d and f: every candidate of a row ties, the first
+    in tile, then column, order wins) too; the empty row group gets
+    MINPLUS_BIG and -1."""
+    dev = cuda_device
+    band, plan, chunks = _tiles_chunk_band(banded_tiles, dev, kind, dtype)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if kind == "ties":
+        d = torch.ones(1024, device=dev)
+        f = torch.full((1024,), 0.75, device=dev)
+    else:
+        d = torch.rand(1024, generator=gen, device=dev) * 3
+        d[torch.rand(1024, generator=gen, device=dev) < 0.3] = \
+            bs.MINPLUS_BIG
+        f = torch.rand(1024, generator=gen, device=dev) + 0.5
+    n0 = bs.band_tiles_minplus.launches
+    m, arg = bs.band_tiles_minplus(band, plan, d, f, hopf_lax=hopf_lax,
+                                   track_arg=track_arg, recip=recip,
+                                   chunks=chunks)
+    assert bs.band_tiles_minplus.launches == n0 + 1
+    rm, rarg = bs._tiles_minplus_plain(band, plan, d, f, hopf_lax, track_arg,
+                                       recip)
+    torch.testing.assert_close(m, rm, rtol=0, atol=0)
+    assert bool((m < bs.MINPLUS_BIG).any())
+    if track_arg:
+        torch.testing.assert_close(arg, rarg, rtol=0, atol=0)
+    if kind == "empty_group":
+        rows = slice(bs._LIVE_ROWS, 2 * bs._LIVE_ROWS)
+        assert bool((m[rows] == bs.MINPLUS_BIG).all())
+        if track_arg:
+            assert bool((arg[rows] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rcm", "empty_group", "all_live"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 2, 3, 10, 32])
+def test_cuda_tiles_lip_on_the_live_chunks(banded_tiles, cuda_device, kind,
+                                           dtype, C):
+    """K9 on the list: sums within the K2 tolerance of max|ref|, min and
+    max identical to the dense twin; the empty row group gets 0 and the
+    LIP_BIG identities."""
+    dev = cuda_device
+    band, plan, chunks = _tiles_chunk_band(banded_tiles, dev, kind, dtype)
+    U = torch.randn((1024, C), device=dev)
+    n0 = bs.band_tiles_lip.launches
+    out = bs.band_tiles_lip(band, plan, U, chunks)
+    assert bs.band_tiles_lip.launches == n0 + 1
+    ref = bs._tiles_lip_plain(band, plan, U)
+    _close(out[0], ref[0], dtype)
+    torch.testing.assert_close(out[1], ref[1], rtol=0, atol=0)
+    torch.testing.assert_close(out[2], ref[2], rtol=0, atol=0)
+    if kind == "empty_group":
+        rows = slice(bs._LIVE_ROWS, 2 * bs._LIVE_ROWS)
+        assert not out[0][rows].any()
+        assert bool((out[1][rows] == bs.LIP_BIG).all())
+        assert bool((out[2][rows] == -bs.LIP_BIG).all())
+
+
+@pytest.mark.cuda
+def test_cuda_tiles_chunks_none_matches_the_cached_list(cuda_device):
+    """K7 and K9 without a list build their own from the band: the same
+    outputs, bit for bit, as with the list ``AccelSpMM`` caches beside its
+    tiles band, which is the list the CPU builds from the same band."""
+    W = _knn_csr(9000, 10, seed=1)
+    acc = AccelSpMM(W, device=cuda_device)
+    band, plan = acc.tiles_band(), acc.tiles_plan
+    chunks = acc.live_chunks(band)
+    assert acc.live_chunks(acc.tiles_band()) is chunks
+    cpu_plan = bs.TilesPlan.from_tiles(
+        plan.slab_block.cpu().numpy(), plan.slab_starts[:, 0].cpu().numpy(),
+        plan.n, plan.R, plan.WT, "cpu")
+    for a, b in zip(chunks, bs.tiles_live_chunks(band.cpu(), cpu_plan)):
+        assert torch.equal(a.cpu(), b)
+    d = torch.rand(acc.n_pad, device=cuda_device) * 3
+    f = torch.rand(acc.n_pad, device=cuda_device) + 0.5
+    for a, b in zip(bs.band_tiles_minplus(band, plan, d, f, track_arg=True),
+                    bs.band_tiles_minplus(band, plan, d, f, track_arg=True,
+                                          chunks=chunks)):
+        assert torch.equal(a, b)
+    U = torch.randn((acc.n_pad, 3), device=cuda_device)
+    for a, b in zip(bs.band_tiles_lip(band, plan, U),
+                    bs.band_tiles_lip(band, plan, U, chunks)):
+        assert torch.equal(a, b)
+    b16 = acc.build_band(torch.bfloat16, tiles=True)
+    assert acc.live_chunks(b16) is not chunks
+
+
+@pytest.mark.cuda
+def test_cuda_tiles_chunk_wrappers_refuse(banded_tiles, cuda_device):
+    """K7 and K9 refuse operands off a 16-byte boundary, a plan whose R or
+    WT the warp's chunk does not divide, and a broken list."""
+    dev = cuda_device
+    band, plan, d, f = _minplus_case(banded_tiles, dev, torch.float32)
+    U = torch.zeros((1024, 2), device=dev)
+    bs.band_tiles_minplus(band, plan, d, f)          # what they take
+    bs.band_tiles_lip(band, plan, U)
+    shifted = torch.zeros(band.numel() + 1, device=dev)[1:].view(band.shape)
+    shifted.copy_(band)
+    with pytest.raises(ValueError):
+        bs.band_tiles_minplus(shifted, plan, d, f)
+    with pytest.raises(ValueError):
+        bs.band_tiles_lip(shifted, plan, U)
+    with pytest.raises(ValueError):
+        bs.band_tiles_minplus(band, plan, torch.zeros(1025, device=dev)[1:],
+                              f)
+    with pytest.raises(ValueError):
+        bs.band_tiles_lip(band, plan, torch.zeros(2049, device=dev)[1:]
+                          .view(1024, 2))
+    odd = bs.TilesPlan.from_tiles([0, 1], [0, 48], 96, 48, 48, dev)
+    with pytest.raises(ValueError):                  # WT not a multiple of 32
+        bs.band_tiles_minplus(torch.zeros((96, 48), device=dev), odd,
+                              d[:96], f[:96])
+    odd = bs.TilesPlan.from_tiles([0, 1], [0, 64], 48, 24, 64, dev)
+    with pytest.raises(ValueError):                  # R not a multiple of 16
+        bs.band_tiles_lip(torch.zeros((48, 64), device=dev), odd, U[:128])
+    chunk_ptr, chunk_id = bs.tiles_live_chunks(band, plan)
+    with pytest.raises(ValueError):                  # one group short
+        bs.band_tiles_minplus(band, plan, d, f,
+                              chunks=(chunk_ptr[:-1], chunk_id))
+    with pytest.raises(ValueError):                  # int64
+        bs.band_tiles_lip(band, plan, U, (chunk_ptr, chunk_id.long()))
+    past = chunk_id.clone()
+    past[-1] = plan.slab_block.numel() * (plan.WT // bs._LIVE_KC)
+    with pytest.raises(ValueError):                  # past the last tile
+        bs.band_tiles_minplus(band, plan, d, f, chunks=(chunk_ptr, past))
+    flipped = chunk_id.clone()
+    a = int(((chunk_ptr[1:] - chunk_ptr[:-1]) >= 2).nonzero()[0])
+    a = int(chunk_ptr[a])
+    flipped[a], flipped[a + 1] = chunk_id[a + 1], chunk_id[a]
+    with pytest.raises(ValueError):                  # descending in a group
+        bs.band_tiles_lip(band, plan, U, (chunk_ptr, flipped))
 
 
 @pytest.fixture(scope="module")
