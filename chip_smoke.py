@@ -20,8 +20,10 @@ Phases (any failure exits non-zero before the result line):
    unpacked fallback path (K1 + K3), and all of them on the plain ELL path
    for comparison (accuracy, agreement, and the band fits' iteration
    counts within 1 % of the plain path's); then the kernels against their
-   twins at the fits' own shapes, and the time of one whole matvec (band
-   kernel plus residual) beside the plain ELL gather;
+   twins at the fits' own shapes, the masked Laplace solve on K2 and K3
+   within SOLVE_MARGIN of the plain path's error against scipy's f64
+   solve, and the time of one whole matvec (band kernel plus residual)
+   beside the plain ELL gather;
 4. the distance and Lipschitz path on the same graph: ``graph.dijkstra``
    (plain, reciprocal) and ``dijkstra_hl`` on the band (K1 + K7),
    ``ssl.plaplace`` and ``ssl.amle`` on the band (K2 warm start, K4 band,
@@ -31,6 +33,21 @@ Phases (any failure exits non-zero before the result line):
    Hopf-Lax rounds the path launches) and K9 (C in {2, 10}) against their
    twins at these shapes, with the time of the tiles band's live-chunk
    list;
+4b. the MBO and reweighted Laplace fits on the same graph:
+   ``ssl.poisson_mbo`` (T=20, Ns=40), ``ssl.volume_mbo`` at temperature 0
+   and at 0.1 (seed 0, twice) and ``ssl.laplace`` with the "wnll",
+   "poisson" and "properly" reweightings, on the band (the MBO fits on
+   the bf16 band: K1, K2 bf16 at d=2, K7 for VolumeMBO's Voronoi start;
+   the reweighted fits on K2 f32) and on the plain path (accuracy within
+   a point of the JAX package's float32 accuracy, two at temperature 0.1;
+   agreement; VolumeMBO's class counts within their bounds), and
+   ``volume.gumbel`` on a CUDA generator (same seed same draws, Gumbel's
+   mean and variance); then
+   PoissonMBO and VolumeMBO on the ten-cluster Poisson input (n=70000),
+   which must take the gather (its ``bellman_ford`` for the Voronoi
+   start), held to the same fits under ``GLT_NO_GATHER``; then K2 bf16 at
+   the MBO fits' shape against its twin, with the launches K2 made on the
+   bf16 band (the f32 CG solves inside the fits not counted);
 5. the rectangular route: the same graph under ``GLT_NO_BAND=1``
    (Laplace and Poisson on the unstored band, K6; ``graph.dijkstra`` on
    the plain path), then ``AccelSpMM(W, materialize=True)`` (K4 band; the
@@ -56,9 +73,10 @@ it exceeds the host's, else the host's) and, but for the band builds,
 ``graph_ms`` (20 calls captured in a CUDA graph and replayed between two
 events, over 20: the device's time alone), and the same three for its
 library call.  ``bound_ms`` counts what the function needs of this run's
-data; K5, K7, K8 and K9 also give ``live_bound_ms`` (the bytes their
-live-chunk design reads) and ``dense_bound_ms`` (every cell of the band),
-and K7 and K9 ``list_ms``, the time of their list's build.
+data (:func:`needed_bytes`); the band matvecs and min-plus rounds also
+give ``dense_bound_ms`` (every cell of the band, or of its real tiles),
+K5, K7, K8 and K9 ``live_bound_ms`` (the bytes their live-chunk design
+reads), and K7 and K9 ``list_ms``, the time of their list's build.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -66,6 +84,7 @@ and last ``{"ok": true, "device": {...}}``.
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -133,6 +152,37 @@ FITS = {
     "peikonal": lambda gl, W, **kw: gl.ssl.peikonal(
         W, max_num_it=PEIKONAL_MAX_NUM_IT, **kw),
 }
+# The fits of the MBO phase, each from ``(gl, W, priors, X)``: PoissonMBO
+# and VolumeMBO at the library's defaults (VolumeMBO at temperature 0, and
+# at 0.1 with a seed), and the reweighted Laplace fits.
+MBO_FITS = {
+    "poisson_mbo": lambda gl, W, priors, X, **kw: gl.ssl.poisson_mbo(
+        W, priors, **kw),
+    "volume_mbo": lambda gl, W, priors, X, **kw: gl.ssl.volume_mbo(
+        W, priors, temperature=0.0, **kw),
+    "volume_mbo_t0.1": lambda gl, W, priors, X, seed=0, **kw:
+        gl.ssl.volume_mbo(W, priors, temperature=0.1, seed=seed, **kw),
+    "laplace_wnll": lambda gl, W, priors, X, **kw: gl.ssl.laplace(
+        W, reweighting="wnll", **kw),
+    "laplace_poisson": lambda gl, W, priors, X, **kw: gl.ssl.laplace(
+        W, reweighting="poisson", **kw),
+    "laplace_properly": lambda gl, W, priors, X, **kw: gl.ssl.laplace(
+        W, X=X, reweighting="properly", **kw),
+}
+MBO_SEEDS = (0, 1, 2, 3, 4)   # JAX's mean of the temperature-0.1 fit
+# Accuracy (%) of the JAX package in float32 on the fit input for
+# MBO_FITS (the temperature-0.1 fit: the mean over MBO_SEEDS), from
+# ``JAX_PLATFORMS=cpu python3 tools/mbo_reference.py``.  The port must come
+# within MBO_MARGIN points of it, of the mean at temperature 0.1.
+MBO_REFERENCE = {"poisson_mbo": 94.2572, "volume_mbo": 81.3006,
+                 "volume_mbo_t0.1": 81.3006, "laplace_wnll": 99.6459,
+                 "laplace_poisson": 99.8169, "laplace_properly": 69.9585}
+MBO_MARGIN = {"volume_mbo_t0.1": 2.0}
+# Agreement of the band fits with the plain path: the JAX package's own
+# bounds for the bf16 MBO fits (tests/test_accel.py), 0.99 for the f32
+# reweighted Laplace fits.
+MBO_AGREEMENT = {"poisson_mbo": 0.98, "volume_mbo": 0.97,
+                 "volume_mbo_t0.1": 0.97}
 # Accuracy (%) of the JAX package in float32 on the fit input below (its
 # plain path, with the FITS settings), from
 # ``JAX_PLATFORMS=cpu python3 tools/moons_reference.py --float32``.  The
@@ -146,11 +196,12 @@ REFERENCE_ACCURACY = {"laplace": 99.1957, "poisson_cg": 94.2695,
                       "peikonal": 89.6926}
 ACCURACY_MARGIN = 1.0
 ITERS_MARGIN = 0.01      # band fits' iterations against the plain path's
-# A band path's masked Laplace solve (the f32 CG to the fit's tol) against
-# scipy's f64 solve, at most this many times the plain f32 path's error.
-# The exact grade's 3xTF32 tensor-core sums measured about 10x (PERF.md);
-# 40x before their sums were rounded to nearest.
-SOLVE_MARGIN = 20.0
+# A band path's masked Laplace solve (the f32 CG to the fit's tol, d = 2)
+# against scipy's f64 solve, at most this many times the plain f32 path's
+# error.  The exact grade sums by FFMA at d <= 16, rounded to nearest; its
+# 3xTF32 tensor-core sums measured about 10x (PERF.md), 40x before they
+# were added by FADD.
+SOLVE_MARGIN = 3.0
 
 
 class SmokeFailure(RuntimeError):
@@ -323,23 +374,29 @@ def spmm_entry(torch, bs, name, label, band, plan, X, library):
     real_cells = int(plan.slab_ntiles.sum()) * plan.R * plan.WT
     nnz_band = int((band != 0).sum())
     d = X.shape[1]
-    nbytes = (real_cells * band.element_size()
-              + X.numel() * X.element_size() + out.numel() * 4
-              + (plan.slab_starts.numel() + plan.slab_ntiles.numel()
-                 + plan.block_ptr.numel()) * 4)
-    b_ms, b_by = bound(nbytes, 2 * nnz_band * d,
-                       "tf32x3" if dname == "float32" else dname)
+    ops = 2 * nnz_band * d
+    peak = "tf32x3" if dname == "float32" else dname
+    nbytes, sectors = needed_bytes(torch, bs, band, plan,
+                                   d * X.element_size())
+    nbytes += out.numel() * 4
+    b_ms, b_by = bound(nbytes, ops, peak)
+    dense_bytes = (real_cells * band.element_size()
+                   + X.numel() * X.element_size() + out.numel() * 4
+                   + (plan.slab_starts.numel() + plan.slab_ntiles.numel()
+                      + plan.block_ptr.numel()) * 4)
     t = timings(torch, run, plain, library)
     return report({
         "name": name, "variant": label, "max_abs_err": err, **t,
         "bound_ms": b_ms, "bound_by": b_by,
-        # the bound's bytes over the kernel's time, and bound / time
+        "dense_bound_ms": bound(dense_bytes, ops, peak)[0],
+        # the needed bytes over the kernel's time, and bound / time
         "gb_s": nbytes / t["ms"] * 1e-6, "bound_share": b_ms / t["ms"],
         "shapes": {"band": list(band.shape), "X": list(X.shape),
                    "slabs": int(plan.slab_block.numel()),
                    "real_tiles": int(plan.slab_ntiles.sum()),
-                   "band_nnz": nnz_band, "R": plan.R, "WT": plan.WT,
-                   "S": plan.S, "dtype": dname}})
+                   "band_nnz": nnz_band, "band_sectors": sectors,
+                   "R": plan.R, "WT": plan.WT, "S": plan.S,
+                   "dtype": dname}})
 
 
 def _real_cells(plan):
@@ -770,7 +827,7 @@ def fit_phase(torch, gl, accel, bs):
                 launches_a["materialize_band_tiles"],
                 "band_tiles_spmm_packed": launches_a["band_tiles_spmm_packed"],
                 "band_tiles_spmm": launches_b["band_tiles_spmm"]}
-    return entries, launches, (W, labels, ti,
+    return entries, launches, (W, X, labels, ti,
                                {name: pred for name, (pred, _) in plain.items()})
 
 
@@ -938,6 +995,205 @@ def distance_phase(torch, gl, accel, bs, W, labels, ti):
                                               "band_tiles_lip")}
 
 
+def mbo_fit(torch, gl, label, make, labels, ti):
+    """One timed ``fit_predict`` of an MBO phase fit, printed with its
+    seconds, rounds (PoissonMBO's T; VolumeMBO's iterations and its
+    Voronoi start's rounds; CG iterations) and path.  Returns ``(pred,
+    accuracy, model)``."""
+    from graphlearning_tpu_torch.ops import accel
+
+    m = make()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pred = m.fit_predict(ti, labels[ti])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    accuracy = gl.ssl.ssl_accuracy(pred, labels, ti)
+    if isinstance(m, gl.ssl.poisson_mbo):
+        rounds = (f"{m.T} rounds of {m.Ns} heat steps after "
+                  f"{m.poisson_model.iters} Poisson CG iterations")
+    elif isinstance(m, gl.ssl.volume_mbo):
+        rounds = (f"{m.iters} MBO iterations after a {m.voronoi_info['path']}"
+                  f" Voronoi start of {m.voronoi_info['iters']} rounds")
+    else:
+        rounds = f"{m.iters} CG iterations"
+    say(f"  {label}: accuracy {accuracy:.4f} %, {rounds}, {secs:.3f} s, "
+        f"{accel.path_name(mbo_accel(m))}")
+    return pred, accuracy, m
+
+
+def mbo_accel(m):
+    """The accel an MBO phase fit ran on (None on the plain path)."""
+    if hasattr(m, "_reweight_G"):
+        W = m._reweight_G.weight_matrix
+        cache = getattr(W, "_gltt_accel_cache", None) or {}
+        live = [a for a in cache.values() if hasattr(a, "spmm")]
+        return live[0] if live else None
+    acc = getattr(m, "_accel_mbo", getattr(m, "_accel_vmbo", None))
+    return acc if hasattr(acc, "spmm") else None
+
+
+def check_counts(label, m, pred):
+    """VolumeMBO's class counts within its bounds."""
+    counts = np.bincount(pred, minlength=len(m.class_counts))
+    vc = m.volume_constraint
+    lower = np.floor(vc * m.class_counts)
+    upper = np.ceil((2 - vc) * m.class_counts)
+    if np.any(counts < lower) or np.any(counts > upper):
+        raise SmokeFailure(f"{label}: class counts {counts.tolist()} "
+                           f"outside [{lower.tolist()}, {upper.tolist()}]")
+    say(f"  {label}: class counts {counts.tolist()} within "
+        f"[{lower.tolist()}, {upper.tolist()}]")
+
+
+def check_gumbel(torch):
+    """VolumeMBO's noise on the card, which its temperature-0.1 fit on the
+    moons cannot show (the noise there moves no label): ``volume.gumbel``
+    on a CUDA generator draws the same 2^22 values from one seed and
+    others from another, finite, with Gumbel's mean (Euler's constant)
+    within 0.01 and variance (pi^2 / 6) within 0.03, about 16 and 18 of
+    their standard errors."""
+    from graphlearning_tpu_torch.solvers import volume
+
+    def draws(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return volume.gumbel(gen, torch.float32)((1 << 22,))
+
+    a, b, c = draws(0), draws(0), draws(1)
+    if not bool(torch.isfinite(a).all()):
+        raise SmokeFailure("volume.gumbel: a non-finite draw")
+    if not torch.equal(a, b):
+        raise SmokeFailure("volume.gumbel: one seed, two different draws")
+    same = float((a == c).double().mean())
+    if same > 1e-3:
+        raise SmokeFailure(f"volume.gumbel: seeds 0 and 1 agree on {same} "
+                           "of the draws")
+    mean, var = float(a.double().mean()), float(a.double().var())
+    if (abs(mean - 0.5772156649015329) > 0.01
+            or abs(var - math.pi ** 2 / 6) > 0.03):
+        raise SmokeFailure(f"volume.gumbel: mean {mean:.5f}, variance "
+                           f"{var:.5f}, not Gumbel's 0.57722 and 1.64493")
+    say(f"  volume.gumbel on the card: seed 0 twice identical, seed 1 "
+        f"agrees on {same} of 2^22; mean {mean:.5f} (0.57722), variance "
+        f"{var:.5f} (1.64493)")
+
+
+def mbo_phase(torch, gl, accel, bs, W, X, labels, ti):
+    """Phase 4b: PoissonMBO, VolumeMBO (temperature 0, and 0.1 twice with
+    seed 0) and the reweighted Laplace fits on the moons graph through the
+    public entry points, on the band (the launch counts from 0 around
+    them) and on the plain path; then PoissonMBO and VolumeMBO on the
+    ten-cluster input through the gather and under ``GLT_NO_GATHER``; then
+    K2 bf16 at the MBO fits' shape.  Returns ``(entries, launches)``."""
+    from graphlearning_tpu_torch import bench
+
+    say("== MBO and reweighted Laplace fits (the same moons graph)")
+    t0 = time.perf_counter()
+    priors = gl.utils.class_priors(labels)
+    make = lambda name, gl=gl, W=W: (
+        lambda: MBO_FITS[name](gl, W, priors, X))
+    k2 = bs.band_tiles_spmm_packed
+    bs.reset_launches()
+    band = {}
+    for name in MBO_FITS:
+        n2 = k2.bf16_launches
+        band[name] = mbo_fit(torch, gl, f"band/{name}", make(name), labels,
+                             ti)
+        if name == "poisson_mbo":
+            m = band[name][2]
+            heat = k2.bf16_launches - n2
+            if heat < m.T * m.Ns:
+                raise SmokeFailure(f"band/poisson_mbo: {heat} K2 launches "
+                                   f"on the bf16 band, not the "
+                                   f"{m.T * m.Ns} heat steps")
+    again = mbo_fit(torch, gl, "band/volume_mbo_t0.1 (again)",
+                    make("volume_mbo_t0.1"), labels, ti)
+    launches = bs.launches()
+    # the heat steps and dual convolutions: K2 on the bf16 band, at d=2
+    k2_bf16 = k2.bf16_launches
+    say(f"  launches on the MBO band path: {launches}, of them K2 on the "
+        f"bf16 band {k2_bf16}")
+    for name in ("materialize_band_tiles", "band_tiles_minplus"):
+        if launches[name] < 1:
+            raise SmokeFailure(f"the MBO band path did not launch {name}: "
+                               f"{launches}")
+    if k2_bf16 < 1:
+        raise SmokeFailure("the MBO band path did not launch K2 on the "
+                           "bf16 band")
+    if not np.array_equal(band["volume_mbo_t0.1"][0], again[0]):
+        raise SmokeFailure("band/volume_mbo_t0.1: two fits with seed 0 "
+                           "differ")
+    say("  band/volume_mbo_t0.1: the two seed-0 fits are identical")
+    check_gumbel(torch)
+    with env("GLT_NO_ACCEL", "1"):
+        plain = {name: mbo_fit(torch, gl, f"plain/{name}", make(name),
+                               labels, ti) for name in MBO_FITS}
+    for name, (pred, _, m) in band.items():
+        ref, _, mp = plain[name]
+        acc = mbo_accel(m)
+        if not isinstance(acc, accel.AccelSpMM):
+            raise SmokeFailure(f"band/{name} ran on {accel.path_name(acc)}, "
+                               "not the band")
+        if name in MBO_AGREEMENT and acc.mode != "bf16":
+            raise SmokeFailure(f"band/{name}: a {acc.mode} band, not bf16")
+        check_agreement(f"band/{name}", pred, ref,
+                        MBO_AGREEMENT.get(name, 0.99))
+        if isinstance(m, gl.ssl.volume_mbo):
+            check_counts(f"band/{name}", m, pred)
+            check_counts(f"plain/{name}", mp, ref)
+    for path, fits in (("band", band), ("plain", plain)):
+        for name, (_, accuracy, _) in fits.items():
+            ref = MBO_REFERENCE[name]
+            margin = MBO_MARGIN.get(name, ACCURACY_MARGIN)
+            if abs(accuracy - ref) > margin:
+                raise SmokeFailure(f"{path}/{name}: accuracy {accuracy:.4f} "
+                                   f"% against JAX's {ref:.4f} % (float32), "
+                                   f"limit {margin} points")
+
+    say("== PoissonMBO and VolumeMBO on the ten-cluster input (n=70000, "
+        "20-d, k=10, one label a class)")
+    W10, y10, ti10 = bench.ten_cluster_case(70000, 10, "cuda")
+    priors10 = gl.utils.class_priors(y10)
+    make10 = lambda name: (lambda: MBO_FITS[name](gl, W10, priors10, None))
+    ten = {}
+    for name in ("poisson_mbo", "volume_mbo"):
+        ten[name] = mbo_fit(torch, gl, f"gather/{name}", make10(name), y10,
+                            ti10)
+        acc = mbo_accel(ten[name][2])
+        if not isinstance(acc, accel.GatherAccel):
+            raise SmokeFailure(f"ten clusters, {name}: maybe_build took "
+                               f"{accel.path_name(acc)}, not the gather")
+    if ten["volume_mbo"][2].voronoi_info["path"] != "gather":
+        raise SmokeFailure("ten clusters: the Voronoi start did not run the "
+                           "gather's bellman_ford")
+    with env("GLT_NO_GATHER", "1"):
+        for name in ("poisson_mbo", "volume_mbo"):
+            ref, _, mp = mbo_fit(torch, gl, f"plain/{name}", make10(name),
+                                 y10, ti10)
+            if mbo_accel(mp) is not None:
+                raise SmokeFailure(f"GLT_NO_GATHER: {name} took an accel")
+            pred, _, m = ten[name]
+            check_agreement(f"gather/{name} (ten clusters)", pred, ref,
+                            MBO_AGREEMENT[name])
+            if name == "volume_mbo":
+                check_counts("gather/volume_mbo (ten clusters)", m, pred)
+                check_counts("plain/volume_mbo (ten clusters)", mp, ref)
+    del W10
+    say(f"== the MBO phase: {time.perf_counter() - t0:.1f} s")
+
+    say("== K2 bf16 at the MBO fits' shape")
+    acc = mbo_accel(band["poisson_mbo"][2])
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    csr = permuted_csr(torch, acc)
+    Xd = torch.randn((acc.n_pad, 2), generator=gen, device="cuda")
+    entry = spmm_entry(torch, bs, "band_tiles_spmm_packed",
+                       "mbo/bfloat16/d=2", acc.band(), acc.plan,
+                       Xd.to(torch.bfloat16),
+                       lambda: torch.sparse.mm(csr, Xd))
+    entry["launches"] = k2_bf16
+    return [entry], launches
+
+
 def window_coo(torch, acc):
     """Rows, columns and weights of the in-window edges of ``acc``'s
     rectangular plan (its first kcap slots whose column lies in the row's
@@ -971,19 +1227,24 @@ def window_csr(torch, acc, coo=None):
     return torch.sparse_csr_tensor(crow, col, val, size=(n, n))
 
 
-def needed_bytes(torch, bs, band, plan, row_bytes):
+def needed_bytes(torch, bs, band, plan, row_bytes, cell_sizes=None):
     """The bytes that the function of a band kernel (K5 or K8 on a
-    ``RectPlan``'s band, K7 or K9 on a ``TilesPlan``'s) needs, whatever
-    the design reads: each 32-byte sector of ``band`` that holds a nonzero
-    cell (the card's least read) and each X (d and f, or U) row of
-    ``row_bytes`` that a nonzero cell multiplies, once.  Returns
-    ``(bytes, sectors)``."""
-    per = 32 // band.element_size()
+    ``RectPlan``'s band; K2, K10 or K11 on a ``PackedPlan``'s; K3, K7 or
+    K9 on a ``TilesPlan``'s) needs, whatever the design reads: each 32-byte
+    sector of ``band`` that holds a nonzero cell (the card's least read)
+    and each X (d and f, or U) row of ``row_bytes`` that a nonzero cell
+    multiplies, once.  ``cell_sizes``: the bytes a cell takes in each
+    plane that stores the band (K10's int8 planes, K11's bf16 and int8),
+    else ``band``'s own.  Returns ``(bytes, sectors)``."""
+    sizes = cell_sizes or (band.element_size(),)
     dev = band.device
-    if isinstance(plan, bs.TilesPlan):
-        width, pieces = plan.WT, bs._tile_chunks(plan, plan.R * plan.WT)
-        columns = lambda p0, p1: (plan.slab_starts[p0:p1, :1].long()
-                                  + torch.arange(width, device=dev))
+    if isinstance(plan, bs._SlabPlan):
+        # a slab row holds its S tiles side by side
+        width = plan.S * plan.WT
+        pieces = bs._tile_chunks(plan, plan.R * width)
+        columns = lambda p0, p1: (
+            plan.slab_starts[p0:p1, :, None].long()
+            + torch.arange(plan.WT, device=dev)).reshape(p1 - p0, width)
     else:
         width, pieces = plan.W, bs._block_chunks(plan, plan.R * plan.W)
         columns = lambda p0, p1: bs._window_index(plan, p0, p1)
@@ -992,8 +1253,9 @@ def needed_bytes(torch, bs, band, plan, row_bytes):
     for p0, p1 in pieces:
         nz = (band[p0 * plan.R:p1 * plan.R] != 0).reshape(p1 - p0, plan.R,
                                                           width)
-        sectors += int(nz.reshape(p1 - p0, plan.R, width // per, per)
-                       .any(dim=3).sum())
+        for per in (32 // e for e in sizes):
+            sectors += int(nz.reshape(p1 - p0, plan.R, width // per, per)
+                           .any(dim=3).sum())
         used[columns(p0, p1)[nz.any(dim=1)]] = True
     return sectors * 32 + int(used.sum()) * row_bytes, sectors
 
@@ -1424,14 +1686,17 @@ Q_KERNELS = ("band_tiles_spmm_packed_rowq", "band_tiles_spmm_packed_i8")
 
 def q_entry(torch, bs, label, kind, band, plan, X, csr):
     """K10 (``kind`` rowq2 / rowq1) or K11 (i8) against its twin on the
-    bench's packed plan, within 1e-5 of max|ref|.  The bound: the real
-    cells at 1, 2 or 3 bytes, X once, ``out``, ``srow`` and the plan;
-    ``2 nnz d`` operations on the bf16 tensor cores (rowq1), a third of
-    the TF32 tensor cores' rate for the exact grade (3xTF32)."""
+    bench's packed plan, within 1e-5 of max|ref|.  The bound: the bytes
+    the function needs (:func:`needed_bytes`, each plane's sectors holding
+    a nonzero cell), ``out`` and ``srow``; ``2 nnz d`` operations on the
+    bf16 tensor cores (rowq1), a third of the TF32 tensor cores' rate for
+    the exact grade (3xTF32).  ``dense_bound_ms``: the real tiles' cells
+    at 1, 2 or 3 bytes, X once, ``out``, ``srow`` and the plan."""
     X32 = X
     if kind == "i8":
         hi, q = bs.quantize_band_i8(band)
         name, cell, grade = "band_tiles_spmm_packed_i8", 3, "tf32x3"
+        sizes = (2, 1)
         run = lambda: bs.band_tiles_spmm_packed_i8(hi, q, plan, X)
         plain = lambda: bs._tiles_spmm_i8_plain(hi, q, plan, X)
         srow_bytes = 0
@@ -1440,6 +1705,7 @@ def q_entry(torch, bs, label, kind, band, plan, X, csr):
         qband, srow = bs.quantize_band_rowq(band, plan, plan.n, planes)
         Xk = X if planes == 2 else X.to(torch.bfloat16)
         name, cell = "band_tiles_spmm_packed_rowq", planes
+        sizes = (1,) * planes
         grade = "tf32x3" if planes == 2 else "bfloat16"
         run = lambda: bs.band_tiles_spmm_packed_rowq(
             qband, srow, plan, Xk, planes)
@@ -1452,22 +1718,29 @@ def q_entry(torch, bs, label, kind, band, plan, X, csr):
     err = compare(label, out, plain(), TOL["float32"])
     nnz_band = int((band != 0).sum())
     d = X.shape[1]
-    nbytes = (int(plan.slab_ntiles.sum()) * plan.R * plan.WT * cell
-              + X.numel() * X.element_size() + out.numel() * 4 + srow_bytes
-              + (plan.slab_starts.numel() + plan.slab_ntiles.numel()
-                 + plan.block_ptr.numel()) * 4)
-    b_ms, b_by = bound(nbytes, 2 * nnz_band * d, grade)
+    ops = 2 * nnz_band * d
+    nbytes, sectors = needed_bytes(torch, bs, band, plan,
+                                   d * X.element_size(), sizes)
+    nbytes += out.numel() * 4 + srow_bytes
+    b_ms, b_by = bound(nbytes, ops, grade)
+    dense_bytes = (int(plan.slab_ntiles.sum()) * plan.R * plan.WT * cell
+                   + X.numel() * X.element_size() + out.numel() * 4
+                   + srow_bytes
+                   + (plan.slab_starts.numel() + plan.slab_ntiles.numel()
+                      + plan.block_ptr.numel()) * 4)
     t = timings(torch, run, plain, lambda: torch.sparse.mm(csr, X32))
     return report({
         "name": name, "variant": label, "max_abs_err": err, **t,
         "bound_ms": b_ms, "bound_by": b_by,
+        "dense_bound_ms": bound(dense_bytes, ops, grade)[0],
         "library": "torch.sparse.mm, permuted f32 CSR",
-        # the bound's bytes over the kernel's time, and bound / time
+        # the needed bytes over the kernel's time, and bound / time
         "gb_s": nbytes / t["ms"] * 1e-6, "bound_share": b_ms / t["ms"],
         "shapes": {"band": list(band.shape), "X": list(X.shape),
                    "slabs": int(plan.slab_block.numel()),
                    "real_tiles": int(plan.slab_ntiles.sum()),
-                   "band_nnz": nnz_band, "R": plan.R, "WT": plan.WT,
+                   "band_nnz": nnz_band, "band_sectors": sectors,
+                   "R": plan.R, "WT": plan.WT,
                    "S": plan.S, "bytes_per_cell": cell, "peak": grade,
                    "cta_rows": (bs._TILES_QROWS
                                 if plan.R % bs._TILES_QROWS == 0
@@ -1629,21 +1902,23 @@ def main():
 
     t0 = time.perf_counter()
     entries = kernel_phase(torch, accel, bs)
-    fit_entries, launches, (W, labels, ti, plain_pred) = fit_phase(
+    fit_entries, launches, (W, X, labels, ti, plain_pred) = fit_phase(
         torch, gl, accel, bs)
     dist_entries, dist_launches = distance_phase(torch, gl, accel, bs, W,
                                                  labels, ti)
     launches.update(dist_launches)
+    mbo_entries, _ = mbo_phase(torch, gl, accel, bs, W, X, labels, ti)
     rect_entries, rect_launches = rect_phase(torch, gl, accel, bs, W, labels,
                                              ti, plain_pred)
     launches.update(rect_launches)
     say(f"== phases 2-5: {time.perf_counter() - t0:.1f} s")
     bench_entries, bench_launches = bench_phase(torch, accel, bs)
     launches.update(bench_launches)
-    entries = (fit_entries + dist_entries + rect_entries + bench_entries
-               + entries)
+    entries = (fit_entries + dist_entries + mbo_entries + rect_entries
+               + bench_entries + entries)
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        # an entry of the MBO phase carries that phase's count
+        e.setdefault("launches", launches[e["name"]])
         e["route"] = "cuda"
         e["source"] = CU_FILE[e["name"]]
         e["replaces"] = REPLACES[e["name"]]

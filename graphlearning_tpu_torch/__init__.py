@@ -13,7 +13,12 @@ default (see :mod:`config`).  Ported so far:
   ``amle`` and ``ssl.graph_nearest_neighbor`` / ``ssl.plaplace`` /
   ``ssl.amle`` / ``ssl.peikonal`` (``solvers/eikonal.py``,
   ``solvers/plaplace.py``), on the band's min-plus and Lipschitz kernels
-  where it applies.
+  where it applies;
+* the low-label-rate models: ``ssl.poisson_mbo``, ``ssl.volume_mbo``
+  (``solvers/volume.py``, with ``utils.class_priors``) and the
+  reweighted Laplace fits, ``ssl.laplace(reweighting=...)`` over
+  ``graph.reweight``, on the bf16 band or the segmented gather where
+  ``ops.accel.maybe_build`` takes one.
 
     import graphlearning_tpu_torch as gl
     W = gl.weightmatrix.knn(X, 10)

@@ -412,6 +412,18 @@ def _cg_tol_kw():
             else "tol")
 
 
+def ten_cluster_case(n: int, k: int, dev):
+    """The Poisson bench's input: a 20-d mixture of ten unit gaussians
+    (seeded), its kNN graph on ``dev`` and one label a class.  Returns
+    ``(W, labels, train_ind)``."""
+    rs = np.random.RandomState(0)
+    centers = rs.randn(10, 20)
+    labels = rs.randint(0, 10, n)
+    pts = centers[labels] + rs.randn(n, 20)
+    W = weightmatrix.knn(pts, k, device=dev)
+    return W, labels, trainsets.generate(labels, rate=1, seed=0)
+
+
 def poisson_bench(cfg, dev) -> dict:
     """Seconds of a warm ``ssl.poisson(W).fit_predict`` on a 20-d
     ten-cluster kNN graph with one label a class, beside the reference's
@@ -421,12 +433,7 @@ def poisson_bench(cfg, dev) -> dict:
 
     n, k = cfg["n"], cfg["k"]
     ncls = 10
-    rs = np.random.RandomState(0)
-    centers = rs.randn(ncls, 20)
-    labels = rs.randint(0, ncls, n)
-    pts = centers[labels] + rs.randn(n, 20)
-    W = weightmatrix.knn(pts, k, device=dev)
-    train_ind = trainsets.generate(labels, rate=1, seed=0)
+    W, labels, train_ind = ten_cluster_case(n, k, dev)
 
     model = ssl.poisson(W, device=dev)
     model.fit_predict(train_ind, labels[train_ind])      # plan + warm

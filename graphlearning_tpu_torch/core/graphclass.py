@@ -1,5 +1,5 @@
 """``graph``: user-facing graph object (counterpart of
-``graphlearning_tpu/core/graphclass.py:24-233,369-497``).  The graph lives
+``graphlearning_tpu/core/graphclass.py:24-283,369-497``).  The graph lives
 on a device as a padded-ELL :class:`SparseGraph`; the scipy matrix is kept
 for interop and for the caches attached to it.  The distance and
 Lipschitz methods run on the band (:mod:`ops.accel`) where it applies."""
@@ -151,6 +151,61 @@ class graph:
         u = torch.as_tensor(np.asarray(u), device=self.device).to(
             self.g.vals.dtype)
         return _ops.infinity_laplacian(self.g, u).cpu().numpy()
+
+    # -- reweighting ---------------------------------------------------------
+
+    def reweight(self, idx, method="poisson", normalization="combinatorial",
+                 tau=0, X=None, alpha=2, zeta=1e7, r=0.1):
+        """The low-label-rate reweighting of the labeled nodes ``idx``: a
+        new scipy weight matrix.  "poisson": ``D W D`` with ``D`` the
+        Poisson solution of a unit source at the labels (CG on the
+        graph's device), shifted positive; "wnll": ``D W + W D`` with
+        ``D = n / |idx|`` at the labels, 1 elsewhere; "properly": ``D W +
+        W D`` with ``D = 1 + (r / dist)^alpha``, ``dist`` the distance of
+        each point of ``X`` to the nearest labeled one (scipy's
+        ``cKDTree``), at least ``r / (zeta - 1)^(1/alpha)``.  ``tau`` is
+        accepted and unused, as in the JAX package."""
+        from graphlearning_tpu_torch.solvers.cg import conjgrad
+
+        n = self.num_nodes
+        idx = np.asarray(idx)
+        if method == "poisson":
+            f = np.zeros(n)
+            f[idx] = 1.0
+            if normalization == "combinatorial":
+                f = f - np.mean(f)
+            elif normalization == "normalized":
+                ds = np.sqrt(self.degree_vector())
+                f = f - np.sum(ds * f) / np.sum(ds)
+            else:
+                raise ValueError(f"unsupported normalization {normalization}")
+            matvec, _ = self.laplacian_op(normalization)
+            w, _, _ = conjgrad(matvec, torch.as_tensor(
+                f, device=self.device).to(config.float_dtype(self.device)),
+                tol=1e-5, max_iter=10**5)
+            w = w.cpu().numpy().astype(float)
+            w = w - np.min(w) + 1e-5
+            D = sp.spdiags(w, 0, n, n).tocsr()
+            return D @ self.weight_matrix @ D
+        if method == "wnll":
+            a = np.ones(n)
+            a[idx] = n / len(idx)
+            D = sp.spdiags(a, 0, n, n).tocsr()
+            W = self.weight_matrix
+            return D @ W + W @ D
+        if method == "properly":
+            if X is None:
+                raise ValueError("properly reweighting requires features X")
+            from scipy import spatial
+
+            rzeta = r / (zeta - 1) ** (1 / alpha)
+            D, _ = spatial.cKDTree(X[idx, :]).query(X)
+            D[D < rzeta] = rzeta
+            gamma = 1 + (r / D) ** alpha
+            Dg = sp.spdiags(gamma, 0, n, n).tocsr()
+            W = self.weight_matrix
+            return Dg @ W + W @ Dg
+        raise ValueError(f"invalid reweighting method {method}")
 
     # -- distance and Lipschitz solvers ---------------------------------
 

@@ -95,10 +95,27 @@
 //   tiles are summed in shared memory before one store.
 //   Each output element is written once: no atomics, no zeroing pass, a
 //   deterministic result.
+// - FFMA consumer: the exact F32 format at d <= FMA_DMAX (K2, K3, K5 at a
+//   fit's class count) sums on the FFMA pipe, a template parameter as the
+//   K5 producer is.  There the tensor cores buy nothing (an m16n8k8
+//   fragment pads d = 2 to 8 columns) and their sums round toward zero
+//   where one k slice of a row holds several cells: the fit's masked
+//   Laplace solve ended 10x further from the f64 solution than the plain
+//   f32 path's (PERF.md).  FFMA rounds each sum to nearest.  A thread owns
+//   one row of the CTA and a quarter of each chunk's columns, so every
+//   output is summed in column order by one thread, then its four
+//   quarters in order: the twin's order of error.  A warp's 32 rows read
+//   their band cells as float4 (the 272-byte rows put a quarter warp on
+//   distinct banks) and the X rows as broadcasts; a 32-row x 4-column
+//   block with no nonzero cell costs its load and one vote.  At d <= 16 a
+//   64 x 64 chunk is at most 65536 FMAs over 256 threads, under the time
+//   its 16 KB take to arrive: the product stays bound by the band's bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -106,6 +123,7 @@ constexpr int ROWS = 64;      // output rows per CTA of K2/K3/K5
 constexpr int QROWS = 128;    // ... of K10/K11 where R is a multiple of it
 constexpr int KC = 64;        // band columns per ring stage
 constexpr int DMAX = 128;     // widest d that one launch covers
+constexpr int FMA_DMAX = 16;  // widest d of the exact grade's FFMA consumer
 constexpr int NSTAGE = 4;     // ring stages, fewer where they do not fit
 constexpr int WIN_ALIGN = 8;  // K5 window starts are multiples of it
 // ... so a chunk's X rows start on 16 bytes at any d, bf16 at d=1 too
@@ -191,6 +209,34 @@ struct Geo {
   static_assert(NST >= 2 && SMEM <= SMEM_MAX, "shared memory");
   static_assert(A_BYTES % 16 == 0 && STAGE % 16 == 0, "16-byte stages");
 };
+
+// The FFMA consumer's layout (F32, d <= FMA_DMAX padded to DN): 8 warps,
+// warp w on rows [(w % WM) * 32, + 32), one row a lane, and the KW chunk
+// columns [(w / WM) * KW, + KW); their WK partial sums per output are added
+// in shared memory as the MMA warps' are.
+template <int RW, int DN>
+struct GeoF {
+  static constexpr int NW = 8;
+  static constexpr int THREADS = NW * 32;
+  static constexpr int WM = RW / 32;
+  static constexpr int WK = NW / WM;
+  static constexpr int KW = KC / WK;
+  static constexpr int A_BYTES = RW * Fm<F32>::L0;
+  static constexpr int STAGE = A_BYTES + KC * DN * 4;
+  static constexpr int NST =
+      SMEM_MAX / STAGE < NSTAGE ? SMEM_MAX / STAGE : NSTAGE;
+  static constexpr int RING = NST * STAGE;
+  static constexpr int RED = WK * RW * DN * 4;
+  static constexpr int SMEM = RING > RED ? RING : RED;
+  static constexpr int OCC = 2 * (SMEM + 1024) <= SMEM_SM ? 2 : 1;
+  static_assert(WM * WK == NW && KW % 4 == 0 && DN <= FMA_DMAX,
+                "FFMA layout");
+  static_assert(NST >= 2 && SMEM <= SMEM_MAX, "shared memory");
+  static_assert(A_BYTES % 16 == 0 && STAGE % 16 == 0, "16-byte stages");
+};
+
+template <int F, int RW, int DN, bool FFMA>
+using GeoOf = std::conditional_t<FFMA, GeoF<RW, DN>, Geo<F, RW, DN>>;
 
 __device__ __forceinline__ void cp16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -431,6 +477,34 @@ __device__ __forceinline__ void mma_chunk(
   }
 }
 
+// One staged F32 chunk into a thread's FFMA sums: its row's cells at
+// columns [k_lo, + KW) times those X rows, all DN columns (the columns past
+// dc read the next X rows or stale stage bytes and are never stored).
+template <int RW, int DN>
+__device__ __forceinline__ void ffma_chunk(const unsigned char* stage,
+                                           int row, int k_lo, int dc,
+                                           float (&acc)[DN]) {
+  using G = GeoF<RW, DN>;
+  const float* a =
+      reinterpret_cast<const float*>(stage) + row * (Fm<F32>::L0 / 4) + k_lo;
+  const float* Xs =
+      reinterpret_cast<const float*>(stage + G::A_BYTES) + k_lo * dc;
+#pragma unroll
+  for (int j = 0; j < G::KW; j += 4) {
+    const float4 c4 = *reinterpret_cast<const float4*>(a + j);
+    if (!__any_sync(0xffffffffu, c4.x != 0.f || c4.y != 0.f ||
+                                     c4.z != 0.f || c4.w != 0.f))
+      continue;
+    const float cell[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* x = Xs + (j + q) * dc;
+#pragma unroll
+      for (int c = 0; c < DN; ++c) acc[c] = fmaf(cell[q], x[c], acc[c]);
+    }
+  }
+}
+
 // RW rows of a plane's KC-column chunk, 16-byte pieces, into rows of L
 // bytes
 template <int RW, int B, int L, int THREADS>
@@ -467,23 +541,21 @@ struct Args {
   const int* winstart;
 };
 
-// RECT: the producer walks the live-chunk list (K5), else the slabs; a
-// template parameter, so the tiled formats compile as they were
-template <int F, int RW, int DN, bool RECT>
-__global__ void __launch_bounds__(Geo<F, RW, DN>::THREADS,
-                                  Geo<F, RW, DN>::OCC)
+// RECT: the producer walks the live-chunk list (K5), else the slabs; FFMA:
+// the FFMA consumer (F32 only), else the MMAs.  Both template parameters,
+// so each instantiation compiles as it would alone.
+template <int F, int RW, int DN, bool RECT, bool FFMA>
+__global__ void __launch_bounds__(GeoOf<F, RW, DN, FFMA>::THREADS,
+                                  GeoOf<F, RW, DN, FFMA>::OCC)
     tiles_spmm_kernel(const Args args) {
-  using G = Geo<F, RW, DN>;
+  using G = GeoOf<F, RW, DN, FFMA>;
   using M = Fm<F>;
   using XT = typename M::X;
+  static_assert(!FFMA || F == F32, "the FFMA consumer is F32's");
   extern __shared__ __align__(16) unsigned char smem[];
   const int R = args.R, S = args.S, WT = args.WT, dc = args.dc;
   const int* __restrict__ slab_ntiles = args.slab_ntiles;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wk = warp % G::WK;
-  const int wn = (warp / G::WK) % G::WN;
-  const int wm = warp / (G::WK * G::WN);
   const int groups = R / RW;
   const long long b = blockIdx.x / groups;
   const int rg = (int)(blockIdx.x - b * groups);
@@ -542,38 +614,63 @@ __global__ void __launch_bounds__(Geo<F, RW, DN>::THREADS,
     cp_commit();  // an empty group past the end keeps the count uniform
   };
 
-  float acc[G::MT][G::NT][4];
-#pragma unroll
-  for (int mt = 0; mt < G::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < G::NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < G::NST - 1; ++s) issue(s);
-  for (int i = 0; i < total; ++i) {
-    cp_wait<G::NST - 2>();  // chunk i has landed (this thread's copies)
-    __syncthreads();        // ... everyone's; chunk i - 1's stage is free
-    issue((i + G::NST - 1) % G::NST);
-    mma_chunk<F, RW, DN>(smem + (i % G::NST) * G::STAGE, dc, wm, wn, wk, g,
-                         t, acc);
-  }
-  cp_wait<0>();
-  __syncthreads();  // the ring is free: it holds the partial tiles now
-
   float* red = reinterpret_cast<float*>(smem);
+  if constexpr (FFMA) {
+    const int row = (warp % G::WM) * 32 + lane, kg = warp / G::WM;
+    float acc[DN];
 #pragma unroll
-  for (int mt = 0; mt < G::MT; ++mt) {
-    const int row = (wm * G::MT + mt) * 16 + g;
+    for (int c = 0; c < DN; ++c) acc[c] = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < G::NT; ++nt) {
-      const int col = wn * 32 + nt * 8 + 2 * t;
-      float* p = red + ((long long)wk * RW + row) * DN + col;
-      *reinterpret_cast<float2*>(p) =
-          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<float2*>(p + 8 * DN) =
-          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    for (int s = 0; s < G::NST - 1; ++s) issue(s);
+    for (int i = 0; i < total; ++i) {
+      cp_wait<G::NST - 2>();
+      __syncthreads();
+      issue((i + G::NST - 1) % G::NST);
+      ffma_chunk<RW, DN>(smem + (i % G::NST) * G::STAGE, row, kg * G::KW, dc,
+                         acc);
+    }
+    cp_wait<0>();
+    __syncthreads();
+    float* p = red + ((long long)kg * RW + row) * DN;
+#pragma unroll
+    for (int c = 0; c < DN; ++c) p[c] = acc[c];
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+    const int wk = warp % G::WK;
+    const int wn = (warp / G::WK) % G::WN;
+    const int wm = warp / (G::WK * G::WN);
+    float acc[G::MT][G::NT][4];
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < G::NST - 1; ++s) issue(s);
+    for (int i = 0; i < total; ++i) {
+      cp_wait<G::NST - 2>();  // chunk i has landed (this thread's copies)
+      __syncthreads();        // ... everyone's; chunk i - 1's stage is free
+      issue((i + G::NST - 1) % G::NST);
+      mma_chunk<F, RW, DN>(smem + (i % G::NST) * G::STAGE, dc, wm, wn, wk,
+                           g, t, acc);
+    }
+    cp_wait<0>();
+    __syncthreads();  // the ring is free: it holds the partial tiles now
+
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+      const int row = (wm * G::MT + mt) * 16 + g;
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) {
+        const int col = wn * 32 + nt * 8 + 2 * t;
+        float* p = red + ((long long)wk * RW + row) * DN + col;
+        *reinterpret_cast<float2*>(p) =
+            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<float2*>(p + 8 * DN) =
+            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      }
     }
   }
   __syncthreads();
@@ -590,16 +687,16 @@ __global__ void __launch_bounds__(Geo<F, RW, DN>::THREADS,
   }
 }
 
-template <int F, int RW, int DN, bool RECT>
+template <int F, int RW, int DN, bool RECT, bool FFMA = false>
 int launch(const Args& a, cudaStream_t s) {
-  using G = Geo<F, RW, DN>;
+  using G = GeoOf<F, RW, DN, FFMA>;
   const long long ctas = a.nblocks * (a.R / RW);
   if (ctas == 0) return (int)cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
-      tiles_spmm_kernel<F, RW, DN, RECT>,
+      tiles_spmm_kernel<F, RW, DN, RECT, FFMA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (e != cudaSuccess) return (int)e;
-  tiles_spmm_kernel<F, RW, DN, RECT>
+  tiles_spmm_kernel<F, RW, DN, RECT, FFMA>
       <<<(unsigned int)ctas, G::THREADS, G::SMEM, s>>>(a);
   return (int)cudaGetLastError();
 }
@@ -618,11 +715,20 @@ bool bad_geometry(const Args& a) {
   return a.dc < 1 || a.dc > DMAX || a.R % ROWS || a.WT % KC || a.ldo < a.dc;
 }
 
+// The consumer follows d: F32 at d <= FMA_DMAX sums by FFMA (d padded to
+// 2, 4, 8 or 16 columns), everything else on the tensor cores.
 template <int F, bool RECT = false>
 int launch_dn(const Args& a, cudaStream_t s) {
   if (bad_geometry(a)) return (int)cudaErrorInvalidValue;
-  if (a.dc <= 8) return launch_rows<F, 8, RECT>(a, s);
-  if (a.dc <= 16) return launch_rows<F, 16, RECT>(a, s);
+  if constexpr (F == F32) {
+    if (a.dc <= 2) return launch<F32, ROWS, 2, RECT, true>(a, s);
+    if (a.dc <= 4) return launch<F32, ROWS, 4, RECT, true>(a, s);
+    if (a.dc <= 8) return launch<F32, ROWS, 8, RECT, true>(a, s);
+    if (a.dc <= FMA_DMAX) return launch<F32, ROWS, 16, RECT, true>(a, s);
+  } else {
+    if (a.dc <= 8) return launch_rows<F, 8, RECT>(a, s);
+    if (a.dc <= 16) return launch_rows<F, 16, RECT>(a, s);
+  }
   if (a.dc <= 32) return launch_rows<F, 32, RECT>(a, s);
   if (a.dc <= 64) return launch_rows<F, 64, RECT>(a, s);
   return launch_rows<F, 128, RECT>(a, s);

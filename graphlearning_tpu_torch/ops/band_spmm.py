@@ -465,6 +465,7 @@ _TILES_ROWS = 64       # output rows per CTA (K2, K3, K5; K10/K11 at least)
 _TILES_QROWS = 128     # ... of K10/K11 where R is a multiple of it
 _TILES_KC = 64         # band columns per ring stage
 _TILES_DMAX = 128      # widest d of one launch
+_TILES_FMA_DMAX = 16   # K2/K3/K5 f32 up to this d sum by FFMA (FMA_DMAX)
 _RECT_WIN_ALIGN = 8    # K5/K8 window starts: whole 16-byte pieces of X
 
 
@@ -678,8 +679,10 @@ def band_tiles_spmm_packed(band, plan: PackedPlan, X):
     ``mma.sync``, or 3xTF32 for the exact f32 mode), splits each chunk's K
     slices across its warps and sums their partial tiles in shared memory
     before one store (no atomics, so the zeroing flag of the TPU kernel is
-    implicit).  Pad tiles and all-zero band fragments are skipped.  d is not
-    padded in memory (the TPU padded it to its 128 lanes).  Modes: an f32
+    implicit).  The exact f32 mode at d <= ``_TILES_FMA_DMAX`` (a fit's
+    class count) sums by FFMA instead, rounded to nearest: one row and a
+    quarter of each chunk a thread.  Pad tiles and all-zero band fragments
+    are skipped.  d is not padded in memory (the TPU padded it to its 128 lanes).  Modes: an f32
     band with f32 X computes f32 to about 2^-21 (the TPU's f32 and bf16x3);
     a bf16 band with bf16 X multiplies exactly and sums in f32 (the TPU's
     bf16).  ``band`` and ``X`` must start on 16-byte boundaries; R must be a
@@ -693,10 +696,13 @@ def band_tiles_spmm_packed(band, plan: PackedPlan, X):
     out, n_launch = _tiles_spmm_cuda("band_tiles_spmm_packed", band, plan,
                                      X)
     band_tiles_spmm_packed.launches += n_launch
+    if band.dtype == torch.bfloat16:
+        band_tiles_spmm_packed.bf16_launches += n_launch
     return out
 
 
 band_tiles_spmm_packed.launches = 0
+band_tiles_spmm_packed.bf16_launches = 0  # of them, on a bf16 band
 
 
 def band_tiles_spmm(band, plan: TilesPlan, X):
@@ -716,10 +722,13 @@ def band_tiles_spmm(band, plan: TilesPlan, X):
         return _tiles_spmm_plain(band, plan, X)
     out, n_launch = _tiles_spmm_cuda("band_tiles_spmm", band, plan, X)
     band_tiles_spmm.launches += n_launch
+    if band.dtype == torch.bfloat16:
+        band_tiles_spmm.bf16_launches += n_launch
     return out
 
 
 band_tiles_spmm.launches = 0
+band_tiles_spmm.bf16_launches = 0  # of them, on a bf16 band
 
 
 # -- K10 and K11: quantized packed bands -----------------------------------------
@@ -1516,8 +1525,8 @@ def band_spmm(band, plan: RectPlan, X, chunks=None):
     only its 64 x 64 chunks that hold a nonzero cell (16 % on the smoke's
     band) are read.  K2's tensor-core CTA with a second producer: 64 rows
     of one block a CTA, its live chunks and their X rows through the
-    ``cp.async`` ring, bf16 ``mma.sync`` or 3xTF32, all-zero fragments
-    skipped, one store per output (the TPU's zeroing step is implicit); d
+    ``cp.async`` ring, bf16 ``mma.sync`` or 3xTF32 (FFMA for f32 at d <=
+    ``_TILES_FMA_DMAX``), all-zero fragments skipped, one store per output (the TPU's zeroing step is implicit); d
     up to 128 a launch, wider X in 128-column launches.  Modes as K2: an
     f32 band with f32 X computes f32 to about 2^-21 (the TPU's f32 and
     bf16x3); a bf16 band with bf16 X multiplies exactly and sums in f32.
@@ -1730,6 +1739,8 @@ KERNELS = {
 def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "bf16_launches"):
+            fn.bf16_launches = 0
 
 
 def launches() -> dict:

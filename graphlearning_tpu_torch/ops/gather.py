@@ -16,7 +16,8 @@ gathers its X rows in chunks of rows, bounded by ``_GATHER_CELLS``
 elements (one ``(rows, kcap, d)`` take of a whole segment reaches
 gigabytes at n = 262144, d = 128), and sums them against the slot
 weights.  :class:`GatherAccel` adds the solver entries the ported fits
-call on an accel.
+call on an accel, and the segmented min-plus relaxation of the distance
+solvers (:meth:`GatherAccel.bellman_ford`).
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ import scipy.sparse as sp
 import torch
 
 from graphlearning_tpu_torch import config
+from graphlearning_tpu_torch.ops.band_spmm import MINPLUS_BIG
 from graphlearning_tpu_torch.ops.solver_entries import SpmmSolvers
+from graphlearning_tpu_torch.solvers.eikonal import _fixed_point, _slot_min
 
 # Segment kcap boundaries: a segment pads its rows at most to the next
 # boundary (<= 33 % here); degree-0 rows fold into the first.
@@ -146,15 +149,17 @@ class GatherSpMM:
 class GatherAccel(GatherSpMM, SpmmSolvers):
     """The accel of a band-hostile graph: :class:`GatherSpMM` with the
     solver entries that the ported fits call on an accel (``cg_scaled``,
-    ``laplace_constrained``, ``poisson_gd``, ``to_perm`` / ``from_perm``).
-    It stores no band, so the callers' band gates (``materialize``,
-    ``rect_band_ok()``) send the distance and Lipschitz solvers to their
-    plain path.  The JAX class's ``heat_steps``, ``poisson_mbo``,
-    ``dual_conv_labels``, ``volume_mbo``, ``incres``, ``centered_kernel``,
-    ``eig_normalized`` and ``bellman_ford`` wait for the fits that call
-    them."""
+    ``laplace_constrained``, ``poisson_gd``, ``heat_steps``,
+    ``dual_conv_labels``, ``poisson_mbo``, ``volume_mbo``, ``to_perm`` /
+    ``from_perm``) and :meth:`bellman_ford`, which the distance solvers
+    take (``supports_bellman_ford``): VolumeMBO's Voronoi start is its
+    caller.  It stores no band, so the Lipschitz solvers' band gates
+    (``materialize``, ``rect_band_ok()``) send them to their plain path.
+    The JAX class's ``incres``, ``centered_kernel`` and
+    ``eig_normalized`` wait for the fits that call them."""
 
     materialize = False
+    supports_bellman_ford = True
     n_resid = 0
 
     def __init__(self, W, prec: str = "f32", device=None):
@@ -168,3 +173,41 @@ class GatherAccel(GatherSpMM, SpmmSolvers):
 
     def rect_band_bytes(self) -> int:
         return 0
+
+    def bellman_ford(self, d0, f, hopf_lax: bool = False,
+                     recip: bool = False, max_iter: int = 10**6):
+        """Min-plus Bellman-Ford to the Dijkstra (or Hopf-Lax) fixed point
+        on the segments, carrying each node's closest seed, in f32 as in
+        the JAX package: each round takes every row's least candidate
+        ``d_j + w f_j`` over its slots (the first slot on ties).  ``d0``
+        holds the seeds' values and ``MINPLUS_BIG`` elsewhere.  Takes and
+        returns original-order arrays: ``(d, cp, rounds)``, ``cp`` original
+        ids, -1 where unreached."""
+        dev, f32 = self.device, torch.float32
+        big = torch.tensor(MINPLUS_BIG, dtype=f32, device=dev)
+        d0 = torch.as_tensor(np.asarray(d0), device=dev).to(f32)
+        cp0 = torch.where(d0 < MINPLUS_BIG * 0.5,
+                          torch.arange(self.n, device=dev), -1)
+        f_p = self.to_perm(torch.as_tensor(np.asarray(f), device=dev).to(f32))
+        segs = []
+        for c, v in zip(self.cols, self.vals):
+            v = v.to(f32)
+            w = torch.where(v > 0, 1.0 / torch.where(v == 0, 1.0, v), 0.0) \
+                if recip else v
+            segs.append((c, v > 0, w * f_p[c]))
+
+        def relax(state):
+            d, cp = state
+            best, arg = [], []
+            for c, edge, fw in segs:
+                b, s = _slot_min(d[c], fw, edge, big, hopf_lax)
+                best.append(b)
+                arg.append(torch.gather(c, 1, s[:, None])[:, 0])
+            best, arg = torch.cat(best), torch.cat(arg)
+            upd = best < d
+            return ((torch.where(upd, best, d),
+                     torch.where(upd, cp[arg], cp)), upd.any())
+
+        (d, cp), rounds = _fixed_point(
+            relax, (self.to_perm(d0), self.to_perm(cp0)), max_iter)
+        return self.from_perm(d), self.from_perm(cp), rounds

@@ -1,8 +1,10 @@
 """The solver entries of an SpMM operator in its permuted space.
 
 :class:`SpmmSolvers` holds the CG, constrained-Laplace and Poisson
-gradient-descent loops that the fits call on an accel, written once in
-terms of the operator's ``spmm``: the band operator
+gradient-descent loops, and the heat steps, dual convolution and MBO loops
+of PoissonMBO and VolumeMBO, that the fits call on an accel, written once
+in terms of the operator's ``spmm`` and ``to_perm`` / ``from_perm``: the
+band operator
 (:class:`~graphlearning_tpu_torch.ops.accel.AccelSpMM`) and the gather
 operator (:class:`~graphlearning_tpu_torch.ops.gather.GatherAccel`) both
 take them, as the JAX package's ``accel.py`` and ``gather.py`` each carry
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from graphlearning_tpu_torch.solvers import cg as _cg
+from graphlearning_tpu_torch.solvers import volume as _volume
 
 
 class SpmmSolvers:
@@ -84,3 +87,41 @@ class SpmmSolvers:
             U = torch.cat([u, (dinv * WU[:, kcls])[:, None]], dim=1)
             T += 1
         return U[:, :kcls], T
+
+    # -- PoissonMBO and VolumeMBO ------------------------------------------
+
+    def heat_steps(self, deg_p, u_p, Db_p, dt, Ns: int):
+        """``Ns`` heat-equation steps ``u <- u - dt (D u - W u) + Db`` in
+        permuted space (PoissonMBO's diffusion)."""
+        for _ in range(int(Ns)):
+            u_p = u_p - dt * (deg_p[:, None] * u_p - self.spmm(u_p)) + Db_p
+        return u_p
+
+    def dual_conv_labels(self, dinv_p, labels, k: int):
+        """VolumeMBO's dual convolution ``D^-1 W D^-1 W onehot(labels)``:
+        ``labels`` (n,) in original order, the affinities (n, k) too.
+        Padding rows of the permuted space hold zeros."""
+        U = _volume._onehot(labels, int(k), dinv_p.dtype)
+        a = dinv_p[:, None] * self.spmm(self.to_perm(U))
+        return self.from_perm(dinv_p[:, None] * self.spmm(a))
+
+    def poisson_mbo(self, deg_p, Db_p, u0, w0, priors, dt, Ns: int, T: int):
+        """PoissonMBO's T rounds (:func:`volume.poisson_mbo_loop`): the heat
+        steps in permuted space, the projection and threshold in original
+        order, so padding rows stay zero and out of the class sizes.
+        ``u0`` (n, k) in original order.  Returns ``(u, w, err)``."""
+        def heat(u):
+            return self.from_perm(self.heat_steps(deg_p, self.to_perm(u),
+                                                  Db_p, dt, Ns))
+
+        return _volume.poisson_mbo_loop(heat, u0, w0, priors, T)
+
+    def volume_mbo(self, dinv_p, labels0, fixed_mask, fixed_labels, lower,
+                   upper, temp, draw, k: int, max_iters: int):
+        """VolumeMBO's fixed point (:func:`volume.mbo_loop`) on
+        :meth:`dual_conv_labels`, labels in original order; ``draw`` gives
+        the noise.  Returns ``(labels, iters)``."""
+        return _volume.mbo_loop(
+            lambda labels: self.dual_conv_labels(dinv_p, labels, k), labels0,
+            fixed_mask, fixed_labels, lower, upper, temp, draw,
+            n_true=int(self.n), max_iters=int(max_iters))

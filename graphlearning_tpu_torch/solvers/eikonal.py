@@ -5,7 +5,9 @@
   node relaxes in parallel each round, ``d_j <- min(d_j, min_i update(d_i,
   w_ij, f_i))``, to the Dijkstra fixed point.  On a band-friendly graph
   the round streams the tiled band (:meth:`AccelSpMM.bellman_ford`, kernel
-  K7); otherwise it is a gather over the padded ELL.
+  K7); given a ``GatherAccel`` (VolumeMBO's Voronoi start on a
+  band-hostile graph) it runs on the gather's degree segments; otherwise
+  it is a gather over the padded ELL.
 * The p-eikonal equation ``sum_j w_ij (u_i - u_j)_+^p = f_i`` by Jacobi
   rounds: for p = 1 an exact sorted prefix-scan node solve, otherwise a
   30-step bisection in lockstep.
@@ -68,6 +70,18 @@ def _fixed_point(relax, state, max_iter: int):
 # -- Bellman-Ford (min-plus) distance iteration ------------------------------
 
 
+def _slot_min(dn, fw, mask, big, hopf_lax: bool):
+    """One relaxation over the slot axis 1: each slot's candidate
+    ``d_nbr + w f_nbr``, or the Hopf-Lax quadratic of ``d_nbr`` and ``fw =
+    w f_nbr``, ``big`` off ``mask``; returns each row's least candidate and
+    its slot (the first on ties)."""
+    if hopf_lax:
+        cand = 0.5 * (fw + torch.sqrt(fw * fw + 4.0 * dn * dn))
+    else:
+        cand = dn + fw
+    return torch.min(torch.where(mask, cand, big), dim=1)
+
+
 def _bellman_ford(g: SparseGraph, d0, cp0, f, hopf_lax: bool, max_iter: int):
     """Iterate ``d_j <- min(d_j, min_s update(d_nbr, w_js, f_nbr))`` to the
     Dijkstra fixed point, carrying each node's closest boundary point.
@@ -82,13 +96,7 @@ def _bellman_ford(g: SparseGraph, d0, cp0, f, hopf_lax: bool, max_iter: int):
 
     def relax(state):
         d, cp = state
-        dn = d[cols]
-        if hopf_lax:
-            cand = 0.5 * (fw + torch.sqrt(fw * fw + 4.0 * dn * dn))
-        else:
-            cand = dn + fw
-        cand = torch.where(mask, cand, big)
-        best, s = torch.min(cand, dim=1)          # first slot on ties
+        best, s = _slot_min(d[cols], fw, mask, big, hopf_lax)
         upd = best < d
         d = torch.where(upd, best, d)
         cp = torch.where(upd, cp[cols[rows, s]], cp)
@@ -115,15 +123,19 @@ def _distance(g, bdy_set, bdy_val, f, max_dist, return_cp,
     bdy_set, bdy_val_arr = _boundary_handling(
         bdy_set, 0 if bdy_val is None else bdy_val)
     f_np = _speed(f, n)
-    # the band rounds need a stored band (not a BandedPlan's)
-    if accel is not None and accel.materialize and np.all(f_np > 0):
+    # the accel's rounds: a stored band's (not a BandedPlan's), or the
+    # gather's segments
+    if (accel is not None and np.all(f_np > 0)
+            and (accel.materialize
+                 or getattr(accel, "supports_bellman_ford", False))):
         d0 = np.full((n,), MINPLUS_BIG)
         d0[bdy_set] = bdy_val_arr
         d, cp, rounds = accel.bellman_ford(
             d0, f_np, hopf_lax=hopf_lax, recip=reciprocal_weights,
             max_iter=max_iter)
         if info is not None:
-            info.update(iters=rounds, path="band")
+            info.update(iters=rounds,
+                        path="band" if accel.materialize else "gather")
         return _finish(d, cp.to(torch.int32), MINPLUS_BIG * 0.5, max_dist,
                        return_cp)
     gg = g
@@ -150,9 +162,10 @@ def dijkstra(g: SparseGraph, bdy_set, bdy_val=None, f=1, max_dist=np.inf,
     """Graph distance to a terminal set: ``u(x) = min_{i in Gamma} g_i +
     d(x, x_i)`` with edge cost ``w_ij f`` (``f / w_ij`` with
     ``reciprocal_weights``).  Nodes farther than ``max_dist`` get ``inf``
-    (cp = -1).  ``accel`` (an :class:`AccelSpMM`) runs the relaxation on
-    its stored band when it has one (``accel.materialize``) and every
-    speed is positive.  ``info``, a dict, receives the
+    (cp = -1).  ``accel`` runs the relaxation where every speed is
+    positive: an :class:`AccelSpMM` on its stored band when it has one
+    (``accel.materialize``), a ``GatherAccel`` on its segments
+    (``supports_bellman_ford``).  ``info``, a dict, receives the
     rounds run and the path taken."""
     return _distance(g, bdy_set, bdy_val, f, max_dist, return_cp,
                      reciprocal_weights, max_iter, accel, False, info)

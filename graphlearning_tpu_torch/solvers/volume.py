@@ -1,0 +1,220 @@
+"""Volume-constrained label assignment and the MBO loops (counterpart of
+``graphlearning_tpu/solvers/volume.py``).
+
+* :func:`assign_labels`: labels ``argmax_c (a_ic + p_c)`` whose class
+  counts lie in ``[lower, upper]``, by a batched dual price ascent, then
+  an exact repair that moves the nodes losing least score.
+* :func:`projection_weights`: the class-size gradient loop of the
+  ``ssl`` models' volume projection.
+* :func:`poisson_mbo_loop` / :func:`poisson_mbo_round`: PoissonMBO's
+  outer rounds (heat diffusion, volume projection, threshold).
+* :func:`mbo_loop` / :func:`mbo_round`: VolumeMBO's fixed point (dual
+  convolution, annealed Gumbel noise, assignment).
+
+The JAX package runs each loop as a ``lax.while_loop`` on the device.
+Here the loops keep their state on the device too (:func:`_while`): each
+step computes its successor and keeps it only where the loop's condition
+held, so the state freezes once the condition fails, and the host reads
+the condition after 1, 2, 4, ... and then every ``_CHECK_EVERY`` steps.
+The results are those of a loop that stops at once, with few host
+synchronisations (the price ascent alone may take 500 steps in each of
+300 MBO iterations).  The sharded path's ``valid`` mask of mesh-padding
+rows is not ported (it comes with the distribution layer).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_CHECK_EVERY = 16
+
+
+def _while(cond, body, state):
+    """``while cond(state): state = body(state)`` for a tuple of device
+    tensors.  ``cond`` gives a 0-d bool tensor, false again for a state
+    it rejected (each loop counts its steps in its state).  Returns the
+    state at which ``cond`` first failed."""
+    if not bool(cond(state)):
+        return state
+    burst = 1
+    while True:
+        for _ in range(burst):
+            active = cond(state)
+            state = tuple(torch.where(active, new, old)
+                          for new, old in zip(body(state), state))
+        if not bool(cond(state)):
+            return state
+        burst = min(2 * burst, _CHECK_EVERY)
+
+
+def _counts(labels, k, dtype):
+    return torch.bincount(labels, minlength=k).to(dtype)
+
+
+def assign_labels(a, fixed_mask, fixed_labels, lower, upper,
+                  max_price_it: int = 500):
+    """Volume-constrained assignment of the (n, k) affinities ``a``:
+    int64 labels of shape (n,) with ``lower <= counts <= upper``, the
+    nodes of ``fixed_mask`` pinned to ``fixed_labels``.  Price ascent
+    (prices frozen once feasible, so the final argmax reproduces the
+    feasible labeling), then the repair: each round moves up to
+    ``min(over, under, 128)`` movable nodes of the most over-full class to
+    the most under-full one, those losing least score first (ties to the
+    lower index, as ``lax.top_k``)."""
+    n, k = a.shape
+    dev, dt = a.device, a.dtype
+    scale = torch.max(a) - torch.min(a) + 1e-8
+    neg_big = torch.finfo(dt).min
+    fixed_labels = fixed_labels.long()
+
+    def pbody(state):
+        p, it, done = state
+        labels = torch.where(fixed_mask, fixed_labels,
+                             torch.argmax(a + p[None, :], dim=1))
+        counts = _counts(labels, k, dt)
+        over = torch.clamp(counts - upper, min=0.0)
+        under = torch.clamp(lower - counts, min=0.0)
+        done = torch.max(over + under) == 0
+        p_new = p + scale * 0.5 * ((under - over) / n)
+        p_new = p_new - torch.mean(p_new)
+        return torch.where(done, p, p_new), it + 1, done
+
+    p, _, _ = _while(
+        lambda s: ~s[2] & (s[1] < max_price_it), pbody,
+        (torch.zeros(k, dtype=dt, device=dev),
+         torch.zeros((), dtype=torch.int64, device=dev),
+         torch.zeros((), dtype=torch.bool, device=dev)))
+    labels = torch.where(fixed_mask, fixed_labels,
+                         torch.argmax(a + p[None, :], dim=1))
+
+    krep = int(min(128, n))
+    ranks = torch.arange(krep, device=dev)
+
+    def bad(labels):
+        counts = _counts(labels, k, dt)
+        return torch.any(counts > upper) | torch.any(counts < lower)
+
+    def rbody(state):
+        labels, it = state
+        counts = _counts(labels, k, dt)
+        co = torch.argmax(counts - upper)          # most over-full
+        cu = torch.argmax(lower - counts)          # most under-full
+        both = torch.minimum(torch.clamp(counts[co] - upper[co], min=0.0),
+                             torch.clamp(lower[cu] - counts[cu], min=0.0))
+        t = torch.clamp(both, 1.0, float(krep)).long()
+        movable = (labels == co) & ~fixed_mask
+        margin = torch.where(movable, a.index_select(1, cu.view(1))[:, 0]
+                             - a.index_select(1, co.view(1))[:, 0], neg_big)
+        vals, idx = torch.sort(margin, descending=True, stable=True)
+        vals, idx = vals[:krep], idx[:krep]
+        take = (ranks < t) & (vals > neg_big)
+        labels = labels.clone()
+        labels[idx] = torch.where(take, cu, labels[idx])
+        return labels, it + 1
+
+    labels, _ = _while(lambda s: bad(s[0]) & (s[1] < n), rbody,
+                       (labels, torch.zeros((), dtype=torch.int64,
+                                            device=dev)))
+    return labels
+
+
+def projection_weights(scores, weights, priors, dt, *, similarity: bool):
+    """The class-size gradient loop: ``w += dt (class_size(w) - priors)``,
+    ``w /= w[0]`` until ``max|grad| <= 1e-3`` or 1e4 steps, the class of
+    a node being the argmax (``similarity``) or argmin of ``scores * w``.
+    ``scores`` are normalized to [0, 1] by the caller.  Returns ``(w,
+    err)``, ``err`` a 0-d tensor."""
+    n, k = scores.shape
+    pick = torch.argmax if similarity else torch.argmin
+
+    def body(state):
+        w, err, i = state
+        pred = pick(scores * w[None, :], dim=1)
+        grad = _counts(pred, k, scores.dtype) / n - priors
+        w = w + dt * grad
+        return w / w[0], torch.max(torch.abs(grad)), i + 1
+
+    w, err, _ = _while(
+        lambda s: (s[2] < 10**4) & (s[1] > 1e-3), body,
+        (weights, torch.ones((), dtype=scores.dtype, device=scores.device),
+         torch.zeros((), dtype=torch.int64, device=scores.device)))
+    return w, err
+
+
+def _onehot(labels, k, dtype):
+    return torch.nn.functional.one_hot(labels.long(), k).to(dtype)
+
+
+def poisson_mbo_round(heat_steps, state, priors):
+    """One PoissonMBO round on a ``(u, w, err)`` state: ``heat_steps``
+    ((n, k) -> (n, k)), the scores normalized to [0, 1], the projection
+    weights warm-started from ``w``, and the one-hot threshold."""
+    u, w, err = state
+    u = heat_steps(u)
+    s = u - torch.min(u)
+    m = torch.max(s)
+    s = torch.where(m > 0, s / m, s)
+    w, err = projection_weights(s, w, priors, -0.1, similarity=True)
+    return _onehot(torch.argmax(s * w[None, :], dim=1), u.shape[1],
+                   u.dtype), w, err
+
+
+def poisson_mbo_loop(heat_steps, u0, w0, priors, T: int):
+    """T PoissonMBO rounds (:func:`poisson_mbo_round`) from ``(u0, w0)``;
+    the projection weights thread through the rounds.  Returns ``(u, w,
+    err)``."""
+    state = (u0, w0, torch.ones((), dtype=u0.dtype, device=u0.device))
+    for _ in range(int(T)):
+        state = poisson_mbo_round(heat_steps, state, priors)
+    return state
+
+
+def gumbel(generator, dtype):
+    """The default noise of :func:`mbo_round`: ``draw(shape)`` gives
+    standard Gumbel variates from ``generator``, on its device.  The
+    uniform is clamped to the smallest normal, as ``jax.random.gumbel``
+    draws it from ``[tiny, 1)``: ``torch.rand`` may return 0."""
+    tiny = torch.finfo(dtype).tiny
+
+    def draw(shape):
+        u = torch.rand(shape, generator=generator, dtype=dtype,
+                       device=generator.device)
+        return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+
+    return draw
+
+
+def mbo_round(dual_conv, state, fixed_mask, fixed_labels, lower, upper,
+              temp, draw, n_true: int, max_price_it: int = 500):
+    """One VolumeMBO iteration on a ``(labels, it, stop)`` state: the dual
+    convolution of the labels, with ``temp > 0`` the annealed noise
+    ``temp / (it + 1) * draw(shape) / n_true`` added, and the
+    volume-constrained assignment.  ``stop`` once no label changed (past
+    ten iterations with noise).  ``draw`` is called once per iteration
+    with noise, in order."""
+    labels, it, _ = state
+    a = dual_conv(labels)
+    if temp > 0:
+        a = a + (temp / (it + 1.0)) * draw(a.shape) / n_true
+    new_labels = assign_labels(a, fixed_mask, fixed_labels, lower, upper,
+                               max_price_it=max_price_it)
+    changed = int(torch.sum(new_labels != labels))
+    return new_labels, it + 1, changed == 0 and (temp == 0 or it > 10)
+
+
+def mbo_loop(dual_conv, labels0, fixed_mask, fixed_labels, lower, upper,
+             temp, draw, n_true: int, max_iters: int,
+             max_price_it: int = 500, on_round=None):
+    """The VolumeMBO fixed point: :func:`mbo_round` from ``labels0`` until
+    it stops or ``max_iters`` iterations.  ``dual_conv``: (n,) labels ->
+    (n, k) affinities.  ``on_round(old labels, state)``, when given, is
+    called after each iteration.  Returns ``(labels, iters)``."""
+    state = (labels0.long(), 0, False)
+    while not state[2] and state[1] < max_iters:
+        old = state[0]
+        state = mbo_round(dual_conv, state, fixed_mask, fixed_labels, lower,
+                          upper, temp, draw, n_true=n_true,
+                          max_price_it=max_price_it)
+        if on_round is not None:
+            on_round(old, state)
+    return state[0], state[1]

@@ -1,7 +1,8 @@
 """Semi-supervised learning on graphs (counterpart of
-``graphlearning_tpu/ssl.py:36-345,507-964,1722-1952`` for Laplace, Poisson
-and random-walk learning, and the distance and Lipschitz models: graph
-nearest neighbor, AMLE, p-eikonal and p-Laplace).
+``graphlearning_tpu/ssl.py:36-345,507-1334,1722-1952`` for Laplace (with
+its reweightings), Poisson and random-walk learning, PoissonMBO and
+VolumeMBO, and the distance and Lipschitz models: graph nearest neighbor,
+AMLE, p-eikonal and p-Laplace).
 
 Each model's ``_fit`` moves the labels to the graph's device once and runs
 a matrix-free solver there.  On a large band-friendly graph on CUDA, every
@@ -12,6 +13,8 @@ their C problems together (``_fit_onevsrest``) or one class at a time.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -24,6 +27,7 @@ from graphlearning_tpu_torch.ops import graphops as _ops
 from graphlearning_tpu_torch.solvers import cg as _cg
 from graphlearning_tpu_torch.solvers import eikonal as _eik
 from graphlearning_tpu_torch.solvers import plaplace as _pl
+from graphlearning_tpu_torch.solvers import volume as _volume
 
 
 def _cg_scaled_solve(g, s, b, c0, c1, tol, max_iter=10**5, x0=None):
@@ -65,27 +69,6 @@ def _laplace_constrained(g, tau, mask, bdy, tol, normalization="combinatorial",
     u, iters, _ = _cg.constrained_solve(L, (tau + diag) ** order, mask, bdy,
                                         tol=tol, max_iter=max_iter, u0=u0)
     return u, iters
-
-
-def _projection_weights(scores, weights, priors, dt, similarity: bool):
-    """Class-size gradient loop: ``w += dt*(class_size(w) - priors)``,
-    ``w /= w[0]`` until ``max|grad| <= 1e-3`` or 1e4 steps.  Returns
-    ``(w, err)``."""
-    k = scores.shape[1]
-    w = weights
-    err = 1.0
-    i = 0
-    while i < 10**4 and err > 1e-3:
-        sw = scores * w
-        pred = torch.argmax(sw, dim=1) if similarity else torch.argmin(sw,
-                                                                      dim=1)
-        class_size = torch.bincount(pred, minlength=k).to(scores.dtype)
-        grad = class_size / scores.shape[0] - priors
-        err = float(torch.max(torch.abs(grad)))
-        w = w + dt * grad
-        w = w / w[0]
-        i += 1
-    return w, err
 
 
 class ssl:
@@ -167,11 +150,12 @@ class ssl:
         if m > 0:
             scores = scores / m
         as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(dtype)
-        w, err = _projection_weights(
+        w, err = _volume.projection_weights(
             as_t(scores), as_t(self.weights), as_t(self.class_priors),
-            -0.1 if self.similarity else 0.1, bool(self.similarity))
+            -0.1 if self.similarity else 0.1,
+            similarity=bool(self.similarity))
         self.weights = w.cpu().numpy().astype(float)
-        self.class_priors_error = err
+        self.class_priors_error = float(err)
         return self.predict()
 
     def fit(self, train_ind, train_labels, all_labels=None):
@@ -231,17 +215,17 @@ class laplace(ssl):
     """Laplace (harmonic) learning: solve ``tau u + L^order u = 0`` on the
     unlabeled nodes with ``u = y`` at the labels, by masked
     Jacobi-preconditioned CG.  The parameters are the JAX package's, in
-    its order, with ``device`` last.  Only ``reweighting="none"`` is
-    ported; ``X``, ``alpha``, ``zeta`` and ``r`` are stored for the
-    reweightings, which read them."""
+    its order, with ``device`` last.  ``reweighting`` ("none", "poisson",
+    "wnll" or "properly", :meth:`graph.reweight`, which reads ``X``,
+    ``alpha``, ``zeta`` and ``r``) fits on the reweighted graph, built
+    once per train set and kept for the next fit of the same split."""
 
     def __init__(self, W=None, class_priors=None, X=None, reweighting="none",
                  normalization="combinatorial", tau=0, order=1,
                  mean_shift=False, tol=1e-5, alpha=2, zeta=1e7, r=0.1,
                  device=None):
-        if reweighting != "none":
-            raise NotImplementedError(
-                f"laplace reweighting={reweighting!r} is not ported yet")
+        if reweighting not in ("none", "poisson", "wnll", "properly"):
+            raise ValueError(f"invalid reweighting method {reweighting}")
         if normalization not in _NORMALIZATIONS:
             raise ValueError(f"normalization must be one of {_NORMALIZATIONS}")
         super().__init__(W, class_priors, device=device)
@@ -254,9 +238,30 @@ class laplace(ssl):
         self.X = X
         self.alpha, self.zeta, self.r = alpha, zeta, r
         self.name = "Laplace Learning"
+        if reweighting != "none":
+            self.name += ": " + reweighting + " reweighted"
+        if normalization != "combinatorial":
+            self.name += " " + normalization
+
+    def _reweighted_graph(self, train_ind):
+        """The graph reweighted for ``train_ind``, cached per train set: a
+        second fit on the same split reuses the scipy build, the device
+        graph and the accel on it."""
+        rkey = (self.reweighting, np.asarray(train_ind).tobytes())
+        if getattr(self, "_reweight_key", None) != rkey:
+            W = self.graph.reweight(
+                train_ind, method=self.reweighting,
+                normalization=(self.normalization
+                               if self.reweighting == "poisson"
+                               else "combinatorial"),
+                X=self.X, alpha=self.alpha, zeta=self.zeta, r=self.r)
+            self._reweight_G = _graphmod.graph(W, device=self.graph.device)
+            self._reweight_key = rkey
+        return self._reweight_G
 
     def _fit(self, train_ind, train_labels, all_labels=None):
-        G = self.graph
+        G = (self.graph if self.reweighting == "none"
+             else self._reweighted_graph(train_ind))
         dev = G.device
         dtype = config.float_dtype(dev)
         n = G.num_nodes
@@ -271,7 +276,11 @@ class laplace(ssl):
         tau_t, bdy_t = as_t(tau), as_t(bdy)
         mask_t = torch.as_tensor(mask, device=dev)
 
-        acc = _accel.maybe_build(G.weight_matrix, cache_obj=self, device=dev)
+        # a reweighted graph's accel rides on its own W, not on the model
+        acc = _accel.maybe_build(
+            G.weight_matrix,
+            cache_obj=self if self.reweighting == "none" else None,
+            device=dev)
         if acc is not None:
             # permuted space; padding rows are identity rows (diag 1,
             # tau 0, unlabeled, zero rhs)
@@ -426,6 +435,189 @@ def _poisson_gradient_descent(g: SparseGraph, b, train_ind, min_iter,
         v = _ops.spmm_t(g, dinv * v)
         T += 1
     return u, T
+
+
+# -- MBO: PoissonMBO and VolumeMBO --------------------------------------------
+
+
+class poisson_mbo(ssl):
+    """PoissonMBO: Poisson learning's labels, then T rounds of Ns heat
+    steps ``u <- u - dt L u + mu dt source`` (``dt = 1 / max degree``),
+    each followed by the volume projection onto ``class_priors`` and a
+    one-hot threshold.  The parameters are the JAX package's, in its
+    order, with ``device`` last; ``use_cuda`` is accepted and ignored (the
+    device comes from ``device``).  The heat steps run on the bf16 band or
+    the gather where :func:`~ops.accel.maybe_build` takes one (a threshold
+    follows them, so the bf16 band's rounding does not matter), else on
+    the plain ELL path; the projection loops stay on the device.  With
+    ``all_labels`` the fit prints each round's accuracy."""
+
+    def __init__(self, W=None, class_priors=None, solver="conjugate_gradient",
+                 use_cuda=False, min_iter=50, max_iter=1000, tol=1e-3,
+                 spectral_cutoff=10, Ns=40, mu=1, T=20, device=None):
+        if solver == "spectral":
+            raise NotImplementedError(
+                "poisson_mbo solver='spectral' needs the eigensolvers (P10), "
+                "not ported yet")
+        super().__init__(W, class_priors, device=device)
+        self.poisson_model = poisson(W, solver=solver, min_iter=min_iter,
+                                     max_iter=max_iter, tol=tol,
+                                     spectral_cutoff=spectral_cutoff,
+                                     device=device)
+        self.Ns = Ns
+        self.mu = mu
+        self.T = T
+        self.name = "Poisson MBO"
+
+    def _fit(self, train_ind, train_labels, all_labels=None):
+        n = self.graph.num_nodes
+        dev = self.graph.device
+        dtype = config.float_dtype(dev)
+        k = len(np.unique(train_labels))
+        W, G = self._nodiag_graph()
+        g = G.sparse
+        onehot = utils.labels_to_onehot(train_labels, k)
+        source = np.zeros((n, k))
+        source[train_ind] = onehot - np.mean(onehot, axis=0)
+        labels = self.poisson_model.fit_predict(train_ind, train_labels)
+        as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+        u = as_t(utils.labels_to_onehot(labels, k))
+        deg = _ops.degree_vector(g)
+        dt = 1.0 / float(torch.max(deg))
+        Db = as_t(self.mu * dt * source)
+        if isinstance(self.weights, int):
+            self.weights = np.ones((k,))
+        # the bf16 band (K2 bf16) or the gather with its "auto" table
+        acc = _accel.maybe_build(W, cache_obj=self, attr="_accel_mbo",
+                                 device=dev, mode="bf16")
+        if acc is not None:
+            deg_p, Db_p = acc.to_perm(deg), acc.to_perm(Db)
+
+            def heat_steps(u):
+                return acc.from_perm(acc.heat_steps(
+                    deg_p, acc.to_perm(u), Db_p, dt, self.Ns))
+        else:
+            def heat_steps(u):
+                for _ in range(self.Ns):
+                    u = u - dt * (deg[:, None] * u - _ops.spmm(g, u)) + Db
+                return u
+
+        if all_labels is None:
+            u, w, err = _volume.poisson_mbo_loop(
+                heat_steps, u, as_t(self.weights), as_t(self.class_priors),
+                self.T)
+            self.weights = w.cpu().numpy().astype(float)
+            self.class_priors_error = float(err)
+            return u
+        # verbose path: each round's accuracy
+        for i in range(self.T):
+            self.prob = heat_steps(u).cpu().numpy()
+            labels = self.volume_label_projection()
+            u = as_t(utils.labels_to_onehot(labels, k))
+            print("%d, Accuracy = %.2f"
+                  % (i, ssl_accuracy(labels, all_labels, train_ind)))
+        return u
+
+
+class volume_mbo(ssl):
+    """VolumeMBO (auction dynamics with volume constraints): a Voronoi
+    start from the closest labeled node (Bellman-Ford closest points),
+    then until no label changes, the dual convolution ``D^-1 W D^-1 W``
+    of the one-hot labels, annealed Gumbel noise at ``temperature > 0``,
+    and the volume-constrained assignment with class counts in
+    ``[floor(v c), ceil((2 - v) c)]`` (``v`` the volume constraint, ``c``
+    the counts of ``class_priors``).  ``self.voronoi_info`` holds the
+    start's rounds and path, ``self.iters`` the MBO iterations.  The
+    parameters are the JAX package's, in its order, with ``device``
+    last.  The noise comes from a
+    ``torch.Generator`` on the fit's device, seeded from ``seed`` or, when
+    it is None, from ``np.random.randint(2**31)``.  The convolutions and
+    the Voronoi start run on the bf16 band (K2, K7) or the gather (its
+    ``bellman_ford``) where :func:`~ops.accel.maybe_build` takes one,
+    else on the plain ELL path.  With ``all_labels`` the fit prints each
+    iteration's accuracy."""
+
+    def __init__(self, W=None, class_priors=None, temperature=0.1,
+                 volume_constraint=0.5, max_iters=300, seed=None,
+                 device=None):
+        super().__init__(W, None, device=device)
+        if class_priors is None:
+            sys.exit("Class priors must be provided for Volume MBO.")
+        self.class_counts = (self.graph.num_nodes * np.asarray(class_priors)
+                             / np.sum(class_priors)).astype(int)
+        self.temperature = temperature
+        self.volume_constraint = volume_constraint
+        self.max_iters = max_iters
+        self.seed = seed
+        self.name = "Volume MBO (T=%.2f, V=%.2f)" % (temperature,
+                                                     volume_constraint)
+
+    def _fit(self, train_ind, train_labels, all_labels=None):
+        n = self.graph.num_nodes
+        dev = self.graph.device
+        dtype = config.float_dtype(dev)
+        k = len(np.unique(train_labels))
+        W, G = self._nodiag_graph()
+        g = G.sparse
+        acc = _accel.maybe_build(W, cache_obj=self, attr="_accel_vmbo",
+                                 device=dev, mode="bf16")
+        self.voronoi_info = {}
+        _, cp = _eik.dijkstra(g, train_ind, bdy_val=np.zeros(len(train_ind)),
+                              return_cp=True, accel=acc,
+                              info=self.voronoi_info)
+        lab_of = np.full(n, -1, dtype=int)
+        lab_of[train_ind] = train_labels
+        labels = np.array(lab_of[np.maximum(cp, 0)])
+        labels[labels < 0] = 0
+        labels[train_ind] = train_labels
+
+        fixed = np.zeros(n, dtype=bool)
+        fixed[train_ind] = True
+        fixed_labels = np.zeros(n, dtype=int)
+        fixed_labels[train_ind] = train_labels
+        vc = self.volume_constraint
+        as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+        lower = as_t(np.floor(vc * self.class_counts)).to(dtype)
+        upper = as_t(np.ceil((2 - vc) * self.class_counts)).to(dtype)
+        fixed, fixed_labels = as_t(fixed), as_t(fixed_labels)
+
+        deg = _ops.degree_vector(g)
+        if acc is not None:
+            deg_p = acc.to_perm(deg)
+            dinv_p = torch.where(deg_p > 0, 1.0 / torch.where(
+                deg_p == 0, torch.ones_like(deg_p), deg_p),
+                torch.zeros_like(deg_p))
+
+            def dual_conv(labels):
+                return acc.dual_conv_labels(dinv_p, labels, k)
+        else:
+            dinv = torch.where(deg > 0, 1.0 / torch.where(
+                deg == 0, torch.ones_like(deg), deg), torch.zeros_like(deg))
+
+            def dual_conv(labels):
+                a = dinv[:, None] * _ops.spmm(
+                    g, _volume._onehot(labels, k, dtype))
+                return dinv[:, None] * _ops.spmm(g, a)
+
+        seed = (int(np.random.randint(2**31)) if self.seed is None
+                else int(self.seed))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        draw = _volume.gumbel(gen, dtype)
+        temp = self.temperature
+        report = None
+        if all_labels is not None:
+            def report(old, state):
+                # verbose path: each iteration's accuracy
+                print("%d, changed=%d, Accuracy = %.2f" % (
+                    state[1] - 1, int(torch.sum(state[0] != old)),
+                    ssl_accuracy(state[0].cpu().numpy(), all_labels,
+                                 train_ind)))
+        labels, self.iters = _volume.mbo_loop(
+            dual_conv, as_t(labels), fixed, fixed_labels, lower, upper, temp,
+            draw, n_true=n, max_iters=self.max_iters, on_round=report)
+        labels = labels.cpu().numpy()
+        labels[train_ind] = train_labels
+        return utils.labels_to_onehot(labels, k)
 
 
 # -- distance and Lipschitz models --------------------------------------------

@@ -1,4 +1,4 @@
-"""Label encodings and sparse helpers (counterpart of
+"""Label encodings, class priors and sparse helpers (counterpart of
 ``graphlearning_tpu/utils.py:194-235``)."""
 
 from __future__ import annotations
@@ -16,6 +16,16 @@ def labels_to_onehot(labels, k=None, standardize=False):
     onehot = np.zeros((n, k))
     onehot[np.arange(n), labels] = 1
     return onehot
+
+
+def class_priors(labels):
+    """The share of each class among the nonnegative ``labels``, classes
+    in ascending order."""
+    labels = np.asarray(labels)
+    L = np.unique(labels)
+    L = L[L >= 0]
+    n = np.sum(labels >= 0)
+    return np.array([np.sum(labels == l) / n for l in L])
 
 
 def sparse_max(A, B):

@@ -611,6 +611,8 @@ def _constexprs(source):
     ("band_tiles_lip.cu", {"ROWS": "_LIVE_ROWS", "KC": "_LIVE_KC"}),
     # K5 on the same CTA: the window starts' alignment its X chunks need
     ("band_tiles_spmm.cu", {"WIN_ALIGN": "_RECT_WIN_ALIGN"}),
+    # the exact grade's FFMA consumer: the widest d it takes
+    ("band_tiles_spmm.cu", {"FMA_DMAX": "_TILES_FMA_DMAX"}),
     ("band_tiles_minplus.cu", {"ROWS": "_LIVE_ROWS", "KC": "_LIVE_KC"}),
     # K8 walks the same list: a CTA a row group, a stage a chunk
     ("band_rect_minplus.cu", {"ROWS": "_TILES_ROWS", "KC": "_TILES_KC"}),

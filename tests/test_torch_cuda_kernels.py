@@ -734,7 +734,9 @@ def test_cuda_exact_grade_sums_are_unbiased(banded_tiles, rect_case,
     """The exact grade's tensor-core sums round toward zero; added to the
     accumulators by FADD (rounded to nearest) the mean relative error of
     K5 and K3 on a positive X stays within 3e-8 of zero (about -6e-8
-    accumulated in the MMA, -1.8e-8 measured with the FADD)."""
+    accumulated in the MMA, -1.8e-8 measured with the FADD).  d=40 runs
+    on the tensor cores, d=2 on the FFMA consumer (held tighter by
+    ``test_cuda_exact_grade_ffma_at_narrow_d``)."""
     dev = cuda_device
     cols, vals, tb, ts, _, R, WT = banded_tiles
     args = tuple(torch.as_tensor(a, device=dev) for a in (cols, vals, tb, ts))
@@ -752,6 +754,45 @@ def test_cuda_exact_grade_sums_are_unbiased(banded_tiles, rect_case,
         live = ref.abs() > 1e-3
         rel = (out.double() - ref)[live] / ref[live]
         assert abs(float(rel.mean())) < 3e-8, float(rel.mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 10, 16])
+def test_cuda_exact_grade_ffma_at_narrow_d(banded_tiles, rect_case,
+                                           cuda_device, d):
+    """K2, K3 and K5 in f32 at d <= FMA_DMAX sum by FFMA, rounded to
+    nearest: within TOL of their twin on the packed and unpacked plans
+    and on K5's live chunks, and on a positive X a mean relative error
+    against the f64 product within 1e-8 of zero (about 2e-9 expected of
+    unbiased roundings over these outputs; the tensor cores' sums are held
+    to 3e-8 above)."""
+    assert d <= bs._TILES_FMA_DMAX
+    dev = cuda_device
+    cols, vals, tb, ts, bf, R, WT = banded_tiles
+    args = tuple(torch.as_tensor(a, device=dev) for a in (cols, vals, tb, ts))
+    band = bs.materialize_band_tiles(*args, R=R, WT=WT,
+                                     out_dtype=torch.float32)
+    plan = bs.TilesPlan.from_tiles(tb, ts, 1024, R, WT, dev)
+    sb, sts, _, src = bs.pack_tiles(tb, ts, bf, 4)
+    packed = bs.pack_band(band, src, R=R, WT=WT)
+    pplan = bs.PackedPlan.from_slabs(sb, sts, src, 1024, R, WT, dev)
+    rband, rplan, chunks = _chunk_band(rect_case, dev, "rcm", torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    X = torch.rand((1024, d), generator=gen, device=dev)
+    tref = bs._tiles_spmm_plain(band.double(), plan, X.double())
+    n2, n3, n5 = (bs.band_tiles_spmm_packed.launches,
+                  bs.band_tiles_spmm.launches, bs.band_spmm.launches)
+    for out, ref in (
+            (bs.band_tiles_spmm_packed(packed, pplan, X), tref),
+            (bs.band_tiles_spmm(band, plan, X), tref),
+            (bs.band_spmm(rband, rplan, X, chunks),
+             bs._rect_spmm_plain(rband.double(), rplan, X.double()))):
+        _close(out, ref.float(), torch.float32)
+        live = ref.abs() > 1e-3
+        rel = (out.double() - ref)[live] / ref[live]
+        assert abs(float(rel.mean())) < 1e-8, float(rel.mean())
+    assert (bs.band_tiles_spmm_packed.launches, bs.band_tiles_spmm.launches,
+            bs.band_spmm.launches) == (n2 + 1, n3 + 1, n5 + 1)
 
 
 def _cpu_plan(plan):

@@ -262,10 +262,12 @@ def test_fits_through_the_gather_match_plain(hub_graph, cpu_accel,
 
 def test_distance_and_lipschitz_gates_refuse_the_gather(hub_graph,
                                                         cpu_accel):
-    """The gather stores no band: dijkstra and the Lipschitz fits take
-    their plain path with it, as in the JAX package.  Their own accels
-    (``gather=False``) build no gather for a band-hostile graph, and a
-    later fit on the same W still gets one."""
+    """The gather stores no band: the Lipschitz fits take their plain path
+    with it, as in the JAX package, and dijkstra given it runs the
+    gather's own relaxation (``supports_bellman_ford``, in f32 as JAX:
+    distances within 1e-6 relative of the plain path's f64).  The
+    distance and Lipschitz accels (``gather=False``) build no gather for a
+    band-hostile graph, and a later fit on the same W still gets one."""
     from graphlearning_tpu_torch.solvers import eikonal, plaplace
 
     W, labels, train_ind = hub_graph
@@ -274,8 +276,10 @@ def test_distance_and_lipschitz_gates_refuse_the_gather(hub_graph,
     g = tgl.SparseGraph.from_scipy(W, device="cpu")
     info = {}
     d = eikonal.dijkstra(g, train_ind, accel=acc, info=info)
-    assert info["path"] == "plain"
-    np.testing.assert_array_equal(d, eikonal.dijkstra(g, train_ind))
+    assert info["path"] == "gather"
+    d = eikonal.dijkstra(g, train_ind)
+    np.testing.assert_allclose(eikonal.dijkstra(g, train_ind, accel=acc), d,
+                               rtol=1e-6, atol=0)
     assert not plaplace._use_band(acc, 3)
 
     Wc = W.copy()

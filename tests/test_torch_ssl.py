@@ -93,7 +93,7 @@ def test_unported_options_raise(moons):
     with pytest.raises(NotImplementedError):
         tgl.ssl.poisson(W, solver="spectral", device="cpu")
     with pytest.raises(NotImplementedError):
-        tgl.ssl.laplace(W, reweighting="poisson", device="cpu")
+        tgl.ssl.poisson_mbo(W, [0.5, 0.5], "spectral", device="cpu")
     with pytest.raises(RuntimeError):
         tgl.ssl.laplace(W, device="cpu").predict()
 
