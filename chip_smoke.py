@@ -48,6 +48,19 @@ Phases (any failure exits non-zero before the result line):
    start), held to the same fits under ``GLT_NO_GATHER``; then K2 bf16 at
    the MBO fits' shape against its twin, with the launches K2 made on the
    bf16 band (the f32 CG solves inside the fits not counted);
+4c. the eigensolver and spectral clustering: on a fresh copy of the moons
+   graph ``graph.eigen_decomp(normalization="normalized", k=10)``,
+   ``fiedler_vector`` and ``clustering.spectral(W, 2)`` on the band (K1,
+   then K2 in every application of LOBPCG's operator, at d = 3(k+b) and
+   k+b; its launches held to the solves' steps) and under
+   ``GLT_NO_ACCEL``, the eigenvalues held to scipy's float64 ``eigsh``
+   (``EIG_TOL``) and to each other (``EIG_BAND_TOL``), the clusterings
+   to the accuracy of ``eigsh``'s float64 eigenvectors and to each other;
+   then ``clustering.spectral(W, 10)`` on the ten-cluster input through
+   the gather and under ``GLT_NO_GATHER``, held to JAX's float32 accuracy
+   and to each other; then K2 at LOBPCG's widths (d = 12 and 39) against
+   its twin, with the launches K2 made at each width in the band's
+   solves;
 5. the rectangular route: the same graph under ``GLT_NO_BAND=1``
    (Laplace and Poisson on the unstored band, K6; ``graph.dijkstra`` on
    the plain path), then ``AccelSpMM(W, materialize=True)`` (K4 band; the
@@ -202,6 +215,33 @@ ITERS_MARGIN = 0.01      # band fits' iterations against the plain path's
 # 3xTF32 tensor-core sums measured about 10x (PERF.md), 40x before they
 # were added by FADD.
 SOLVE_MARGIN = 3.0
+
+
+# The eig phase (phase 4c).  JAX's float32 figures on its two inputs, from
+# ``JAX_PLATFORMS=cpu python3 tools/spectral_reference.py``: the spectral
+# accuracy (%) and the largest error of eigen_decomp(normalized, k=10)
+# against scipy's float64 eigsh.  On the moons JAX's LOBPCG stops after two
+# steps (its threshold grows with n), so its figures there are no target
+# (any labelling of two classes scores 50 %): the port's float32 tolerance
+# is per pair (solvers/lobpcg.py, per_pair_tol), and its spectral accuracy
+# is held to that of eigsh's float64 eigenvectors clustered as spectral
+# does ("eigsh_accuracy", ``python3 tools/spectral_paths.py``), less
+# ACCURACY_MARGIN.
+EIG_REFERENCE = {"moons": {"accuracy": 50.7767, "max_err": 3.8453e-2,
+                           "eigsh_accuracy": 79.3091},
+                 "ten": {"accuracy": 98.4286, "max_err": 2.1583e-4}}
+# Stated before the first chip run, each tighter than 3x JAX's error: the
+# largest |lambda - lambda_eigsh| of the k=10 spectrum, the band's against
+# the plain path's (the bound of JAX's test_eigen_decomp_accel_matches_
+# plain), and the spectral fits' agreement with the plain path up to a
+# permutation of the labels.  On the moons 200 LOBPCG steps leave the k=2
+# solve unconverged (its eigenvalues 5e-6 apart): on the CPU the kernels'
+# twins agree with the plain path on 0.9760 of the nodes
+# (``python3 tools/spectral_paths.py``), hence 0.95 there, looser than the
+# 0.99 of the ten clusters.
+EIG_TOL = {"moons": 2e-5, "ten": 3 * 2.1583e-4}
+EIG_BAND_TOL = 1e-5
+EIG_AGREEMENT = {"moons": 0.95, "ten": 0.99}
 
 
 class SmokeFailure(RuntimeError):
@@ -582,6 +622,27 @@ def permuted_csr(torch, acc):
         torch.as_tensor(Wp.indptr.astype(np.int64)),
         torch.as_tensor(Wp.indices.astype(np.int64)),
         torch.as_tensor(Wp.data), size=Wp.shape).to(acc.device)
+
+
+def eigsh_reference(W, k, shift_invert=True):
+    """The ``k`` smallest eigenvalues of the normalized Laplacian of ``W``
+    by scipy's float64 ``eigsh``, ascending: in shift-invert mode about
+    ``-1e-3`` (a sparse LU, cheap on a 2-D kNN graph), else as the largest
+    of ``D^-1/2 W D^-1/2`` (Lanczos, no fill)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as sla
+
+    W = sp.csr_matrix(W, dtype=np.float64)
+    s = sp.diags(np.asarray(W.sum(axis=1)).ravel() ** -0.5)
+    A = (s @ W @ s).tocsr()
+    if shift_invert:
+        L = (sp.identity(W.shape[0]) - A).tocsc()
+        vals = sla.eigsh(L, k=k, sigma=-1e-3, which="LM",
+                         return_eigenvectors=False)
+    else:
+        vals = 1.0 - sla.eigsh(A, k=k, which="LA", tol=1e-12,
+                               return_eigenvectors=False)
+    return np.sort(vals)
 
 
 def two_moons(n, noise, seed):
@@ -1192,6 +1253,170 @@ def mbo_phase(torch, gl, accel, bs, W, X, labels, ti):
                        lambda: torch.sparse.mm(csr, Xd))
     entry["launches"] = k2_bf16
     return [entry], launches
+
+
+def eig_fits(torch, gl, W, num_clusters, fiedler):
+    """``graph(W).eigen_decomp(normalization="normalized", k=10)``, with
+    ``fiedler`` its ``fiedler_vector``, and ``clustering.spectral(W,
+    num_clusters)`` on the same graph, each timed.  Returns ``(vals,
+    fiedler value, labels, solves)``, ``solves`` the (label, LOBPCG steps,
+    block width, path) of each solve."""
+    G = gl.graph(W)
+    out, solves = {}, []
+
+    def timed(label, fn, key):
+        cached = key in G.eigen_info
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out[label] = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        info = G.eigen_info[key]
+        if cached:
+            say(f"  {label}: {secs:.3f} s on the cached spectrum")
+            return
+        solves.append((label, info["iters"], key[2], info["path"]))
+        say(f"  {label}: {info['iters']} LOBPCG steps, {secs:.3f} s, "
+            f"{info['path']}")
+
+    timed("eigen_decomp(k=10)", lambda: G.eigen_decomp(
+        normalization="normalized", k=10), ("normalized", "exact", 10, None,
+                                           0, 0, 1))
+    if fiedler:
+        timed("fiedler_vector", lambda: G.fiedler_vector(return_value=True),
+              ("normalized", "exact", 2, None, 0, 1e-8, 1))
+    timed(f"spectral(W, {num_clusters})", lambda: gl.clustering.spectral(
+        G, num_clusters).fit_predict(), ("normalized", "exact",
+                                         num_clusters, None, 0, 0, 1))
+    vals = out["eigen_decomp(k=10)"][0]
+    lam2 = out["fiedler_vector"][1] if fiedler else None
+    return vals, lam2, out[f"spectral(W, {num_clusters})"], solves
+
+
+def check_spectrum(label, vals, ref, tol):
+    if vals.shape != ref.shape or not np.all(np.isfinite(vals)):
+        raise SmokeFailure(f"{label}: eigenvalues of shape {vals.shape}, "
+                           "or not finite")
+    err = float(np.max(np.abs(vals - ref)))
+    say(f"  {label}: max |lambda - lambda_eigsh| {err:.4e} (limit {tol:g})")
+    if err > tol:
+        raise SmokeFailure(f"{label}: eigenvalues {err:.4e} from eigsh's, "
+                           f"limit {tol:g}")
+
+
+def check_spectral(gl, label, pred, labels, case, ref_pred=None):
+    """The accuracy at most ACCURACY_MARGIN under the case's target (eigsh's
+    eigenvectors' accuracy where JAX's float32 solve stops early, else
+    JAX's float32 accuracy) and, given the plain path's labels, the
+    agreement with them."""
+    ref = EIG_REFERENCE[case]
+    target = ref.get("eigsh_accuracy", ref["accuracy"])
+    accuracy = gl.clustering.clustering_accuracy(pred, labels)
+    floor = target - ACCURACY_MARGIN
+    say(f"  {label}: accuracy {accuracy:.4f} % (target {target:.4f} %; "
+        f"JAX float32 {ref['accuracy']:.4f} %)")
+    if accuracy < floor:
+        raise SmokeFailure(f"{label}: accuracy {accuracy:.4f} % < "
+                           f"{floor:.4f} %")
+    if ref_pred is not None:
+        agree = gl.clustering.clustering_accuracy(pred, ref_pred) / 100.0
+        say(f"  {label} agrees with the plain path on {agree:.4f} up to a "
+            "permutation")
+        if agree < EIG_AGREEMENT[case]:
+            raise SmokeFailure(f"{label}: agreement {agree:.4f} < "
+                               f"{EIG_AGREEMENT[case]}")
+
+
+def eig_phase(torch, gl, accel, bs, W, labels):
+    """Phase 4c: the eigensolver and spectral clustering on the moons graph
+    through the public entry points, on the band (a fresh copy of W, so
+    the phase builds its band: K1, then K2 in every LOBPCG operator
+    application; the launch counts from 0 around it) and under
+    ``GLT_NO_ACCEL``, held to scipy's float64 eigsh and to each other;
+    then spectral(W, 10) on the ten-cluster input on the gather and under
+    ``GLT_NO_GATHER``; then K2 at LOBPCG's two widths on the moons band.
+    Returns ``(entries, launches)``."""
+    from graphlearning_tpu_torch import bench
+    from graphlearning_tpu_torch.solvers import eig
+
+    say("== eigensolver and spectral clustering (the same moons graph)")
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    ref = eigsh_reference(W, 10)
+    say(f"  eigsh (float64, host, {time.perf_counter() - t:.1f} s): "
+        f"{ref.tolist()}")
+    We = W.copy()
+    We._glt_points = W._glt_points
+    bs.reset_launches()
+    vals_b, lam2_b, pred_b, solves = eig_fits(torch, gl, We, 2, True)
+    launches = bs.launches()
+    by_d = dict(bs.band_tiles_spmm_packed.launches_by_d)
+    say(f"  launches on the eig band path: {launches}; K2 by X's columns: "
+        f"{dict(sorted(by_d.items()))}")
+    for label, _, _, path in solves:
+        if path != "packed tiles (K2)":
+            raise SmokeFailure(f"band/{label} ran on {path}")
+    for name in ("materialize_band_tiles", "band_tiles_spmm_packed"):
+        if launches[name] < 1:
+            raise SmokeFailure(f"the eig band path did not launch {name}")
+    # one K2 launch a product in LOBPCG's operator, its 8th power in f32:
+    # p to check the start, p for the start, 2p a step, 1 for the Rayleigh
+    # quotients
+    p = eig._default_power(gl.config.float_dtype(gl.config.device()))
+    want = sum(p + p + 2 * p * it + 1 for _, it, _, _ in solves)
+    if launches["band_tiles_spmm_packed"] != want:
+        raise SmokeFailure(f"K2 launched {launches['band_tiles_spmm_packed']}"
+                           f" times, the solves' steps give {want}")
+    with env("GLT_NO_ACCEL", "1"):
+        vals_p, lam2_p, pred_p, _ = eig_fits(torch, gl, W, 2, True)
+    check_spectrum("band/eigen_decomp", vals_b, ref, EIG_TOL["moons"])
+    check_spectrum("plain/eigen_decomp", vals_p, ref, EIG_TOL["moons"])
+    check_spectrum("band against plain", vals_b, vals_p, EIG_BAND_TOL)
+    check_spectrum("band/fiedler value", np.array([lam2_b]), ref[1:2],
+                   EIG_TOL["moons"])
+    check_spectrum("fiedler value, band against plain", np.array([lam2_b]),
+                   np.array([lam2_p]), EIG_BAND_TOL)
+    check_spectral(gl, "band/spectral(W, 2)", pred_b, labels, "moons",
+                   pred_p)
+    check_spectral(gl, "plain/spectral(W, 2)", pred_p, labels, "moons")
+
+    say("== spectral(W, 10) on the ten-cluster input (n=70000, 20-d, k=10)")
+    W10, y10, _ = bench.ten_cluster_case(70000, 10, "cuda")
+    t = time.perf_counter()
+    ref10 = eigsh_reference(W10, 10, shift_invert=False)
+    say(f"  eigsh (float64, host, {time.perf_counter() - t:.1f} s)")
+    vals_g, _, pred_g, solves10 = eig_fits(torch, gl, W10, 10, False)
+    if any("GatherAccel" not in path for _, _, _, path in solves10):
+        raise SmokeFailure(f"ten clusters: not on the gather: {solves10}")
+    with env("GLT_NO_GATHER", "1"):
+        vals_q, _, pred_q, solves_q = eig_fits(torch, gl, W10, 10, False)
+    if any(path != "plain ELL" for _, _, _, path in solves_q):
+        raise SmokeFailure(f"GLT_NO_GATHER: {solves_q}")
+    check_spectrum("gather/eigen_decomp", vals_g, ref10, EIG_TOL["ten"])
+    check_spectrum("plain/eigen_decomp", vals_q, ref10, EIG_TOL["ten"])
+    check_spectrum("gather against plain", vals_g, vals_q, EIG_BAND_TOL)
+    check_spectral(gl, "gather/spectral(W, 10)", pred_g, y10, "ten", pred_q)
+    check_spectral(gl, "plain/spectral(W, 10)", pred_q, y10, "ten")
+    del W10
+    say(f"== the eig phase: {time.perf_counter() - t0:.1f} s")
+
+    say("== K2 at LOBPCG's widths on the moons band")
+    acc = accel.maybe_build(We, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    csr = permuted_csr(torch, acc)
+    entries = []
+    for d in (12, 39):
+        Xd = torch.randn((acc.n_pad, d), generator=gen, device="cuda")
+        entry = spmm_entry(torch, bs, "band_tiles_spmm_packed",
+                           f"eig/float32/d={d}", acc.band(), acc.plan, Xd,
+                           lambda Xd=Xd: torch.sparse.mm(csr, Xd))
+        # the K2 launches at this width in the band's solves, as counted
+        entry["launches"] = by_d.get(d, 0)
+        if entry["launches"] < 1:
+            raise SmokeFailure(f"the eig band path launched no K2 at d={d}: "
+                               f"{by_d}")
+        entries.append(entry)
+    return entries, launches
 
 
 def window_coo(torch, acc):
@@ -1908,16 +2133,17 @@ def main():
                                                  labels, ti)
     launches.update(dist_launches)
     mbo_entries, _ = mbo_phase(torch, gl, accel, bs, W, X, labels, ti)
+    eig_entries, _ = eig_phase(torch, gl, accel, bs, W, labels)
     rect_entries, rect_launches = rect_phase(torch, gl, accel, bs, W, labels,
                                              ti, plain_pred)
     launches.update(rect_launches)
     say(f"== phases 2-5: {time.perf_counter() - t0:.1f} s")
     bench_entries, bench_launches = bench_phase(torch, accel, bs)
     launches.update(bench_launches)
-    entries = (fit_entries + dist_entries + mbo_entries + rect_entries
-               + bench_entries + entries)
+    entries = (fit_entries + dist_entries + mbo_entries + eig_entries
+               + rect_entries + bench_entries + entries)
     for e in entries:
-        # an entry of the MBO phase carries that phase's count
+        # an entry of the MBO or eig phase carries that phase's count
         e.setdefault("launches", launches[e["name"]])
         e["route"] = "cuda"
         e["source"] = CU_FILE[e["name"]]

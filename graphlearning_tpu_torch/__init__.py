@@ -18,7 +18,14 @@ default (see :mod:`config`).  Ported so far:
   (``solvers/volume.py``, with ``utils.class_priors``) and the
   reweighted Laplace fits, ``ssl.laplace(reweighting=...)`` over
   ``graph.reweight``, on the bf16 band or the segmented gather where
-  ``ops.accel.maybe_build`` takes one.
+  ``ops.accel.maybe_build`` takes one;
+* the eigensolvers and spectral clustering: ``graph.eigen_decomp`` /
+  ``eigen_decomp_device`` / ``fiedler_vector`` / ``diffusion_map``
+  (LOBPCG, ``solvers/lobpcg.py`` and ``solvers/eig.py``, its operator on
+  the band or the gather where ``maybe_build`` takes one),
+  ``utils.randomized_svd`` / ``dirichlet_eigenvectors``, and
+  ``clustering.spectral`` with the device k-means (``solvers/kmeans.py``),
+  ``clustering.clustering_accuracy`` and ``purity``.
 
     import graphlearning_tpu_torch as gl
     W = gl.weightmatrix.knn(X, 10)
@@ -30,7 +37,7 @@ from graphlearning_tpu_torch import config
 from graphlearning_tpu_torch.core.sparse import BucketedELL, SparseGraph
 from graphlearning_tpu_torch.core.graphclass import graph
 from graphlearning_tpu_torch import ops, solvers, utils, weightmatrix
-from graphlearning_tpu_torch import ssl, trainsets
+from graphlearning_tpu_torch import clustering, ssl, trainsets
 
 __version__ = "0.1.0"
 
@@ -44,5 +51,6 @@ __all__ = [
     "utils",
     "weightmatrix",
     "ssl",
+    "clustering",
     "trainsets",
 ]

@@ -12,6 +12,8 @@ on the accelerator): float64 on the CPU, float32 on CUDA.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 # Index dtype of graph columns and plans (the kernels take int32).
@@ -54,3 +56,25 @@ def float_dtype(dev) -> torch.dtype:
     """Working float dtype on ``dev``: float64 on the CPU (parity with the
     JAX package under x64), float32 on CUDA."""
     return torch.float64 if torch.device(dev).type == "cpu" else torch.float32
+
+
+def generator(key, dev) -> torch.Generator:
+    """The ``torch.Generator`` that stands where the JAX package takes a
+    PRNG key: ``key`` itself when it is one, else one on ``dev`` seeded
+    with the integer ``key``."""
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator(device=dev).manual_seed(int(key))
+
+
+@contextlib.contextmanager
+def exact_matmul():
+    """Float32 matrix products in full f32 (no TF32) inside the block,
+    whatever the caller's ``torch.set_float32_matmul_precision``: the
+    counterpart of the JAX package's ``Precision.HIGHEST`` products."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)

@@ -1,8 +1,9 @@
 """``graph``: user-facing graph object (counterpart of
-``graphlearning_tpu/core/graphclass.py:24-283,369-497``).  The graph lives
+``graphlearning_tpu/core/graphclass.py:24-283,296-497``).  The graph lives
 on a device as a padded-ELL :class:`SparseGraph`; the scipy matrix is kept
 for interop and for the caches attached to it.  The distance and
-Lipschitz methods run on the band (:mod:`ops.accel`) where it applies."""
+Lipschitz methods run on the band (:mod:`ops.accel`) where it applies, and
+the normalized eigensolve on the band or the gather."""
 
 from __future__ import annotations
 
@@ -51,6 +52,10 @@ class graph:
                 # keep the original object: caches ride on it
                 self._scipy = W.tocsr() if W.format != "csr" else W
         self.num_nodes = self.g.n
+        # the eigendata memo, keyed by normalization, then by every
+        # parameter of eigen_decomp
+        self.eigendata = {}
+        self.eigen_info = {}
 
     @property
     def device(self):
@@ -206,6 +211,74 @@ class graph:
             W = self.weight_matrix
             return Dg @ W + W @ Dg
         raise ValueError(f"invalid reweighting method {method}")
+
+    # -- spectrum ------------------------------------------------------------
+
+    def eigen_decomp_device(self, normalization="combinatorial",
+                            method="exact", k=10, c=None, gamma=0, tol=0,
+                            q=1):
+        """The low-lying spectrum of the Laplacian (:func:`solvers.eig.
+        eigen_decomp`) as tensors on the graph's device, memoized per
+        ``(normalization, method, k, c, gamma, tol, q)`` in
+        ``eigendata[normalization]``.  ``k + b`` pairs are solved and the
+        first ``k`` kept, ``b = min(2 + k // 10, max(n // 4 - k, 0))``
+        guard vectors, since LOBPCG's last pairs converge worst.  The
+        normalized and randomwalk "exact" solves with ``gamma == 0`` run
+        on the f32 band or the gather where ``ops.accel.maybe_build`` takes
+        one (the JAX package also builds it for "lowrank", which does not
+        use it).  ``eigen_info`` holds each solve's LOBPCG steps
+        ("iters") and its path ("path")."""
+        from graphlearning_tpu_torch.ops import accel as _accel
+        from graphlearning_tpu_torch.solvers import eig as _eig
+
+        key = (normalization, method, k, c, gamma, tol, q)
+        cache = self.eigendata.setdefault(normalization, {})
+        if key not in cache:
+            acc = None
+            if (gamma == 0 and method == "exact"
+                    and normalization in ("normalized", "randomwalk")):
+                acc = _accel.maybe_build(self.weight_matrix, cache_obj=self,
+                                         attr="_accel_eig",
+                                         device=self.device, mode="f32")
+            b = min(2 + k // 10, max(self.num_nodes // 4 - k, 0))
+            info = {"path": _accel.path_name(acc)}
+            vals, vecs = _eig.eigen_decomp(
+                self.g, normalization=normalization, method=method,
+                k=k + b, c=c, gamma=gamma, tol=tol, q=q, accel=acc,
+                info=info)
+            cache[key] = (vals[:k], vecs[:, :k])
+            self.eigen_info[key] = info
+        return cache[key]
+
+    def eigen_decomp(self, normalization="combinatorial", method="exact",
+                     k=10, c=None, gamma=0, tol=0, q=1):
+        """:meth:`eigen_decomp_device` as numpy ``(vals, vecs)``: increasing
+        eigenvalues, eigenvectors as columns."""
+        vals, vecs = self.eigen_decomp_device(
+            normalization=normalization, method=method, k=k, c=c,
+            gamma=gamma, tol=tol, q=q)
+        return vals.cpu().numpy(), vecs.cpu().numpy()
+
+    def fiedler_vector(self, return_value=False, tol=1e-8, method="exact"):
+        """The second eigenvector of the normalized Laplacian (and its
+        eigenvalue with ``return_value``)."""
+        vals, vecs = self.eigen_decomp(normalization="normalized",
+                                       method=method, k=2, tol=tol)
+        if return_value:
+            return vecs[:, 1], vals[1]
+        return vecs[:, 1]
+
+    def diffusion_map(self, k=1, alpha=1, d=3, full=False):
+        """Coifman-Lafon diffusion map: ``k`` diffusion steps, density
+        exponent ``alpha``, ``d`` dimensions.  Returns ``(vals, emb)``
+        without the trivial mode unless ``full``."""
+        vals, vecs = self.eigen_decomp(normalization="coifmanlafon", k=d,
+                                       c=float(alpha))
+        if full:
+            S = 1.0 - vals
+            return vals, vecs * (S ** k)[None, :]
+        S = 1.0 - vals[1:]
+        return vals[1:], vecs[:, 1:] * (S ** k)[None, :]
 
     # -- distance and Lipschitz solvers ---------------------------------
 

@@ -42,7 +42,7 @@ JAX).
 
 Each wrapper runs its plain torch twin for CPU tensors only; a CUDA tensor
 goes to the kernel or raises.  ``launches`` on each wrapper counts the
-kernel launches.
+kernel launches (K2's ``launches_by_d`` splits its count by X's columns).
 """
 
 from __future__ import annotations
@@ -318,7 +318,11 @@ def residual_to_device(resid, device, dtype):
 
 def apply_residual(out, X, resid):
     """Add the residual edges' contribution ``W_resid @ X`` to ``out``, in
-    place (``out`` is the band product, owned by the caller)."""
+    place (``out`` is the band product, owned by the caller).  The sums are
+    the same in every run: the ELL bucket's rows are unique, and the
+    spill's repeated rows are summed by ``index_put_(accumulate=True)``,
+    which orders them (``index_add_`` on CUDA sums by atomics, in the
+    order the threads arrive)."""
     if resid is None:
         return out
     urows, rcols, rvals, sp_r, sp_c, sp_v = resid
@@ -326,8 +330,9 @@ def apply_residual(out, X, resid):
         C = torch.einsum("ur,urd->ud", rvals.to(X.dtype), X[rcols])
         out.index_add_(0, urows, C.to(out.dtype))
     if sp_r.shape[0]:
-        out.index_add_(0, sp_r,
-                       (sp_v.to(X.dtype)[:, None] * X[sp_c]).to(out.dtype))
+        out.index_put_((sp_r,),
+                       (sp_v.to(X.dtype)[:, None] * X[sp_c]).to(out.dtype),
+                       accumulate=True)
     return out
 
 
@@ -698,11 +703,14 @@ def band_tiles_spmm_packed(band, plan: PackedPlan, X):
     band_tiles_spmm_packed.launches += n_launch
     if band.dtype == torch.bfloat16:
         band_tiles_spmm_packed.bf16_launches += n_launch
+    by_d = band_tiles_spmm_packed.launches_by_d
+    by_d[X.shape[1]] = by_d.get(X.shape[1], 0) + n_launch
     return out
 
 
 band_tiles_spmm_packed.launches = 0
 band_tiles_spmm_packed.bf16_launches = 0  # of them, on a bf16 band
+band_tiles_spmm_packed.launches_by_d = {}  # of them, by X's columns
 
 
 def band_tiles_spmm(band, plan: TilesPlan, X):
@@ -1741,6 +1749,8 @@ def reset_launches() -> None:
         fn.launches = 0
         if hasattr(fn, "bf16_launches"):
             fn.bf16_launches = 0
+        if hasattr(fn, "launches_by_d"):
+            fn.launches_by_d = {}
 
 
 def launches() -> dict:

@@ -2,7 +2,8 @@
 
 :class:`SpmmSolvers` holds the CG, constrained-Laplace and Poisson
 gradient-descent loops, and the heat steps, dual convolution and MBO loops
-of PoissonMBO and VolumeMBO, that the fits call on an accel, written once
+of PoissonMBO and VolumeMBO, and the normalized eigensolve, that the fits
+call on an accel, written once
 in terms of the operator's ``spmm`` and ``to_perm`` / ``from_perm``: the
 band operator
 (:class:`~graphlearning_tpu_torch.ops.accel.AccelSpMM`) and the gather
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from graphlearning_tpu_torch.solvers import cg as _cg
+from graphlearning_tpu_torch.solvers import eig as _eig
 from graphlearning_tpu_torch.solvers import volume as _volume
 
 
@@ -87,6 +89,25 @@ class SpmmSolvers:
             U = torch.cat([u, (dinv * WU[:, kcls])[:, None]], dim=1)
             T += 1
         return U[:, :kcls], T
+
+    def eig_normalized(self, s_p, k: int, m: int = 200, power: int = 8,
+                       key=None, X0=None, tol=None, info=None):
+        """Top-k eigenpairs of ``A = I + diag(s) Wp diag(s)`` in permuted
+        space by LOBPCG on ``A^power`` (:func:`solvers.eig._lobpcg_topk`):
+        ``(2 - u^T A u / u^T u, U)``, the smallest eigenvalues of the
+        normalized Laplacian, unsorted, and their eigenvectors in permuted
+        space.  Padding rows have ``s = 0``, so ``A`` is the identity there
+        (eigenvalue 1, below the low modes' eigenvalues near 2).  The start
+        is ``X0`` (``s_p``'s rows), else a normal draw from ``key`` (seed 0
+        by default, or a generator).  ``info`` gets the steps taken
+        ("iters")."""
+        def A(X):
+            return X + s_p[:, None] * self.spmm(s_p[:, None] * X)
+
+        _, U = _eig._lobpcg_topk(A, s_p.shape[0], int(k), tol, key=key,
+                                 m=int(m), dtype=s_p.dtype, power=int(power),
+                                 X0=X0, device=s_p.device, info=info)
+        return 2.0 - _eig._rayleigh(A, U), U
 
     # -- PoissonMBO and VolumeMBO ------------------------------------------
 

@@ -1,4 +1,5 @@
 """Iterative solvers of graphlearning_tpu_torch: conjugate gradients
 (``cg``), graph distances and p-eikonal (``eikonal``), p-Laplace and AMLE
-(``plaplace``), and the volume-constrained assignment and MBO loops
-(``volume``)."""
+(``plaplace``), the volume-constrained assignment and MBO loops
+(``volume``), LOBPCG (``lobpcg``) and the Laplacian eigensolvers over it
+(``eig``), and k-means (``kmeans``)."""

@@ -68,9 +68,17 @@ def _brute_knn_device(X, k, similarity="euclidean", chunk_size=2048,
     return (torch.cat(inds).cpu().numpy(), torch.cat(dists).cpu().numpy())
 
 
-def knnsearch(X, k, method=None, similarity="euclidean", device=None):
+def knnsearch(X, k, method=None, similarity="euclidean", dataset=None,
+              metric="raw", device=None):
     """kNN search: ``method`` is 'kdtree' (host cKDTree, the default for
-    dim <= 5) or 'brute' (device matmul + top-k, the default above)."""
+    dim <= 5) or 'brute' (device matmul + top-k, the default above).  The
+    parameters are the JAX package's, in its order, with ``device`` last;
+    ``dataset`` (with ``metric``) names the dataset whose kNN data the JAX
+    package stores, which waits for the port of ``datasets``."""
+    if dataset is not None:
+        raise NotImplementedError(
+            f"knnsearch storing the kNN data of the dataset {dataset!r} "
+            f"(metric {metric!r}) comes with datasets, not ported yet (P13)")
     X = np.asarray(X)
     n, m = X.shape
     k = min(k, n)

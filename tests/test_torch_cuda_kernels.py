@@ -1106,3 +1106,123 @@ def test_cuda_bench_runs_every_mode(cuda_device):
     launches = bs.launches()
     assert launches["band_tiles_spmm_packed_rowq"] > 0
     assert launches["band_tiles_spmm_packed_i8"] > 0
+
+
+def _eig_cases(acc, W, k, m, dev):
+    """``acc.eig_normalized`` (``I + s Wp s`` in permuted space, LOBPCG on
+    its 8th power, ``m`` steps) from the start ``X0`` of the plain path,
+    and the same solve on the plain ELL path.  Returns ``(vals, U)`` of
+    the band in original order, its K2 launches, and the plain path's
+    ``(vals, U)``."""
+    from graphlearning_tpu_torch import config
+    from graphlearning_tpu_torch.ops import graphops
+    from graphlearning_tpu_torch.solvers import eig
+
+    deg = np.asarray(W.sum(axis=1)).ravel()
+    s = torch.as_tensor(deg ** -0.5, dtype=torch.float32, device=dev)
+    X0 = torch.randn((W.shape[0], k), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    before = bs.launches()["band_tiles_spmm_packed"]
+    info = {}
+    vals, U = acc.eig_normalized(acc.to_perm(s), k, m=m, power=8,
+                                 X0=acc.to_perm(X0), info=info)
+    n_launch = bs.launches()["band_tiles_spmm_packed"] - before
+    g = SparseGraph.from_scipy(W, dtype=torch.float32, device=dev)
+    A = lambda X: X + s[:, None] * graphops.spmm(g, s[:, None] * X)
+    with config.exact_matmul():
+        _, Up = eig._lobpcg_topk(A, W.shape[0], k, 0, m=m, power=8, X0=X0)
+        vals_p = 2.0 - eig._rayleigh(A, Up)
+    return (vals, acc.from_perm(U)), n_launch, info["iters"], (vals_p, Up)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 13])
+def test_cuda_eig_normalized_on_k2_matches_twin_and_plain(cuda_device,
+                                                          monkeypatch, k):
+    """LOBPCG's operator on K2 at its two widths, d = 3k (12: FFMA; 39:
+    3xTF32 tensor cores) and d = k: one K2 launch an application of the
+    operator (8 for the start check, 8 for the start, 16 a step, 1 for the
+    Rayleigh quotients; ``launches_by_d`` splits them by width), and the
+    first ``k - b`` eigenvalues (``b`` the
+    graph's guard vectors; the last pairs converge worst) within 1e-5 of
+    the twin's and of the plain path's (JAX's bound for its band,
+    ``test_eigen_decomp_accel_matches_plain``)."""
+    W = _knn_csr(9000, 10, seed=1)
+    acc = AccelSpMM(W, device=cuda_device)
+    assert acc.packed
+    by_d = dict(bs.band_tiles_spmm_packed.launches_by_d)
+    (vals, _), n_launch, iters, (vals_p, _) = _eig_cases(
+        acc, W, k, 30, cuda_device)
+    assert iters == 30 and n_launch == 8 + 8 + 16 * iters + 1
+    grew = {d: c - by_d.get(d, 0)
+            for d, c in bs.band_tiles_spmm_packed.launches_by_d.items()}
+    assert {d: c for d, c in grew.items() if c} == {
+        1: 8, k: 8 + 8 * iters + 1, 3 * k: 8 * iters}
+    monkeypatch.setattr(bs, "band_tiles_spmm_packed",
+                        lambda band, plan, X: bs._tiles_spmm_plain(
+                            band, plan, X))
+    (vals_t, _), _, _, _ = _eig_cases(acc, W, k, 30, cuda_device)
+    kk = k - (2 + k // 10)
+    first = lambda v: np.sort(v.cpu().numpy())[:kk]
+    for ref in (vals_t, vals_p):
+        np.testing.assert_allclose(first(vals), first(ref), rtol=0,
+                                   atol=1e-5)
+    assert np.all(np.isfinite(vals.cpu().numpy()))
+    assert np.all(np.abs(first(vals)) < 0.01)
+
+
+@pytest.mark.cuda
+def test_cuda_lobpcg_products_exact_under_tf32(cuda_device):
+    """LOBPCG's products run in full f32 whatever the caller's matmul
+    precision: with TF32 allowed ("high") the solve gives the same bits as
+    with "highest", and the caller's setting is restored."""
+    from graphlearning_tpu_torch.solvers.lobpcg import lobpcg_standard
+
+    rs = np.random.RandomState(0)
+    Q, _ = np.linalg.qr(rs.randn(600, 600))
+    ev = rs.rand(600)
+    ev[:4] = [4.0, 3.0, 2.5, 2.2]
+    A = torch.as_tensor((Q * ev) @ Q.T, dtype=torch.float32,
+                        device=cuda_device)
+    X0 = torch.as_tensor(rs.randn(600, 4), dtype=torch.float32,
+                         device=cuda_device)
+    old = torch.get_float32_matmul_precision()
+    try:
+        runs = []
+        for precision in ("high", "highest"):
+            torch.set_float32_matmul_precision(precision)
+            runs.append(lobpcg_standard(lambda X: A @ X, X0, m=20))
+            assert torch.get_float32_matmul_precision() == precision
+    finally:
+        torch.set_float32_matmul_precision(old)
+    (t1, U1, i1), (t2, U2, i2) = runs
+    assert i1 == i2 and torch.equal(t1, t2) and torch.equal(U1, U2)
+    np.testing.assert_allclose(t1.cpu().numpy(), [4.0, 3.0, 2.5, 2.2],
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_apply_residual_sums_the_same_in_every_run(cuda_device):
+    """The residual edges' sum on the card: a spill of rows with many
+    residual edges (one ELL slot a row) gives the same bits in every call,
+    and the f64 sum on the CPU within TOL of max|ref|."""
+    rs = np.random.RandomState(0)
+    n, m = 4096, 20000
+    rrows = np.sort(rs.randint(0, 64, size=m)).astype(np.int64)
+    rslots = np.zeros(m, np.int64)
+    for r in np.unique(rrows):
+        rslots[rrows == r] = np.arange(np.sum(rrows == r))
+    cols = rs.randint(0, n, size=(n, int(rslots.max()) + 1)).astype(np.int32)
+    vals = rs.rand(n, cols.shape[1]).astype(np.float32)
+    host = bs.build_residual_ell(rrows, rslots, cols, vals, n, rb=1)
+    X = rs.randn(n, 12).astype(np.float32)
+    Xd = torch.as_tensor(X, device=cuda_device)
+    resid = bs.residual_to_device(host, cuda_device, torch.float32)
+    runs = [bs.apply_residual(torch.zeros((n, 12), device=cuda_device), Xd,
+                              resid) for _ in range(10)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    ref = bs.apply_residual(torch.zeros((n, 12), dtype=torch.float64),
+                            torch.as_tensor(X, dtype=torch.float64),
+                            bs.residual_to_device(host, "cpu", torch.float64))
+    err = float((runs[0].cpu().double() - ref).abs().max())
+    assert err <= TOL[torch.float32] * float(ref.abs().max())

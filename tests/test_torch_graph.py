@@ -148,6 +148,24 @@ def test_knn_positional_metric_matches_jax(similarity):
         tgl.weightmatrix.knn("mnist", 10, device="cpu")
 
 
+@pytest.mark.parametrize("method", [None, "kdtree", "brute"])
+def test_knnsearch_positional_dataset_metric_matches_jax(method):
+    """``knnsearch(X, 5, method, "euclidean", None, "raw")``: the JAX
+    package's positional order, ``dataset`` fifth and ``metric`` sixth,
+    gives its neighbors and distances; a dataset name (JAX stores the kNN
+    data under it) waits for ``datasets``."""
+    X = np.random.RandomState(8).rand(200, 3)
+    args = (X, 5, method, "euclidean", None, "raw")
+    ind, dist = tgl.weightmatrix.knnsearch(*args, device="cpu")
+    jind, jdist = jgl.weightmatrix.knnsearch(*args)
+    assert ind.shape == jind.shape == (200, 5)
+    np.testing.assert_array_equal(ind, jind)
+    np.testing.assert_allclose(dist[:, 1:], jdist[:, 1:], **TOL)
+    with pytest.raises(NotImplementedError, match="P13"):
+        tgl.weightmatrix.knnsearch(X, 5, method, "euclidean", "mnist", "raw",
+                                   device="cpu")
+
+
 @pytest.mark.parametrize("alpha", [0.5, 1.0])
 def test_coifmanlafon_laplacian_matches_jax(W_diag, alpha):
     """The random-walk Laplacian of ``D^-alpha W D^-alpha``, alpha by
@@ -195,9 +213,11 @@ def test_graph_object_laplacians(W_diag):
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys, graphlearning_tpu_torch; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'graphlearning_tpu' or "
-            "m.startswith('graphlearning_tpu.')]; print(bad); "
+            "from graphlearning_tpu_torch import clustering; "
+            "from graphlearning_tpu_torch.solvers import eig, kmeans, lobpcg; "
+            "bad = [m for m in sys.modules if m in ('jax', 'sklearn', "
+            "'graphlearning_tpu') or m.startswith(('jax.', 'sklearn.', "
+            "'graphlearning_tpu.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
