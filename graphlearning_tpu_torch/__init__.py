@@ -25,7 +25,11 @@ default (see :mod:`config`).  Ported so far:
   the band or the gather where ``maybe_build`` takes one),
   ``utils.randomized_svd`` / ``dirichlet_eigenvectors``, and
   ``clustering.spectral`` with the device k-means (``solvers/kmeans.py``),
-  ``clustering.clustering_accuracy`` and ``purity``.
+  ``clustering.clustering_accuracy`` and ``purity``;
+* the eigenbasis models and the rest of clustering: ``ssl.poisson`` /
+  ``ssl.poisson_mbo`` with ``solver="spectral"``, ``ssl.multiclass_mbo``,
+  ``ssl.modularity_mbo``, ``ssl.centered_kernel``, ``clustering.incres``
+  / ``fokker_planck`` / ``withinss`` / ``RP1D`` and ``graph.page_rank``.
 
     import graphlearning_tpu_torch as gl
     W = gl.weightmatrix.knn(X, 10)

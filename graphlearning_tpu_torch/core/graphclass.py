@@ -212,6 +212,15 @@ class graph:
             return Dg @ W + W @ Dg
         raise ValueError(f"invalid reweighting method {method}")
 
+    # -- PageRank ------------------------------------------------------------
+
+    def page_rank(self, alpha=0.85, v=None, tol=1e-10):
+        """The PageRank vector (:func:`solvers.pagerank.page_rank`) as a
+        numpy array; ``v`` the teleport vector (uniform by default)."""
+        from graphlearning_tpu_torch.solvers.pagerank import page_rank
+
+        return page_rank(self.g, alpha=alpha, v=v, tol=tol).cpu().numpy()
+
     # -- spectrum ------------------------------------------------------------
 
     def eigen_decomp_device(self, normalization="combinatorial",

@@ -149,9 +149,12 @@ def segment_reduce(out, index, src, kind: str, include_self: bool = True):
     """Reduce rows of ``src`` into ``out`` in place at rows ``index``:
     ``kind`` "sum", "min" or "max".  A min or max row that ``index``
     reaches combines with its value in ``out`` only with
-    ``include_self``; the other rows keep theirs."""
+    ``include_self``; the other rows keep theirs.  A sum is the same in
+    every run: ``index_put_(accumulate=True)`` sorts the rows and adds each
+    row's terms in order (``index_add_`` on CUDA adds them by atomics, in
+    the order the threads arrive)."""
     if kind == "sum":
-        return out.index_add_(0, index, src)
+        return out.index_put_((index.long(),), src, accumulate=True)
     idx = index.reshape((-1,) + (1,) * (src.dim() - 1)).expand_as(src)
     return out.scatter_reduce_(0, idx, src,
                                reduce={"min": "amin", "max": "amax"}[kind],

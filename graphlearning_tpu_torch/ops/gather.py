@@ -148,15 +148,13 @@ class GatherSpMM:
 
 class GatherAccel(GatherSpMM, SpmmSolvers):
     """The accel of a band-hostile graph: :class:`GatherSpMM` with the
-    solver entries that the ported fits call on an accel (``cg_scaled``,
-    ``laplace_constrained``, ``poisson_gd``, ``heat_steps``,
-    ``dual_conv_labels``, ``poisson_mbo``, ``volume_mbo``, ``to_perm`` /
-    ``from_perm``) and :meth:`bellman_ford`, which the distance solvers
-    take (``supports_bellman_ford``): VolumeMBO's Voronoi start is its
-    caller.  It stores no band, so the Lipschitz solvers' band gates
-    (``materialize``, ``rect_band_ok()``) send them to their plain path.
-    The JAX class's ``incres``, ``centered_kernel`` and
-    ``eig_normalized`` wait for the fits that call them."""
+    solver entries that the ported fits call on an accel
+    (:class:`~graphlearning_tpu_torch.ops.solver_entries.SpmmSolvers`) and
+    :meth:`bellman_ford`, which the distance solvers take
+    (``supports_bellman_ford``): VolumeMBO's Voronoi start is its caller.
+    It stores no band, so the Lipschitz solvers' band gates
+    (``materialize``, ``rect_band_ok()``) send them to their plain
+    path."""
 
     materialize = False
     supports_bellman_ford = True

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from graphlearning_tpu_torch.core.sparse import SparseGraph
+from graphlearning_tpu_torch.core.sparse import BucketedELL, SparseGraph
 
 
 def _as_2d(X):
@@ -21,12 +21,27 @@ def _as_2d(X):
     return X, False
 
 
+# Widest X that CUDA sums by a multiply and a reduction over k; wider X,
+# and X on the CPU, go through one batched product, the JAX package's form
+# (on the CPU its sums follow the JAX package's, which the parity tests
+# hold to 1e-10).  On an H100 (the n=65536, k=19 moons ELL, ``graph_ms``)
+# the sum took 0.028 / 0.034 / 0.134 / 0.865 ms at d = 1 / 2 / 10 / 16
+# against the product's 0.071 / 0.112 / 0.191 / 0.903, the same at d =
+# 24, and 0.957 / 0.656 / 1.961 ms at d = 32 / 57 / 171 against 0.911 /
+# 0.480 / 1.410 (``tools/plain_spmm_time.py``).
+_SUM_DMAX = 16
+
+
 def spmm(g: SparseGraph, X):
     """``W @ X``: gather neighbor rows, weight, reduce over k.  Padding
     slots have ``vals == 0`` and a valid column, so no mask is needed."""
     X2, was_1d = _as_2d(X)
     gathered = X2[g.cols]                                # (n, k, d)
-    out = torch.einsum("nk,nkd->nd", g.vals.to(X2.dtype), gathered)
+    vals = g.vals.to(X2.dtype)
+    if X2.is_cuda and X2.shape[1] <= _SUM_DMAX:
+        out = torch.sum(vals[:, :, None] * gathered, dim=1)
+    else:
+        out = torch.einsum("nk,nkd->nd", vals, gathered)
     return out[:, 0] if was_1d else out
 
 
@@ -35,12 +50,34 @@ def neighbor_take(g: SparseGraph, x):
     return x[g.cols]
 
 
+def transpose(g: SparseGraph) -> BucketedELL:
+    """``W.T`` as a :class:`BucketedELL` (an ELL capped at the 95th
+    percentile in-degree, the hub columns' tails in its spill; ``g``
+    itself, with no spill, when ``W`` is symmetric), built once on the
+    host and kept on ``g``."""
+    t = getattr(g, "_transpose", None)
+    if t is None:
+        W = g.to_scipy()
+        if (W != W.T).nnz == 0:
+            t = BucketedELL(g, None, None, None, kcap=g.k, m=0)
+        else:
+            t = BucketedELL.from_scipy(W.T.tocsr(), dtype=g.vals.dtype,
+                                       device=g.device)
+        g._transpose = t
+    return t
+
+
 def spmm_t(g: SparseGraph, X):
-    """``W.T @ X`` by a scatter-add over the flattened columns."""
+    """``W.T @ X``: :func:`spmm` over the transpose's ELL plus its spill,
+    summed in sorted order (:func:`segment_reduce`), so the result is the
+    same in every run.  The JAX package scatters over the flattened
+    columns, which on CUDA would add by atomics in any order."""
     X2, was_1d = _as_2d(X)
-    contrib = g.vals.to(X2.dtype)[:, :, None] * X2[:, None, :]   # (n, k, d)
-    out = torch.zeros_like(X2)
-    out.index_add_(0, g.cols.reshape(-1), contrib.reshape(g.n * g.k, -1))
+    t = transpose(g)
+    out = spmm(t.main, X2)
+    if t.m:
+        spill = t.sp_vals.to(X2.dtype)[:, None] * X2[t.sp_cols]
+        out = out + t.spill_reduce(spill, "sum", 0.0)
     return out[:, 0] if was_1d else out
 
 

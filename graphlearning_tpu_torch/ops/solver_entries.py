@@ -2,8 +2,9 @@
 
 :class:`SpmmSolvers` holds the CG, constrained-Laplace and Poisson
 gradient-descent loops, and the heat steps, dual convolution and MBO loops
-of PoissonMBO and VolumeMBO, and the normalized eigensolve, that the fits
-call on an accel, written once
+of PoissonMBO and VolumeMBO, the normalized eigensolve, the centered
+kernel method's solve and INCRES's rounds, that the fits call on an
+accel, written once
 in terms of the operator's ``spmm`` and ``to_perm`` / ``from_perm``: the
 band operator
 (:class:`~graphlearning_tpu_torch.ops.accel.AccelSpMM`) and the gather
@@ -17,7 +18,9 @@ from __future__ import annotations
 import torch
 
 from graphlearning_tpu_torch.solvers import cg as _cg
+from graphlearning_tpu_torch.solvers import centered as _centered
 from graphlearning_tpu_torch.solvers import eig as _eig
+from graphlearning_tpu_torch.solvers import incres as _incres
 from graphlearning_tpu_torch.solvers import volume as _volume
 
 
@@ -108,6 +111,33 @@ class SpmmSolvers:
                                  m=int(m), dtype=s_p.dtype, power=int(power),
                                  X0=X0, device=s_p.device, info=info)
         return 2.0 - _eig._rayleigh(A, U), U
+
+    def _valid(self):
+        """The true rows of the permuted space (padding rows False)."""
+        ones = torch.ones(self.n, dtype=torch.bool, device=self.device)
+        return self.to_perm(ones, fill=False)
+
+    def centered_kernel(self, K_p, mask_p, alpha_factor, tol, e0_p,
+                        power_it: int, n_true: int, max_iter: int = 10**5,
+                        info=None):
+        """The centered kernel method's solve (:func:`solvers.centered.
+        solve`) in permuted space, the column means over the true rows
+        only: ``K_p`` the centered labels, ``mask_p`` the labeled rows,
+        ``e0_p`` the power iteration's start.  Returns ``u_p``."""
+        return _centered.solve(self.spmm, K_p, mask_p, alpha_factor, tol,
+                               e0_p, power_it, n_true, valid=self._valid(),
+                               max_iter=max_iter, info=info)
+
+    def incres(self, dinv_p, u0, draw, k: int, T: int, Dm: int, n_true: int,
+               info=None):
+        """INCRES's rounds (:func:`solvers.incres.rounds`): the seeds
+        planted and the labels read in original order, the diffusion in
+        permuted space, its stop test over the true rows.  ``draw((k,
+        n))`` gives each round's scores.  Returns the labels (n,)."""
+        return _incres.rounds(self.spmm, dinv_p, u0, draw, int(k), int(T),
+                              int(Dm), int(n_true), to_perm=self.to_perm,
+                              from_perm=self.from_perm, valid=self._valid(),
+                              info=info)
 
     # -- PoissonMBO and VolumeMBO ------------------------------------------
 

@@ -2,4 +2,6 @@
 (``cg``), graph distances and p-eikonal (``eikonal``), p-Laplace and AMLE
 (``plaplace``), the volume-constrained assignment and MBO loops
 (``volume``), LOBPCG (``lobpcg``) and the Laplacian eigensolvers over it
-(``eig``), and k-means (``kmeans``)."""
+(``eig``), k-means (``kmeans``), the centered kernel method's solve
+(``centered``), INCRES's rounds (``incres``) and PageRank
+(``pagerank``)."""

@@ -107,10 +107,11 @@ def _default_power(dtype):
 
 
 def smallest_eigh(matvec, n, k, shift, tol=0, key=None, m=200, dtype=None,
-                  device=None):
+                  device=None, info=None):
     """Smallest-k eigenpairs of a symmetric operator by LOBPCG on
     ``(shift I - Op)^p`` (``shift`` must bound the spectrum above);
-    eigenvalues by Rayleigh quotients on the unpowered operator."""
+    eigenvalues by Rayleigh quotients on the unpowered operator.  ``info``
+    gets LOBPCG's steps ("iters")."""
     dev = config.device(device)
     dtype = dtype or config.float_dtype(dev)
 
@@ -118,7 +119,7 @@ def smallest_eigh(matvec, n, k, shift, tol=0, key=None, m=200, dtype=None,
         return shift * X - matvec(X)
 
     _, U = _lobpcg_topk(A, n, k, tol, key=key, m=m, dtype=dtype,
-                        power=_default_power(dtype), device=dev)
+                        power=_default_power(dtype), device=dev, info=info)
     vals = shift - _rayleigh(A, U)
     order = torch.argsort(vals)
     return vals[order], U[:, order]
@@ -173,7 +174,8 @@ def eigen_decomp(g: SparseGraph, normalization="combinatorial",
 
         lmax, _ = power_iteration(Mop, n, num_iter=100, device=dev)
         shift = 1.01 * lmax + 1.0
-        vals, vecs = smallest_eigh(Mop, n, k, shift, tol=tol, device=dev)
+        vals, vecs = smallest_eigh(Mop, n, k, shift, tol=tol, device=dev,
+                                   info=info)
         if normalization == "randomwalk":
             vecs = vecs / torch.sqrt(deg)[:, None]
         return vals, vecs

@@ -1,8 +1,10 @@
 """Semi-supervised learning on graphs (counterpart of
-``graphlearning_tpu/ssl.py:36-345,507-1334,1722-1952`` for Laplace (with
-its reweightings), Poisson and random-walk learning, PoissonMBO and
-VolumeMBO, and the distance and Lipschitz models: graph nearest neighbor,
-AMLE, p-eikonal and p-Laplace).
+``graphlearning_tpu/ssl.py:36-345,507-1468,1527-1611,1722-1952`` for
+Laplace (with its reweightings), Poisson (its spectral solver too) and
+random-walk learning, PoissonMBO and VolumeMBO, the eigenbasis models
+Multiclass MBO and Modularity MBO, the centered kernel method, and the
+distance and Lipschitz models: graph nearest neighbor, AMLE, p-eikonal and
+p-Laplace).
 
 Each model's ``_fit`` moves the labels to the graph's device once and runs
 a matrix-free solver there.  On a large band-friendly graph on CUDA, every
@@ -24,6 +26,7 @@ from graphlearning_tpu_torch.core import graphclass as _graphmod
 from graphlearning_tpu_torch.core.sparse import SparseGraph
 from graphlearning_tpu_torch.ops import accel as _accel
 from graphlearning_tpu_torch.ops import graphops as _ops
+from graphlearning_tpu_torch.solvers import centered as _centered
 from graphlearning_tpu_torch.solvers import cg as _cg
 from graphlearning_tpu_torch.solvers import eikonal as _eik
 from graphlearning_tpu_torch.solvers import plaplace as _pl
@@ -335,22 +338,21 @@ class randomwalk(ssl):
 
 class poisson(ssl):
     """Poisson learning.  Solvers: 'conjugate_gradient' (normalized
-    Laplacian CG with ``D^{+-1/2}`` conjugation) and 'gradient_descent'
+    Laplacian CG with ``D^{+-1/2}`` conjugation), 'gradient_descent'
     (``u <- D^-1 b + D^-1 W u`` until the random walk from the labels
-    mixes).  'spectral' waits for the eigensolvers.  The parameters are
-    the JAX package's, in its order, with ``device`` last: ``p`` and
-    ``spectral_cutoff`` are stored for the spectral solver, the only one
-    that reads them, and ``use_cuda`` is accepted and ignored (the device
-    comes from ``device``)."""
+    mixes) and 'spectral' (``u = V ((V^T b) / lambda^p)`` over the first
+    ``spectral_cutoff`` nontrivial eigenpairs of the randomwalk Laplacian,
+    from :meth:`graph.eigen_decomp_device`, on the f32 band or the gather
+    where it takes one).  The parameters are the JAX package's, in its
+    order, with ``device`` last: ``p`` and ``spectral_cutoff`` are read by
+    the spectral solver only, and ``use_cuda`` is accepted and ignored
+    (the device comes from ``device``)."""
 
     def __init__(self, W=None, class_priors=None, solver="conjugate_gradient",
                  p=1, use_cuda=False, min_iter=50, max_iter=1000, tol=1e-3,
                  spectral_cutoff=10, device=None):
-        if solver == "spectral":
-            raise NotImplementedError(
-                "poisson solver='spectral' needs the eigensolvers, not "
-                "ported yet")
-        if solver not in ("conjugate_gradient", "gradient_descent"):
+        if solver not in ("conjugate_gradient", "gradient_descent",
+                          "spectral"):
             raise ValueError(f"invalid Poisson solver {solver!r}")
         super().__init__(W, class_priors, device=device)
         self.solver = solver
@@ -374,6 +376,15 @@ class poisson(ssl):
         source[train_ind] = onehot - np.mean(onehot, axis=0)
         b = torch.as_tensor(source, device=dev).to(dtype)
         deg = _ops.degree_vector(g)
+
+        if self.solver == "spectral":
+            vals, vecs = G0.eigen_decomp_device(
+                normalization="randomwalk", k=self.spectral_cutoff + 1)
+            V, lam = vecs[:, 1:], vals[1:]
+            if self.p != 1:
+                lam = lam ** self.p
+            with config.exact_matmul():
+                return V @ ((V.T @ b) / lam[:, None])
 
         if self.solver == "conjugate_gradient":
             s = 1.0 / torch.sqrt(deg)
@@ -446,19 +457,17 @@ class poisson_mbo(ssl):
     each followed by the volume projection onto ``class_priors`` and a
     one-hot threshold.  The parameters are the JAX package's, in its
     order, with ``device`` last; ``use_cuda`` is accepted and ignored (the
-    device comes from ``device``).  The heat steps run on the bf16 band or
-    the gather where :func:`~ops.accel.maybe_build` takes one (a threshold
-    follows them, so the bf16 band's rounding does not matter), else on
-    the plain ELL path; the projection loops stay on the device.  With
-    ``all_labels`` the fit prints each round's accuracy."""
+    device comes from ``device``).  ``solver`` and ``spectral_cutoff`` go
+    to the Poisson fit of the start (:class:`poisson`).  The heat steps run
+    on the bf16 band or the gather where :func:`~ops.accel.maybe_build`
+    takes one (a threshold follows them, so the bf16 band's rounding does
+    not matter), else on the plain ELL path; the projection loops stay on
+    the device.  With ``all_labels`` the fit prints each round's
+    accuracy."""
 
     def __init__(self, W=None, class_priors=None, solver="conjugate_gradient",
                  use_cuda=False, min_iter=50, max_iter=1000, tol=1e-3,
                  spectral_cutoff=10, Ns=40, mu=1, T=20, device=None):
-        if solver == "spectral":
-            raise NotImplementedError(
-                "poisson_mbo solver='spectral' needs the eigensolvers (P10), "
-                "not ported yet")
         super().__init__(W, class_priors, device=device)
         self.poisson_model = poisson(W, solver=solver, min_iter=min_iter,
                                      max_iter=max_iter, tol=tol,
@@ -618,6 +627,177 @@ class volume_mbo(ssl):
         labels = labels.cpu().numpy()
         labels[train_ind] = train_labels
         return utils.labels_to_onehot(labels, k)
+
+
+# -- the eigenbasis MBO models and the centered kernel method ----------------
+
+
+class multiclass_mbo(ssl):
+    """Multiclass MBO: T rounds of ``Ns`` diffusion steps in the truncated
+    eigenbasis of the normalized Laplacian, ``u <- X (V X^T (u - (dt / Ns)
+    mu J (u - K)))`` with ``V = 1 / (1 + (dt / Ns) lambda)``, ``J`` the
+    labeled rows and ``K`` their one-hot labels, each round ending in the
+    one-hot threshold.  The ``num_eig`` eigenpairs come from
+    :meth:`graph.eigen_decomp_device` (the f32 band or the gather where it
+    takes one); the rounds are dense products on the device.  The random
+    start is drawn as the JAX package draws it: from
+    ``np.random.RandomState(seed)``, or numpy's global state when ``seed``
+    is None.  The parameters are the JAX package's, in its order, with
+    ``device`` last.  With ``all_labels`` the fit prints each round's
+    accuracy."""
+
+    def __init__(self, W=None, class_priors=None, Ns=6, T=10, dt=0.15, mu=50,
+                 num_eig=50, seed=None, device=None):
+        super().__init__(W, class_priors, device=device)
+        self.Ns, self.T, self.dt, self.mu = Ns, T, dt, mu
+        self.num_eig = num_eig
+        self.seed = seed
+        self.name = "Multiclass MBO"
+
+    def _fit(self, train_ind, train_labels, all_labels=None):
+        Ns, T, dt, mu = self.Ns, self.T, self.dt, self.mu
+        n = self.graph.num_nodes
+        dev = self.graph.device
+        dtype = config.float_dtype(dev)
+        k = len(np.unique(train_labels))
+        eigvals, X = self.graph.eigen_decomp_device(
+            normalization="normalized", k=self.num_eig)
+        X = X.to(dtype)
+        V = (1.0 / (1.0 + (dt / Ns) * eigvals)).to(dtype)
+
+        rs = np.random if self.seed is None else np.random.RandomState(
+            self.seed)
+        u0 = utils.labels_to_onehot(rs.rand(n, k).argmax(axis=1), k)
+        u0[train_ind] = utils.labels_to_onehot(train_labels, k)
+        J = np.zeros((n, 1))
+        J[train_ind] = 1
+        K = np.zeros((n, k))
+        K[train_ind] = utils.labels_to_onehot(train_labels, k)
+        as_t = lambda a: torch.as_tensor(a, device=dev).to(dtype)
+        J, K, u = as_t(J), as_t(K), as_t(u0)
+        c = (dt / Ns) * mu
+        for _ in range(T):
+            with config.exact_matmul():
+                for _ in range(Ns):
+                    Z = u - c * J * (u - K)
+                    u = X @ (V[:, None] * (X.T @ Z))
+            u = _volume._onehot(torch.argmax(u, dim=1), k, dtype)
+            if all_labels is not None:
+                self.prob = u.cpu().numpy()
+                print("Accuracy = %.2f" % ssl_accuracy(
+                    self.predict(), all_labels, train_ind))
+        return u
+
+
+class modularity_mbo(ssl):
+    """Modularity MBO: T rounds of the diffusion ``u <- V exp(-D dt) V^T u``
+    in the low spectrum ``(D, V)`` of the combinatorial Laplacian plus the
+    modularity term (``5 k`` pairs, :meth:`graph.eigen_decomp_device` with
+    ``gamma``, on the plain path as in the JAX package), then ``Ns``
+    fidelity steps on the labeled rows (``lamb > 0``) and the one-hot
+    threshold.  ``dt`` is the JAX package's: the geometric mean of ``0.15 /
+    ((gamma + 1) max deg)`` and ``log(|u0| / epsilon) / D[0]``.  The
+    parameters are the JAX package's, in its order, with ``device`` last.
+    With ``all_labels`` the fit prints each round's accuracy."""
+
+    def __init__(self, W=None, class_priors=None, gamma=0.5, epsilon=1,
+                 lamb=1, T=20, Ns=5, device=None):
+        super().__init__(W, class_priors, device=device)
+        self.gamma, self.epsilon, self.lamb = gamma, epsilon, lamb
+        self.T, self.Ns = T, Ns
+        self.name = "Modularity MBO"
+
+    def _fit(self, train_ind, train_labels, all_labels=None):
+        gamma, eps, lamb, T, Ns = (self.gamma, self.epsilon, self.lamb,
+                                   self.T, self.Ns)
+        n = self.graph.num_nodes
+        dev = self.graph.device
+        dtype = config.float_dtype(dev)
+        k = len(np.unique(train_labels))
+        train_onehot = utils.labels_to_onehot(train_labels, k)
+        u0 = np.zeros((n, k))
+        u0[train_ind] = train_onehot
+
+        D, V = self.graph.eigen_decomp_device(normalization="combinatorial",
+                                              k=5 * k, gamma=gamma)
+        D = D.cpu().numpy()
+        deg = self.graph.degree_vector()
+        dtlow = 0.15 / ((gamma + 1) * np.max(deg))
+        dthigh = np.log(np.linalg.norm(u0) / eps) / max(D[0], 1e-12)
+        dt = np.sqrt(dtlow * max(dthigh, dtlow))
+
+        as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+        V = V.to(dtype)
+        expD = as_t(np.exp(-D * dt))
+        ti = torch.as_tensor(np.asarray(train_ind), device=dev)
+        onehot = as_t(train_onehot)
+        u = as_t(u0)
+        for _ in range(T):
+            with config.exact_matmul():
+                u = V @ (expD[:, None] * (V.T @ u))
+            if lamb > 0:
+                for _ in range(Ns):
+                    u[ti] = u[ti] - (dt / Ns) * lamb * (u[ti] - onehot)
+            u = _volume._onehot(torch.argmax(u, dim=1), k, dtype)
+            if all_labels is not None:
+                self.prob = u.cpu().numpy()
+                print("Accuracy = %.2f" % ssl_accuracy(
+                    self.predict(), all_labels, train_ind))
+        return u
+
+
+class centered_kernel(ssl):
+    """The centered kernel method: the top eigenvalue ``l`` of the centered
+    operator ``C W C`` by ``power_it`` power iterations, then the fixed
+    point ``u <- u + (C W C u / (alpha l) - u)`` off the labeled rows from
+    the centered one-hot labels, until its step is at most ``tol`` (at
+    least ``100 eps`` of the dtype) (:func:`solvers.centered.solve`).  The
+    operator runs on the f32 band or the gather where
+    :func:`~ops.accel.maybe_build` takes one, the column means over the
+    true rows.  The power iteration starts from a normal draw seeded by
+    ``seed``, in node order on every path (the JAX package draws the
+    accels' start in their permuted space).  The parameters are the JAX
+    package's, in its order, with ``device`` last; ``self.iters`` holds
+    the fixed point's steps."""
+
+    def __init__(self, W=None, class_priors=None, tol=1e-10, power_it=100,
+                 alpha=1.05, seed=0, device=None):
+        super().__init__(W, class_priors, device=device)
+        self.tol = tol
+        self.power_it = power_it
+        self.alpha = alpha
+        self.seed = seed
+        self.name = "Centered Kernel"
+
+    def _fit(self, train_ind, train_labels, all_labels=None):
+        n = self.graph.num_nodes
+        dev = self.graph.device
+        dtype = config.float_dtype(dev)
+        k = len(np.unique(train_labels))
+        W, G = self._nodiag_graph()
+        K = np.zeros((n, k))
+        K[train_ind] = utils.labels_to_onehot(train_labels, k)
+        K[train_ind] -= np.sum(K, axis=0) / len(train_ind)
+        mask = np.zeros(n, dtype=bool)
+        mask[train_ind] = True
+        K = torch.as_tensor(K, device=dev).to(dtype)
+        mask = torch.as_tensor(mask, device=dev)
+        tol = max(self.tol, 100 * torch.finfo(dtype).eps)
+        e0 = _centered.start(n, self.seed, dtype, dev)
+        info = {}
+        acc = _accel.maybe_build(W, cache_obj=self, attr="_accel_ck",
+                                 device=dev, mode="f32")
+        if acc is not None:
+            u = acc.from_perm(acc.centered_kernel(
+                acc.to_perm(K), acc.to_perm(mask, fill=True), self.alpha,
+                tol, acc.to_perm(e0), self.power_it, n, info=info))
+        else:
+            g = G.sparse
+            u = _centered.solve(lambda X: _ops.spmm(g, X), K, mask,
+                                self.alpha, tol, e0, self.power_it, n,
+                                info=info)
+        self.iters = info["iters"]
+        return u
 
 
 # -- distance and Lipschitz models --------------------------------------------

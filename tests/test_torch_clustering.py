@@ -11,6 +11,10 @@ graphlearning_tpu on the CPU, at float64 (JAX's x64 on).
   the nodes up to a permutation.
 * ``clustering_accuracy`` and ``purity`` equal to JAX's; the base class's
   ``sys.exit`` cases.
+* ``clustering.fokker_planck`` on JAX's two-clique graph, k-means from
+  JAX's starts (``jax_kmeans_starts``): labels equal to JAX's;
+  ``withinss`` equal to JAX's and to a brute-force split; ``RP1D`` with
+  the same seed: JAX's labels.
 """
 
 import jax
@@ -202,3 +206,109 @@ def test_base_class_exits(moons):
         tgl.clustering.clustering(W, 2, device="cpu").fit()
     model.fit()
     assert model.fitted and model.predict() is model.cluster_labels
+
+
+# -- Fokker-Planck, withinss and RP1D ------------------------------------------
+
+
+def _jax_plus_plus(X, key, k):
+    """The JAX package's greedy k-means++ start of one restart
+    (``solvers/kmeans.py``, ``plus_plus_init``), as JAX draws it."""
+    n = X.shape[0]
+    Xsq = jnp.sum(X * X, axis=1)
+    L = 2 + int(np.log(max(k, 2)))
+    k0, key = jax.random.split(key)
+    C = jnp.zeros((k, X.shape[1]), X.dtype).at[0].set(
+        X[jax.random.randint(k0, (), 0, n)])
+    d2 = jnp.maximum(Xsq - 2.0 * (X @ C[0]) + jnp.sum(C[0] * C[0]), 0.0)
+    for i in range(1, k):
+        kc, key = jax.random.split(key)
+        logits = jnp.where(d2 > 0, jnp.log(d2), -jnp.inf)
+        cand = X[jax.random.categorical(kc, logits, shape=(L,))]
+        d2c = jnp.maximum(Xsq[None, :] - 2.0 * (cand @ X.T)
+                          + jnp.sum(cand * cand, axis=1)[:, None], 0.0)
+        best = jnp.argmin(jnp.sum(jnp.minimum(d2[None, :], d2c), axis=1))
+        C = C.at[i].set(cand[best])
+        d2 = jnp.minimum(d2, d2c[best])
+    return C
+
+
+@pytest.fixture
+def jax_kmeans_starts(monkeypatch):
+    """The port's k-means from JAX's starts: the restarts' keys split from
+    the seed as JAX splits them."""
+    def plus_plus(X, Xsq, k, n_init, gen):
+        keys = jax.random.split(jax.random.PRNGKey(gen.initial_seed()),
+                                n_init)
+        Xj = jnp.asarray(X.numpy())
+        return torch.tensor(np.stack([np.asarray(_jax_plus_plus(Xj, key, k))
+                                      for key in keys]))
+
+    monkeypatch.setattr(tkmeans, "_plus_plus", plus_plus)
+
+
+def _two_cliques():
+    """JAX's test graph (``tests/test_clustering.py``): two 30-node cliques
+    joined by one weak edge."""
+    import scipy.sparse as sp
+
+    A = np.ones((30, 30)) - np.eye(30)
+    W = sp.block_diag([A, A]).tolil()
+    W[0, 30] = W[30, 0] = 0.01
+    return W.tocsr(), np.repeat([0, 1], 30)
+
+
+@pytest.mark.parametrize("beta,t", [(0.5, 1), (0.2, 3)])
+def test_fokker_planck_matches_jax(jax_kmeans_starts, beta, t):
+    """On JAX's starts the labels equal JAX's (not only up to a
+    permutation), and the cliques are separated."""
+    W, y = _two_cliques()
+    pj = jgl.clustering.fokker_planck(W, 2, beta=beta, t=t,
+                                      seed=0).fit_predict()
+    pt = tgl.clustering.fokker_planck(W, 2, beta=beta, t=t, seed=0,
+                                      device="cpu").fit_predict()
+    np.testing.assert_array_equal(pt, pj)
+    assert tgl.clustering.clustering_accuracy(pt, y) == 100.0
+
+
+def test_fokker_planck_density_and_seed():
+    """A density ``rho`` and a seed drawn from numpy's global state: the
+    same labels for the same state, within a point of JAX's accuracy."""
+    W, y = _two_cliques()
+    rho = np.linspace(1.0, 2.0, 60)
+    np.random.seed(2)
+    a = tgl.clustering.fokker_planck(W, 2, rho=rho, device="cpu").fit_predict()
+    np.random.seed(2)
+    b = tgl.clustering.fokker_planck(W, 2, rho=rho, device="cpu").fit_predict()
+    np.testing.assert_array_equal(a, b)
+    pj = jgl.clustering.fokker_planck(W, 2, rho=rho, seed=0).fit_predict()
+    assert abs(tgl.clustering.clustering_accuracy(a, y)
+               - jgl.clustering.clustering_accuracy(pj, y)) <= 1.0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_withinss_matches_jax_and_brute_force(seed):
+    rs = np.random.RandomState(seed)
+    x = np.concatenate([rs.randn(50), rs.randn(70) + 5.0])
+    w, m = tgl.clustering.withinss(x)
+    wj, mj = jgl.clustering.withinss(x)
+    assert w == wj and m == mj
+    xs = np.sort(x)
+    best = min(((xs[:i] - xs[:i].mean()) ** 2).sum()
+               + ((xs[i:] - xs[i:].mean()) ** 2).sum()
+               for i in range(1, len(xs)))
+    np.testing.assert_allclose(w, best / (len(x) * np.std(x) ** 2),
+                               rtol=1e-10)
+    assert 1.0 < m < 4.0
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_rp1d_matches_jax(seed):
+    rs = np.random.RandomState(1)
+    X = np.vstack([rs.randn(60, 5), rs.randn(60, 5) + 8.0])
+    pt = tgl.clustering.RP1D(X, T=50, seed=seed, device="cpu")
+    np.testing.assert_array_equal(pt, jgl.clustering.RP1D(X, T=50,
+                                                          seed=seed))
+    assert pt.dtype == np.float64
+    assert tgl.clustering.clustering_accuracy(pt, np.repeat([0, 1], 60)) \
+        == 100.0

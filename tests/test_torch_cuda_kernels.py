@@ -1226,3 +1226,71 @@ def test_cuda_apply_residual_sums_the_same_in_every_run(cuda_device):
                             bs.residual_to_device(host, "cpu", torch.float64))
     err = float((runs[0].cpu().double() - ref).abs().max())
     assert err <= TOL[torch.float32] * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_t_and_segment_sum_the_same_in_every_run(cuda_device):
+    """``graphops.spmm_t`` (the transpose's ELL and its spill) on a directed
+    kNN graph with hub columns, and ``segment_reduce(kind="sum")`` over
+    repeated rows: 20 calls give the same bits, within TOL of the f64 sums
+    on the CPU."""
+    from graphlearning_tpu_torch.core.sparse import segment_reduce
+    from graphlearning_tpu_torch.ops import graphops
+
+    rs = np.random.RandomState(0)
+    n, k = 8192, 10
+    pts = rs.rand(n, 2)
+    _, ind = cKDTree(pts).query(pts, k=k + 1)
+    W = sp.csr_matrix((rs.rand(n * k).astype(np.float32) + 0.1, (
+        np.repeat(np.arange(n), k), ind[:, 1:].ravel())), shape=(n, n))
+    hubs = sp.csr_matrix((rs.rand(3000) + 0.1, (
+        rs.choice(np.arange(8, n), 3000, replace=False),
+        np.repeat(np.arange(6), 500))), shape=(n, n))
+    W = (W + hubs).tocsr()
+    g = SparseGraph.from_scipy(W, device=cuda_device)
+    assert graphops.transpose(g).m > 0
+    X = torch.as_tensor(rs.randn(n, 3).astype(np.float32), device=cuda_device)
+    runs = [graphops.spmm_t(g, X) for _ in range(20)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    ref = W.T @ X.double().cpu().numpy()
+    err = np.abs(runs[0].double().cpu().numpy() - ref).max()
+    assert err <= TOL[torch.float32] * np.abs(ref).max()
+
+    index = torch.as_tensor(rs.randint(0, 64, 200000), device=cuda_device)
+    src = torch.as_tensor(rs.randn(200000, 4).astype(np.float32),
+                          device=cuda_device)
+    sums = [segment_reduce(torch.zeros((64, 4), device=cuda_device), index,
+                           src, "sum") for _ in range(20)]
+    assert all(torch.equal(sums[0], s) for s in sums[1:])
+    ref = np.zeros((64, 4))
+    np.add.at(ref, index.cpu().numpy(), src.double().cpu().numpy())
+    assert np.abs(sums[0].double().cpu().numpy() - ref).max() \
+        <= TOL[torch.float32] * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 57),
+                                     (torch.float32, 171),
+                                     (torch.bfloat16, 2),
+                                     (torch.bfloat16, 10)])
+def test_cuda_k2_at_the_eigenbasis_widths(banded_tiles, cuda_device, dtype,
+                                          d):
+    """K2 at the widths of phase 4d: Multiclass MBO's LOBPCG block (57
+    vectors: d = 171 in two launches of 128 + 43 columns, and 57), and the
+    bf16 band of INCRES and PoissonMBO's heat steps (d = k).
+    ``launches_by_d`` counts each launch under X's full width."""
+    cols, vals, tb, ts, bf, R, WT = banded_tiles
+    dev = cuda_device
+    args = tuple(torch.as_tensor(a, device=dev) for a in (cols, vals, tb, ts))
+    band = bs.materialize_band_tiles(*args, R=R, WT=WT, out_dtype=dtype)
+    sb, sts, _, src = bs.pack_tiles(tb, ts, bf, 4)
+    packed = bs.pack_band(band, src, R=R, WT=WT)
+    pplan = bs.PackedPlan.from_slabs(sb, sts, src, 1024, R, WT, dev)
+    X = torch.randn((1024, d), device=dev).to(dtype)
+    bs.reset_launches()
+    out = bs.band_tiles_spmm_packed(packed, pplan, X)
+    assert bs.band_tiles_spmm_packed.launches == _tiles_launches(d)
+    assert bs.band_tiles_spmm_packed.launches_by_d == {d: _tiles_launches(d)}
+    assert bs.band_tiles_spmm_packed.bf16_launches == (
+        _tiles_launches(d) if dtype == torch.bfloat16 else 0)
+    _close(out, bs._tiles_spmm_plain(packed, pplan, X), dtype)

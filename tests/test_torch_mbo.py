@@ -154,8 +154,8 @@ def test_poisson_mbo_positional_parameters_match_jax(moons):
     assert (tm.Ns, tm.mu, tm.T) == (jm.Ns, jm.mu, jm.T) == (20, 1.5, 4)
     np.testing.assert_array_equal(tm.fit_predict(ti, y[ti]),
                                   jm.fit_predict(ti, y[ti]))
-    with pytest.raises(NotImplementedError, match="P10"):
-        tgl.ssl.poisson_mbo(W, priors, "spectral", device="cpu")
+    spectral = tgl.ssl.poisson_mbo(W, priors, "spectral", device="cpu")
+    assert spectral.poisson_model.solver == "spectral"
 
 
 def test_poisson_mbo_verbose_path_matches_fused(moons, capsys):

@@ -89,11 +89,16 @@ def test_class_priors_projection_matches_jax(moons):
 
 
 def test_unported_options_raise(moons):
+    """The spectral solver is ported (``tests/test_torch_spectral_ssl.py``
+    holds it to JAX); an unknown solver raises, as does predicting before
+    a fit."""
     W = moons[0]
-    with pytest.raises(NotImplementedError):
-        tgl.ssl.poisson(W, solver="spectral", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tgl.ssl.poisson_mbo(W, [0.5, 0.5], "spectral", device="cpu")
+    assert tgl.ssl.poisson(W, solver="spectral", device="cpu").solver \
+        == "spectral"
+    assert tgl.ssl.poisson_mbo(W, [0.5, 0.5], "spectral",
+                               device="cpu").poisson_model.solver == "spectral"
+    with pytest.raises(ValueError, match="invalid Poisson solver"):
+        tgl.ssl.poisson(W, solver="bogus", device="cpu")
     with pytest.raises(RuntimeError):
         tgl.ssl.laplace(W, device="cpu").predict()
 
