@@ -80,6 +80,21 @@ Phases (any failure exits non-zero before the result line):
    held to JAX's float32 accuracy; Fokker-Planck on two moons cut to
    ``FP_N`` nodes (its float32 matrix exponential against the float64
    one); then K2 at the new widths against its twin;
+4e. the experiment harness and label propagation, in a temporary
+   directory: the ten-cluster input (n=70000) through ``datasets.save`` /
+   ``load``, ``weightmatrix.knnsearch(..., dataset=)`` and ``knn(name,
+   10)`` (equal to ``knn(points, 10)``), ``trainsets.generate(...,
+   dataset=, trainset_name=)`` and ``load`` (TRIAL_NUM trials at each of
+   TRIAL_RATES labels a class); ``ssl_trials`` of Laplace and Poisson
+   learning over them (batched by size on the plain ELL),
+   ``trials_statistics`` and ``accuracy_table``, each rate's mean held to
+   the JAX package's float32 accuracy and one batched trial a rate to its
+   sequential fit on the plain path; sparse label propagation twice,
+   bit-equal; on a fresh copy of the moons graph ``gl.warmup`` (K1) and a
+   fit after it that launches no K1 and its CG steps' K2, ``ssl_trials``
+   with class priors (sequential on the band, K2 held to the fits' CG
+   steps) and ``poisson.fit_device`` (a CUDA tensor); dynamic label
+   propagation on the ``FP_N`` cut;
 5. the rectangular route: the same graph under ``GLT_NO_BAND=1``
    (Laplace and Poisson on the unstored band, K6; ``graph.dijkstra`` on
    the plain path), then ``AccelSpMM(W, materialize=True)`` (K4 band; the
@@ -341,6 +356,36 @@ MULTICLASS_EIG_TOL = 2e-5
 # the largest entry.
 PAGERANK_TOL = 1e-4
 FP_EXPM_TOL = 1e-5
+
+# Phase 4e, the experiment harness on the ten-cluster input: TRIAL_NUM
+# trials a rate at each rate (labels a class), the trials of a rate drawn
+# with the rate as seed (``trial_sets``).
+TRIAL_RATES = (1, 2, 4)
+TRIAL_NUM = 5
+# The class-priors trials of phase 4e on the moons band, as
+# ``trainsets.generate`` takes them.
+PRIOR_TRIALS = {"rate": 5, "num_trials": 3, "seed": 7}
+# Accuracy (%) of the JAX package in float32 on phase 4e's inputs, from
+# ``JAX_PLATFORMS=cpu python3 tools/trials_reference.py``: the mean over
+# the trials of each rate of ``ssl_trials`` of Laplace and Poisson
+# learning, sparse label propagation on the ten clusters (one label a
+# class), dynamic label propagation on the FP_N cut of the moons, and each
+# PRIOR_TRIALS trial's accuracy with class priors on the moons.
+TRIALS_REFERENCE = {"laplace_1": 19.9689, "laplace_2": 15.8897,
+                    "laplace_4": 42.5883, "poisson_1": 97.8291,
+                    "poisson_2": 97.9057, "poisson_4": 97.9828,
+                    "sparse_label_propagation": 9.9514,
+                    "dynamic_label_propagation": 62.5061,
+                    "laplace_priors": (93.9841, 99.8642, 96.2412)}
+# The margin under each target, stated before the first chip run:
+# ACCURACY_MARGIN, but 4 points for Laplace's means.  Laplace learning is
+# degenerate at these rates in 20-d: JAX's trials score near multiples of
+# 10 % (whole classes lost), so one trial losing one more class moves its
+# rate's mean by 2 points; the margin allows two.  The agreement of one
+# batched trial a rate with its sequential fit on the plain path:
+# TRIALS_AGREEMENT.
+TRIALS_MARGIN = {"laplace": 4.0}
+TRIALS_AGREEMENT = 0.999
 
 
 class SmokeFailure(RuntimeError):
@@ -756,6 +801,19 @@ def two_moons(n, noise, seed):
     perm = rs.permutation(n)
     X, y = X[perm], y[perm]
     return X + rs.normal(scale=noise, size=X.shape), y
+
+
+def trial_sets(gl, labels, dataset=None):
+    """The trials of phase 4e: TRIAL_NUM at each of TRIAL_RATES, seeded by
+    the rate, each rate's written to ``trainset_dir`` under ``_rate<r>``
+    when ``dataset`` is given."""
+    out = []
+    for r in TRIAL_RATES:
+        kw = {} if dataset is None else {"dataset": dataset,
+                                         "trainset_name": f"_rate{r}"}
+        out += gl.trainsets.generate(labels, rate=r, num_trials=TRIAL_NUM,
+                                     seed=r, **kw)
+    return out
 
 
 def bench_graph(n, k, seed):
@@ -1848,6 +1906,226 @@ def p10b_phase(torch, gl, accel, bs, W, labels, ti):
     return entries, launches
 
 
+@contextlib.contextmanager
+def store_dirs(gl, root):
+    """Every store directory of the port (datasets, train sets, kNN data,
+    trial results) under ``root`` inside the block."""
+    attrs = [(gl.datasets, "data_dir"), (gl.trainsets, "trainset_dir"),
+             (gl.weightmatrix, "knn_dir"), (gl.ssl, "results_dir")]
+    old = [getattr(mod, a) for mod, a in attrs]
+    for mod, a in attrs:
+        setattr(mod, a, os.path.join(root, a))
+    try:
+        yield
+    finally:
+        for (mod, a), v in zip(attrs, old):
+            setattr(mod, a, v)
+
+
+def timed(torch, label, fn):
+    """``fn()``, its seconds printed under ``label``."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    say(f"  {label}: {time.perf_counter() - t:.3f} s")
+    return out
+
+
+def check_target(label, accuracy, target, margin=ACCURACY_MARGIN):
+    say(f"  {label}: accuracy {accuracy:.4f} % (JAX float32 {target:.4f} %, "
+        f"less {margin:g})")
+    if accuracy < target - margin:
+        raise SmokeFailure(f"{label}: accuracy {accuracy:.4f} % < "
+                           f"{target - margin:.4f} %")
+
+
+def harness_ten(torch, gl, root):
+    """Phase 4e on the ten-cluster input: the round trips through the
+    dataset, kNN and train-set files, ``ssl_trials`` of Laplace and
+    Poisson learning over the trials (batched by rate), their statistics
+    and table, one trial a rate against its sequential fit on the plain
+    path, and sparse label propagation twice."""
+    from graphlearning_tpu_torch import bench
+
+    pts, y = bench.ten_cluster_points(70000)
+    data, lab = timed(torch, "datasets.save / load", lambda: (
+        gl.datasets.save(pts, y, "TenClusters"),
+        gl.datasets.load("tenclusters"))[1])
+    if not (np.array_equal(data, pts) and np.array_equal(lab, y)):
+        raise SmokeFailure("datasets: the loaded data differ from the saved")
+    timed(torch, "knnsearch(..., dataset=)", lambda: gl.weightmatrix.knnsearch(
+        data, 11, dataset="TenClusters"))
+    W = timed(torch, "knn(name, 10)",
+              lambda: gl.weightmatrix.knn("TenClusters", 10))
+    Wp = timed(torch, "knn(points, 10)", lambda: gl.weightmatrix.knn(pts, 10))
+    if W.nnz != Wp.nnz or abs(W - Wp).max() != 0:
+        raise SmokeFailure("knn of the stored kNN data differs from knn of "
+                           "the points")
+    made = timed(torch, "trainsets.generate(..., dataset=, trainset_name=)",
+                 lambda: trial_sets(gl, lab, dataset="TenClusters"))
+    trials = timed(torch, "trainsets.load", lambda: [
+        np.asarray(t, dtype=int) for r in TRIAL_RATES
+        for t in gl.trainsets.load("TenClusters", f"_rate{r}")])
+    if len(trials) != len(made) or not all(
+            np.array_equal(a, b) for a, b in zip(trials, made)):
+        raise SmokeFailure("trainsets: the loaded trials differ")
+    say(f"  {len(trials)} trials of {sorted({len(t) for t in trials})} "
+        f"labels, W nnz {W.nnz}")
+
+    models = []
+    for name in ("laplace", "poisson"):
+        m = getattr(gl.ssl, name)(W)
+        preds, batched = {}, m.fit_predict_batched
+
+        def record(ts, labels, batched=batched, preds=preds):
+            out = batched(ts, labels)
+            preds.update({np.asarray(t).tobytes(): p
+                          for t, p in zip(ts, out)})
+            say(f"  {name}: {len(ts)} trials of {len(ts[0])} labels in one "
+                f"batch, CG steps {np.asarray(m.iters).tolist()}")
+            return out
+
+        m.fit_predict_batched = record
+        rows = timed(torch, f"{name}.ssl_trials ({len(trials)} trials)",
+                     lambda: m.ssl_trials(trials, lab, tag="smoke_"))
+        if rows is None or rows.shape != (len(trials), 2):
+            raise SmokeFailure(f"{name}.ssl_trials: rows {rows}")
+        num_train, mean, std, num = m.trials_statistics(tag="smoke_")
+        if num != TRIAL_NUM or num_train.tolist() != [
+                10 * r for r in TRIAL_RATES]:
+            raise SmokeFailure(f"{name}.trials_statistics: {num_train}, "
+                               f"{num} trials")
+        for r, acc, sd in zip(TRIAL_RATES, mean[:, 0], std[:, 0]):
+            check_target(f"ten/{name}, {10 * r} labels, mean of {num} "
+                         f"(std {sd:.4f})", acc,
+                         TRIALS_REFERENCE[f"{name}_{r}"],
+                         TRIALS_MARGIN.get(name, ACCURACY_MARGIN))
+        with env("GLT_NO_ACCEL", "1"):
+            for r in TRIAL_RATES:
+                t = trials[TRIAL_RATES.index(r) * TRIAL_NUM]
+                seq = getattr(gl.ssl, name)(W)
+                pred = timed(torch, f"{name}, {len(t)} labels, sequential "
+                             "plain fit", lambda: seq.fit_predict(t, lab[t]))
+                agree = float(np.mean(pred == preds[t.tobytes()]))
+                say(f"  {name}, {len(t)} labels: the batched trial agrees "
+                    f"with its sequential fit ({seq.iters} CG steps) on "
+                    f"{agree:.4f}")
+                if agree < TRIALS_AGREEMENT:
+                    raise SmokeFailure(f"{name}: batched against sequential "
+                                       f"{agree:.4f} < {TRIALS_AGREEMENT}")
+        models.append(m)
+    table = os.path.join(root, "table.tex")
+    timed(torch, "accuracy_table", lambda: gl.ssl.accuracy_table(
+        models, tag="smoke_", savefile=table, title="TenClusters"))
+    with open(table) as fh:
+        text = fh.read()
+    if text.count("\\\\") != 1 + len(models):
+        raise SmokeFailure("accuracy_table: not a row a model")
+
+    ti = gl.trainsets.generate(lab, rate=1, seed=0)
+    runs = []
+    for i in (1, 2):
+        m = gl.ssl.sparse_label_propagation(W)
+        pred = timed(torch, f"sparse_label_propagation, run {i}",
+                     lambda: m.fit_predict(ti, lab[ti]))
+        runs.append(m.prob)
+    if not np.array_equal(runs[0], runs[1]):
+        raise SmokeFailure("sparse_label_propagation: two fits differ")
+    check_target("ten/sparse_label_propagation (bit-equal in two runs)",
+                 gl.ssl.ssl_accuracy(pred, lab, ti),
+                 TRIALS_REFERENCE["sparse_label_propagation"])
+
+
+def harness_moons(torch, gl, bs, W, labels, ti):
+    """Phase 4e on the moons band: ``gl.warmup`` and a fit that builds no
+    band, ``ssl_trials`` with class priors (sequential, on the band; K2's
+    launches held to the fits' CG steps) and ``poisson.fit_device``."""
+    We = W.copy()
+    We._glt_points = W._glt_points
+    bs.reset_launches()
+    m = timed(torch, "gl.warmup(laplace, 2) (the band's plan and K1)",
+              lambda: gl.warmup(gl.ssl.laplace(We), 2))
+    warm = bs.launches()
+    if warm["materialize_band_tiles"] != 1 or m.fitted:
+        raise SmokeFailure(f"warmup: launches {warm}, fitted {m.fitted}")
+    bs.reset_launches()
+    pred = timed(torch, "laplace fit after warmup",
+                 lambda: m.fit_predict(ti, labels[ti]))
+    after = bs.launches()
+    say(f"  launches: warmup {warm}, the fit after it {after} "
+        f"({m.iters} CG steps)")
+    if (after["materialize_band_tiles"] != 0
+            or after["band_tiles_spmm_packed"] != m.iters + 2):
+        raise SmokeFailure(f"the fit after warmup launched {after}, its "
+                           f"{m.iters} CG steps need no K1 and "
+                           f"{m.iters + 2} K2")
+    check_target("moons/laplace after warmup",
+                 gl.ssl.ssl_accuracy(pred, labels, ti),
+                 REFERENCE_ACCURACY["laplace"])
+
+    mp = gl.ssl.laplace(We, class_priors=gl.utils.class_priors(labels))
+    steps, fit = [], mp._fit
+
+    def record(*a, **k):
+        u = fit(*a, **k)
+        steps.append(mp.iters)
+        return u
+
+    mp._fit = record
+    trials = gl.trainsets.generate(labels, **PRIOR_TRIALS)
+    bs.reset_launches()
+    rows = timed(torch, "laplace(class_priors).ssl_trials (3 trials)",
+                 lambda: mp.ssl_trials(trials, labels, tag="moons_"))
+    priors = bs.launches()
+    say(f"  launches {priors}; CG steps {steps}; rows {rows.tolist()}")
+    if rows.shape != (3, 4) or priors["band_tiles_spmm_packed"] != sum(
+            s + 2 for s in steps) or len(steps) != 3:
+        raise SmokeFailure(f"laplace(class_priors).ssl_trials: launches "
+                           f"{priors}, CG steps {steps}")
+    for i, (row, target) in enumerate(zip(
+            rows, TRIALS_REFERENCE["laplace_priors"])):
+        check_target(f"moons/laplace with class priors, trial {i}", row[2],
+                     target)
+
+    bs.reset_launches()
+    u = timed(torch, "poisson.fit_device",
+              lambda: gl.ssl.poisson(We).fit_device(ti, labels[ti]))
+    dev = bs.launches()
+    ref = gl.ssl.poisson(We).fit_predict(ti, labels[ti])
+    if (not u.is_cuda or tuple(u.shape) != (W.shape[0], 2)
+            or not np.array_equal(torch.argmax(u, 1).cpu().numpy(), ref)
+            or dev["band_tiles_spmm_packed"] < 1):
+        raise SmokeFailure(f"poisson.fit_device: {u.device}, {u.shape}, "
+                           f"launches {dev}")
+    say(f"  poisson.fit_device: a {tuple(u.shape)} tensor on {u.device}, "
+        f"its argmax fit_predict's; launches {dev}")
+
+
+def trials_phase(torch, gl, bs, W, labels, ti):
+    """Phase 4e: the experiment harness (datasets, stored kNN data, train
+    set files, batched ``ssl_trials``) and label propagation."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    say("== phase 4e: the experiment harness on the ten-cluster input "
+        "(n=70000, 20-d, k=10)")
+    with tempfile.TemporaryDirectory() as root, store_dirs(gl, root):
+        harness_ten(torch, gl, root)
+        say("== phase 4e on the moons band (n=65536)")
+        harness_moons(torch, gl, bs, W, labels, ti)
+    say(f"== dynamic label propagation (two moons, n={FP_N})")
+    Xf, yf = two_moons(FP_N, 0.1, seed=0)
+    Wf = gl.weightmatrix.knn(Xf, 10)
+    tif = gl.trainsets.generate(yf, rate=5, seed=0)
+    pred = timed(torch, "dynamic_label_propagation", lambda: (
+        gl.ssl.dynamic_label_propagation(Wf).fit_predict(tif, yf[tif])))
+    check_target(f"fp n={FP_N}/dynamic_label_propagation",
+                 gl.ssl.ssl_accuracy(pred, yf, tif),
+                 TRIALS_REFERENCE["dynamic_label_propagation"])
+    say(f"== phase 4e: {time.perf_counter() - t0:.1f} s")
+
+
 def window_coo(torch, acc):
     """Rows, columns and weights of the in-window edges of ``acc``'s
     rectangular plan (its first kcap slots whose column lies in the row's
@@ -2564,6 +2842,7 @@ def main():
     mbo_entries, _ = mbo_phase(torch, gl, accel, bs, W, X, labels, ti)
     eig_entries, _ = eig_phase(torch, gl, accel, bs, W, labels)
     p10b_entries, _ = p10b_phase(torch, gl, accel, bs, W, labels, ti)
+    trials_phase(torch, gl, bs, W, labels, ti)
     rect_entries, rect_launches = rect_phase(torch, gl, accel, bs, W, labels,
                                              ti, plain_pred)
     launches.update(rect_launches)

@@ -29,7 +29,14 @@ default (see :mod:`config`).  Ported so far:
 * the eigenbasis models and the rest of clustering: ``ssl.poisson`` /
   ``ssl.poisson_mbo`` with ``solver="spectral"``, ``ssl.multiclass_mbo``,
   ``ssl.modularity_mbo``, ``ssl.centered_kernel``, ``clustering.incres``
-  / ``fokker_planck`` / ``withinss`` / ``RP1D`` and ``graph.page_rank``.
+  / ``fokker_planck`` / ``withinss`` / ``RP1D`` and ``graph.page_rank``;
+* label propagation (``ssl.dynamic_label_propagation``,
+  ``ssl.sparse_label_propagation``) and the experiment harness:
+  ``datasets``, ``trainsets.load``, the stored kNN data of
+  ``weightmatrix.knnsearch`` / ``load_knn_data`` / ``knn(name, k)``, the
+  host methods of ``graph``, ``warmup`` and ``ssl_trials`` with its
+  batched Laplace and Poisson fits, ``trials_statistics``,
+  ``ssl.accuracy_table`` and ``ssl.accuracy_plot``.
 
     import graphlearning_tpu_torch as gl
     W = gl.weightmatrix.knn(X, 10)
@@ -41,7 +48,8 @@ from graphlearning_tpu_torch import config
 from graphlearning_tpu_torch.core.sparse import BucketedELL, SparseGraph
 from graphlearning_tpu_torch.core.graphclass import graph
 from graphlearning_tpu_torch import ops, solvers, utils, weightmatrix
-from graphlearning_tpu_torch import clustering, ssl, trainsets
+from graphlearning_tpu_torch import clustering, datasets, ssl, trainsets
+from graphlearning_tpu_torch.ssl import warmup
 
 __version__ = "0.1.0"
 
@@ -49,6 +57,7 @@ __all__ = [
     "BucketedELL",
     "SparseGraph",
     "graph",
+    "warmup",
     "config",
     "ops",
     "solvers",
@@ -56,5 +65,6 @@ __all__ = [
     "weightmatrix",
     "ssl",
     "clustering",
+    "datasets",
     "trainsets",
 ]

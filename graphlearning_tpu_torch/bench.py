@@ -412,14 +412,20 @@ def _cg_tol_kw():
             else "tol")
 
 
-def ten_cluster_case(n: int, k: int, dev):
-    """The Poisson bench's input: a 20-d mixture of ten unit gaussians
-    (seeded), its kNN graph on ``dev`` and one label a class.  Returns
-    ``(W, labels, train_ind)``."""
+def ten_cluster_points(n: int):
+    """``(points, labels)``: ``n`` points of a 20-d mixture of ten unit
+    gaussians, seeded."""
     rs = np.random.RandomState(0)
     centers = rs.randn(10, 20)
     labels = rs.randint(0, 10, n)
-    pts = centers[labels] + rs.randn(n, 20)
+    return centers[labels] + rs.randn(n, 20), labels
+
+
+def ten_cluster_case(n: int, k: int, dev):
+    """The Poisson bench's input: :func:`ten_cluster_points`, its kNN
+    graph on ``dev`` and one label a class.  Returns ``(W, labels,
+    train_ind)``."""
+    pts, labels = ten_cluster_points(n)
     W = weightmatrix.knn(pts, k, device=dev)
     return W, labels, trainsets.generate(labels, rate=1, seed=0)
 

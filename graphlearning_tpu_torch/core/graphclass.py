@@ -1,11 +1,13 @@
 """``graph``: user-facing graph object (counterpart of
-``graphlearning_tpu/core/graphclass.py:24-283,296-497``).  The graph lives
+``graphlearning_tpu/core/graphclass.py:24-283,296-532``).  The graph lives
 on a device as a padded-ELL :class:`SparseGraph`; the scipy matrix is kept
 for interop and for the caches attached to it.  The distance and
 Lipschitz methods run on the band (:mod:`ops.accel`) where it applies, and
 the normalized eigensolve on the band or the gather."""
 
 from __future__ import annotations
+
+import pickle
 
 import numpy as np
 import scipy.sparse as sp
@@ -72,8 +74,64 @@ class graph:
     def sparse(self) -> SparseGraph:
         return self.g
 
+    def mirror(self):
+        """:func:`ops.graphops.build_mirror` of the graph, built once."""
+        if getattr(self, "_mirror", None) is None:
+            self._mirror = _ops.build_mirror(self.g)
+        return self._mirror
+
     def degree_vector(self):
         return _ops.degree_vector(self.g).cpu().numpy()
+
+    # -- host-side views (scipy) ------------------------------------------
+
+    def adjacency(self):
+        """The 0/1 matrix of the stored entries."""
+        W = self.weight_matrix.copy()
+        W.data = np.ones_like(W.data)
+        return W
+
+    def rand(self, seed=None):
+        """The graph's pattern with uniform values from ``seed``."""
+        W = self.weight_matrix.copy()
+        W.data = np.random.RandomState(seed).rand(len(W.data))
+        return W
+
+    def randn(self, seed=None):
+        """The graph's pattern with normal values from ``seed``."""
+        W = self.weight_matrix.copy()
+        W.data = np.random.RandomState(seed).randn(len(W.data))
+        return W
+
+    def subgraph(self, ind):
+        """The graph on the nodes ``ind``, on the same device."""
+        return graph(self.weight_matrix[ind, :][:, ind], device=self.device)
+
+    def isconnected(self):
+        from scipy.sparse import csgraph
+
+        ncomp, _ = csgraph.connected_components(self.weight_matrix)
+        return ncomp == 1
+
+    def neighbors(self, i, return_weights=False):
+        """The neighbors of node ``i`` (itself left out), with their
+        weights when ``return_weights``."""
+        N = self.weight_matrix[i, :].nonzero()[1]
+        N = N[N != i]
+        if return_weights:
+            return N, np.asarray(self.weight_matrix[i, N].todense()).ravel()
+        return N
+
+    def largest_connected_component(self):
+        """``(graph, mask)``: the graph on its largest connected component,
+        on the same device, and the boolean mask of its nodes."""
+        from scipy.sparse import csgraph
+
+        ncomp, labels = csgraph.connected_components(self.weight_matrix,
+                                                     directed=False)
+        ind = labels == np.argmax(np.bincount(labels, minlength=ncomp))
+        return graph(self.weight_matrix[ind, :][:, ind],
+                     device=self.device), ind
 
     def laplacian(self, normalization: str = "combinatorial",
                   alpha: float = 1.0):
@@ -369,3 +427,49 @@ class graph:
 
         return _pl.amle(self.g, bdy_set, bdy_val, tol=tol,
                         max_num_it=max_num_it, weighted=weighted)
+
+    # -- persistence and drawing ------------------------------------------
+
+    def save(self, filename):
+        """Pickle the weight matrix as the JAX package does (``{"scipy":
+        csr, "version": 1}``), so either package loads it.  A fresh copy
+        is pickled: the caches on the original carry device tensors."""
+        with open(filename, "wb") as fh:
+            pickle.dump({"scipy": sp.csr_matrix(self.weight_matrix,
+                                                copy=True), "version": 1},
+                        fh, protocol=pickle.HIGHEST_PROTOCOL)
+
+    @staticmethod
+    def load(filename, device=None):
+        """A graph on ``device`` from :meth:`save`'s pickle, a pickled
+        GraphLearning graph object or a pickled matrix."""
+        with open(filename, "rb") as fh:
+            obj = pickle.load(fh)
+        if isinstance(obj, dict) and "scipy" in obj:
+            return graph(obj["scipy"], device=device)
+        if hasattr(obj, "weight_matrix"):
+            return graph(obj.weight_matrix, device=device)
+        return graph(obj, device=device)
+
+    def draw(self, X=None, c=None, cmap="viridis", markersize=None,
+             linewidth=None, edges=True, linecolor="black", alpha=1.0):
+        """Scatter the nodes at ``X`` (by default a metric-MDS layout of
+        the graph distances) with their edges, on a new matplotlib figure.
+        Needs matplotlib, imported here.  Returns ``X``."""
+        import matplotlib.pyplot as plt
+
+        if X is None:
+            H = self.distance_matrix(centered=True)
+            vals, vecs = np.linalg.eigh(H)
+            X = vecs[:, -2:] * np.sqrt(np.abs(vals[-2:]))[None, :]
+        W = self.weight_matrix.tocoo()
+        fig, ax = plt.subplots()
+        if edges:
+            for i, j in zip(W.row, W.col):
+                if i < j:
+                    ax.plot([X[i, 0], X[j, 0]], [X[i, 1], X[j, 1]],
+                            color=linecolor, linewidth=linewidth or 0.5,
+                            alpha=0.5 * alpha)
+        ax.scatter(X[:, 0], X[:, 1], c=c, cmap=cmap, s=markersize, zorder=3,
+                   alpha=alpha)
+        return X

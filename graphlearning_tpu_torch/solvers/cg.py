@@ -9,12 +9,16 @@ is a ``lax.while_loop``; here the loop is Python with one convergence check
 * ``b`` is ``(n, m)``; one operator application serves all m columns.
 * Stopping rule: ``||r||_F < tol``, with ``tol`` clamped to what the dtype
   can reach.
+* The batched forms (:func:`conjgrad_batched`,
+  :func:`constrained_solve_batched`) solve several trials at once, each to
+  its own stop, as the JAX package's ``jax.vmap`` of these solvers does.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 
@@ -108,3 +112,91 @@ def constrained_solve(L: Callable, Ldiag, bdy_mask, bdy_values, f=None,
     if was_1d:
         u = u[:, 0]
     return u, iters, res
+
+
+def conjgrad_batched(A: Callable, b, max_iter: int = 1000, tol: float = 1e-10,
+                     M: Optional[Callable] = None):
+    """:func:`conjgrad` on ``T`` systems at once, the trials on the leading
+    axis of ``b`` (``(T, n, m)``).  ``A`` acts on ``(n, c)`` tensors column
+    by column: the trials are folded into ``c = T m`` columns, so one
+    application serves them all.  ``M`` acts on the ``(T, n, m)`` stack.
+    Each trial has its own ``alpha`` and ``beta`` (one a column, as in
+    :func:`conjgrad`), its own tolerance clamp from its own ``||b||`` and
+    its own stopping test; a trial that has stopped is frozen, not stepped
+    further (what a vmapped ``lax.while_loop`` does), so its answer is its
+    own solve's.  The sums over the nodes run on each trial's contiguous
+    block, as :func:`conjgrad` runs them.  Returns ``(x (T, n, m), iters,
+    residuals)``, the last two numpy arrays of ``T``."""
+    T, n, m = b.shape
+    if M is None:
+        M = lambda r: r
+
+    def A_stack(P):
+        Y = A(P.permute(1, 0, 2).reshape(n, T * m))
+        return Y.reshape(n, T, m).permute(1, 0, 2).contiguous()
+
+    def norms(R):
+        return torch.linalg.vector_norm(R, dim=(1, 2))
+
+    b = b.contiguous()
+    x = torch.zeros_like(b)
+    r = b - A_stack(x)
+    z = M(r)
+    p = z
+    rz = torch.sum(r * z, dim=1)
+    eps = torch.finfo(b.dtype).eps
+    tols = torch.clamp(50.0 * eps * (norms(b) + 1.0), min=float(tol))
+
+    iters = np.zeros(T, dtype=np.int64)
+    while True:
+        active = (norms(r) > tols).cpu().numpy() & (iters < max_iter)
+        if not active.any():
+            break
+        on = torch.as_tensor(active, device=b.device)[:, None, None]
+        Ap = A_stack(p)
+        pAp = torch.sum(p * Ap, dim=1)
+        alpha = _safe_div(rz, pAp)[:, None, :]
+        x = torch.where(on, x + alpha * p, x)
+        r_new = r - alpha * Ap
+        z_new = M(r_new)
+        rz_new = torch.sum(r_new * z_new, dim=1)
+        beta = _safe_div(rz_new, rz)[:, None, :]
+        p = torch.where(on, z_new + beta * p, p)
+        r = torch.where(on, r_new, r)
+        z = torch.where(on, z_new, z)
+        rz = torch.where(on[:, 0], rz_new, rz)
+        iters += active
+    return x, iters, norms(r).cpu().numpy()
+
+
+def constrained_solve_batched(L: Callable, Ldiag, bdy_masks, bdy_values,
+                              max_iter: int = 1000, tol: float = 1e-10):
+    """:func:`constrained_solve` of ``T`` trials at once by
+    :func:`conjgrad_batched`: ``bdy_masks`` ``(T, n)`` bool, ``bdy_values``
+    ``(T, n, m)``; ``L`` acts on ``(n, c)`` tensors column by column, with
+    the trials folded into its columns.  Returns ``(u (T, n, m), iters,
+    residuals)``."""
+    T, n, m = bdy_values.shape
+    zero = torch.zeros((), dtype=bdy_values.dtype, device=bdy_values.device)
+    interior = (~bdy_masks)[:, :, None]
+    fold_L = lambda Y: L(Y.permute(1, 0, 2).reshape(n, T * m)).reshape(
+        n, T, m).permute(1, 0, 2)
+
+    g_ext = torch.where(bdy_masks[:, :, None], bdy_values, zero)
+    rhs = torch.where(interior, -fold_L(g_ext), zero)
+    interior_cols = (~bdy_masks).T.repeat_interleave(m, dim=1)   # (n, T m)
+
+    def A(x):
+        return torch.where(interior_cols,
+                           L(torch.where(interior_cols, x, zero)), zero)
+
+    inv_diag = torch.where(interior & (Ldiag != 0)[None, :, None],
+                           1.0 / torch.where(Ldiag == 0,
+                                             torch.ones_like(Ldiag),
+                                             Ldiag)[None, :, None], zero)
+
+    def M(r):
+        return inv_diag * r
+
+    x, iters, res = conjgrad_batched(A, rhs, max_iter=max_iter, tol=tol, M=M)
+    return g_ext + torch.where(interior, x, zero), iters, res

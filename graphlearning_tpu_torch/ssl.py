@@ -1,10 +1,13 @@
 """Semi-supervised learning on graphs (counterpart of
-``graphlearning_tpu/ssl.py:36-345,507-1468,1527-1611,1722-1952`` for
-Laplace (with its reweightings), Poisson (its spectral solver too) and
-random-walk learning, PoissonMBO and VolumeMBO, the eigenbasis models
-Multiclass MBO and Modularity MBO, the centered kernel method, and the
-distance and Lipschitz models: graph nearest neighbor, AMLE, p-eikonal and
-p-Laplace).
+``graphlearning_tpu/ssl.py`` but for ``ssl.distribute``: Laplace (with its
+reweightings), Poisson (its spectral solver too) and random-walk learning,
+PoissonMBO and VolumeMBO, the eigenbasis models Multiclass MBO and
+Modularity MBO, the centered kernel method, dynamic and sparse label
+propagation, the distance and Lipschitz models (graph nearest neighbor,
+AMLE, p-eikonal and p-Laplace), and the experiment harness: ``warmup``,
+``fit_predict_batched``, ``fit_device``, ``ssl_trials`` with its CSV files
+under ``results_dir``, ``trials_statistics``, ``accuracy_table`` and
+``accuracy_plot``).
 
 Each model's ``_fit`` moves the labels to the graph's device once and runs
 a matrix-free solver there.  On a large band-friendly graph on CUDA, every
@@ -16,6 +19,7 @@ their C problems together (``_fit_onevsrest``) or one class at a time.
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -74,8 +78,34 @@ def _laplace_constrained(g, tau, mask, bdy, tol, normalization="combinatorial",
     return u, iters
 
 
+results_dir = os.path.abspath(os.path.join(os.getcwd(), "results"))
+
+# The largest plain ELL gather a batched fit makes on the device, in bytes:
+# ``ops.graphops.spmm`` gathers ``(n, k, d)`` at ``d`` = trials x classes,
+# so the trials of ``fit_predict_batched`` go in groups that keep it there.
+_BATCH_BYTES = 1 << 30
+
+
+def _batch_groups(T, g, C, dtype):
+    """Groups of the ``T`` trial indices whose plain gather on the ELL
+    ``g`` at ``C`` classes stays within ``_BATCH_BYTES``."""
+    per = g.n * g.k * C * torch.finfo(dtype).bits // 8
+    size = max(1, _BATCH_BYTES // max(1, per))
+    return [list(range(s, min(s + size, T))) for s in range(0, T, size)]
+
+
+def _trial_classes(labels):
+    """``(classes, remap)``: the nonnegative label values, sorted, and the
+    column of each in the one-hot blocks of the batched fits."""
+    classes = np.unique(labels[labels >= 0])
+    remap = np.zeros(int(classes.max()) + 1, dtype=int)
+    remap[classes] = np.arange(len(classes))
+    return classes, remap
+
+
 class ssl:
-    """Base class: fit / predict / class-prior volume projection."""
+    """Base class: fit / predict / class-prior volume projection, and the
+    experiment harness (``ssl_trials`` and its statistics)."""
 
     def __init__(self, W=None, class_priors=None, device=None):
         self._device = device
@@ -86,6 +116,8 @@ class ssl:
         self.prob = None
         self.fitted = False
         self.name = ""
+        self.accuracy_filename = ""
+        self.requires_eig = False
         self.similarity = True
         self.class_priors = class_priors
         if self.class_priors is not None:
@@ -128,7 +160,8 @@ class ssl:
         if not self.fitted:
             raise RuntimeError("Model has not been fitted yet.")
         w = 1 if ignore_class_priors else self.weights
-        scores = self.prob - np.min(self.prob)
+        prob = _as_numpy(self.prob)          # a device tensor after fit_device
+        scores = prob - np.min(prob)
         m = np.max(scores)
         if m > 0:
             scores = scores / m
@@ -139,6 +172,51 @@ class ssl:
     def fit_predict(self, train_ind, train_labels, all_labels=None):
         self.fit(train_ind, train_labels, all_labels=all_labels)
         return self.predict()
+
+    def warmup(self, num_classes=2, num_labels=None, seed=0):
+        """One throwaway fit on a random balanced train set (``num_labels``,
+        by default 5 a class, from ``seed``), so that the one-time costs of
+        the graph (the band's plan and build, the zero-diagonal copy) are
+        paid now and not in the first real fit; the fitted state is then
+        reset.  Returns self."""
+        n = self.graph.num_nodes
+        rs = np.random.RandomState(seed)
+        m = num_labels if num_labels is not None else 5 * num_classes
+        ti = rs.choice(n, min(m, n), replace=False)
+        self.fit(ti, np.arange(len(ti)) % num_classes)
+        self.fitted = False
+        self.prob = None
+        self.weights = 1
+        return self
+
+    def fit_predict_batched(self, trainsets, labels):
+        """Fit many trials, returning a list of prediction arrays.  Where
+        the model has ``_fit_batched`` and all the trials have one size
+        (and neither class priors nor one-vs-rest), the trials solve
+        together, in groups whose plain gather stays within
+        ``_BATCH_BYTES``; otherwise one ``fit_predict`` a trial."""
+        labels = np.asarray(labels)
+        trainsets = [np.asarray(t) for t in trainsets]
+        sizes = {len(t) for t in trainsets}
+        if (len(sizes) == 1 and self.class_priors is None
+                and not self.onevsrest and hasattr(self, "_fit_batched")):
+            preds = self._fit_batched(np.stack(trainsets), labels)
+            self.fitted = True
+            return [np.asarray(p) for p in preds]
+        return [self.fit_predict(t, labels[t]) for t in trainsets]
+
+    def _predict_batched(self, trainsets, labels):
+        """The trials' predicted labels from the model's
+        ``_solve_batched``; their CG steps in ``self.iters``, an array in
+        trial order."""
+        classes = _trial_classes(labels)[0]
+        preds = [None] * len(trainsets)
+        self.iters = np.zeros(len(trainsets), dtype=np.int64)
+        for idx, u, iters in self._solve_batched(trainsets, labels):
+            self.iters[idx] = iters
+            for i, ui in zip(idx, torch.argmax(u, dim=2).cpu().numpy()):
+                preds[i] = classes[ui]
+        return preds
 
     def volume_label_projection(self):
         """Adjust per-class decision weights until the predicted class sizes
@@ -187,9 +265,150 @@ class ssl:
     def _fit(self, train_ind, train_labels, all_labels=None):
         raise NotImplementedError("Must override _fit")
 
+    def fit_device(self, train_ind, train_labels):
+        """:meth:`fit` that returns the ``(n, C)`` scores as a tensor on
+        the graph's device, with no copy to the host; ``self.prob`` is that
+        tensor (``predict`` copies it once).  One-vs-rest models and class
+        priors take :meth:`fit` and come back as a device tensor."""
+        if self.graph is None:
+            raise RuntimeError("SSL object has no graph. Use set_graph().")
+        dev = self.graph.device
+        if self.onevsrest or self.class_priors is not None:
+            return torch.as_tensor(self.fit(train_ind, train_labels),
+                                   device=dev)
+        self.fitted = True
+        self.prob = self._fit_on_device(np.asarray(train_ind),
+                                        np.asarray(train_labels))
+        return self.prob
+
+    def _fit_on_device(self, train_ind, train_labels):
+        """``_fit``'s scores on the graph's device.  Laplace's and
+        Poisson's ``_fit`` return the device tensor itself; a model whose
+        ``_fit`` returns a host array is copied to the device."""
+        return torch.as_tensor(self._fit(train_ind, train_labels),
+                               device=self.graph.device)
+
+    # -- the trial harness ----------------------------------------------------
+
+    def get_accuracy_filename(self):
+        fname = self.accuracy_filename
+        if self.class_priors is not None:
+            fname += "_classpriors"
+        return fname + "_accuracy.csv"
+
+    def ssl_trials(self, trainsets, labels, num_cores=1, tag="",
+                   save_results=True, overwrite=False, num_trials=-1,
+                   resume=False):
+        """Run the trials ``trainsets`` and append a row a trial to
+        ``results_dir/<tag><get_accuracy_filename()>``: ``Number of
+        labels,Accuracy``, or with class priors the accuracy without and
+        with them and the priors' error.  Same-size trials solve together
+        (:meth:`fit_predict_batched`).  An existing file is left as it is
+        (and None returned) unless ``overwrite``; with ``resume`` the
+        trials it already holds are skipped and the new rows appended.
+        ``num_cores`` is accepted and unused.  Returns this call's rows."""
+        labels = np.asarray(labels)
+        has_priors = self.class_priors is not None
+        done_rows = 0
+        outfile = None
+        if save_results:
+            os.makedirs(results_dir, exist_ok=True)
+            outfile = os.path.join(results_dir,
+                                   tag + self.get_accuracy_filename())
+            exists = os.path.exists(outfile)
+            if exists and resume:
+                with open(outfile) as fh:
+                    done_rows = max(0, sum(1 for _ in fh) - 1)
+            elif exists and not overwrite:
+                print(f"Results file {outfile} exists; aborting "
+                      "(overwrite=False)")
+                return None
+            if done_rows == 0:
+                with open(outfile, "w") as fh:
+                    if has_priors:
+                        fh.write("Number of labels,Accuracy,"
+                                 "Accuracy with class priors,"
+                                 "Class priors error\n")
+                    else:
+                        fh.write("Number of labels,Accuracy\n")
+
+        if num_trials > 0:
+            trainsets = trainsets[:num_trials]
+        trainsets = [np.asarray(t) for t in trainsets[done_rows:]]
+        if not trainsets:
+            return np.zeros((0, 4 if has_priors else 2))
+
+        if has_priors:
+            # one fit a trial, then both predictions
+            results = []
+            for train_ind in trainsets:
+                pred = self.fit_predict(train_ind, labels[train_ind])
+                acc_with = ssl_accuracy(pred, labels, train_ind)
+                acc_without = ssl_accuracy(
+                    self.predict(ignore_class_priors=True), labels, train_ind)
+                row = (len(train_ind), acc_without, acc_with,
+                       self.class_priors_error)
+                results.append(row)
+                if outfile is not None:
+                    with open(outfile, "a") as fh:
+                        fh.write("%d,%.2f,%.2f,%.5f\n" % row)
+            return np.array(results)
+
+        preds = [None] * len(trainsets)
+        by_size = {}
+        for i, t in enumerate(trainsets):
+            by_size.setdefault(len(t), []).append(i)
+        for idxs in by_size.values():
+            group = self.fit_predict_batched([trainsets[i] for i in idxs],
+                                             labels)
+            for i, pred in zip(idxs, group):
+                preds[i] = pred
+
+        results = []
+        for train_ind, pred in zip(trainsets, preds):
+            acc = ssl_accuracy(pred, labels, train_ind)
+            results.append((len(train_ind), acc))
+            if outfile is not None:
+                with open(outfile, "a") as fh:
+                    fh.write(f"{len(train_ind)},{acc:.2f}\n")
+        return np.array(results)
+
+    def trials_statistics(self, tag=""):
+        """``(num_train, acc_mean, acc_stddev, num_trials)`` of the saved
+        trials, ``acc_mean`` and ``acc_stddev`` ``(m, c)`` by label count:
+        ``c = 1``, or 3 for class-priors files."""
+        outfile = os.path.join(results_dir, tag + self.get_accuracy_filename())
+        X = np.atleast_2d(utils.csvread(outfile))
+        num_train = np.unique(X[:, 0])
+        acc_mean, acc_std = [], []
+        for m in num_train:
+            Y = X[X[:, 0] == m, 1:]
+            acc_mean.append(np.mean(Y, axis=0))
+            acc_std.append(np.std(Y, axis=0))
+        num_trials = int(len(X) / max(1, len(num_train)))
+        return num_train, np.array(acc_mean), np.array(acc_std), num_trials
+
 
 def _as_numpy(u):
     return u.cpu().numpy() if torch.is_tensor(u) else np.asarray(u)
+
+
+def warmup(model, num_classes=2, num_train=None, seed=0):
+    """Run one ``fit_predict`` of ``model`` on its own graph with synthetic
+    labels (``num_train`` nodes from ``seed``, ``num_classes`` classes),
+    then reset its fitted state, so that the graph's one-time costs (the
+    band's plan and build, the zero-diagonal copy) are paid before the
+    real fit.  Returns the model: ``gl.warmup(gl.ssl.poisson(W),
+    10).fit_predict(ti, tl)``."""
+    rs = np.random.RandomState(seed)
+    n = model.graph.num_nodes
+    m = num_train if num_train is not None else min(
+        max(10, 2 * num_classes), n)
+    ti = np.sort(rs.choice(n, m, replace=False))
+    model.fit_predict(ti, np.arange(m) % num_classes)
+    model.prob = None
+    model.fitted = False
+    return model
 
 
 def ssl_accuracy(pred_labels, true_labels, train_ind=None):
@@ -240,11 +459,21 @@ class laplace(ssl):
         self.tau = tau
         self.X = X
         self.alpha, self.zeta, self.r = alpha, zeta, r
+        fname = "_laplace"
         self.name = "Laplace Learning"
         if reweighting != "none":
+            fname += "_" + reweighting
             self.name += ": " + reweighting + " reweighted"
         if normalization != "combinatorial":
+            fname += "_" + normalization
             self.name += " " + normalization
+        if mean_shift:
+            fname += "_meanshift"
+        if self.order > 1:
+            fname += "_order%d" % self.order
+        if np.max(np.atleast_1d(tau)) > 0:
+            fname += "_tau_%.3f" % np.max(np.atleast_1d(tau))
+        self.accuracy_filename = fname
 
     def _reweighted_graph(self, train_ind):
         """The graph reweighted for ``train_ind``, cached per train set: a
@@ -303,6 +532,55 @@ class laplace(ssl):
             u = u - torch.mean(u, dim=0)
         return u
 
+    def _fit_batched(self, trainsets, labels):
+        """The trials' predicted labels by :meth:`_solve_batched` (the
+        reweighted fits take one ``fit_predict`` a trial: each rebuilds
+        its graph)."""
+        labels = np.asarray(labels)
+        if self.reweighting != "none":
+            return [self.fit_predict(t, labels[t]) for t in trainsets]
+        return self._predict_batched(trainsets, labels)
+
+    def _solve_batched(self, trainsets, labels):
+        """Masked Jacobi CG of the trials (``(T, m)`` train indices), a
+        group at a time (:func:`_batch_groups`), by
+        :func:`solvers.cg.constrained_solve_batched` over
+        :meth:`graph.laplacian_op` on the plain ELL, as the JAX package's
+        vmapped solve.  Yields ``(indices, u (G, n, C), iters)``."""
+        G = self.graph
+        dev = G.device
+        dtype = config.float_dtype(dev)
+        n = G.num_nodes
+        classes, remap = _trial_classes(labels)
+        k = len(classes)
+        tau = np.broadcast_to(np.atleast_1d(self.tau), (n,)).astype(float)
+        tau_t = torch.as_tensor(tau, device=dev).to(dtype)
+        matvec, diag = G.laplacian_op(self.normalization)
+        order = self.order
+
+        def L(X):
+            Y = X
+            for _ in range(order):
+                Y = tau_t[:, None] * Y + matvec(Y)
+            return Y
+
+        Ldiag = (tau_t + diag) ** order
+        for idx in _batch_groups(len(trainsets), G.sparse, k, dtype):
+            masks = np.zeros((len(idx), n), dtype=bool)
+            bdy = np.zeros((len(idx), n, k))
+            for t, i in enumerate(idx):
+                ti = np.asarray(trainsets[i])
+                masks[t, ti] = True
+                bdy[t, ti, remap[labels[ti]]] = 1.0
+            with config.exact_matmul():          # d = trials x classes
+                u, iters, _ = _cg.constrained_solve_batched(
+                    L, Ldiag, torch.as_tensor(masks, device=dev),
+                    torch.as_tensor(bdy, device=dev).to(dtype),
+                    tol=self.tol, max_iter=10**5)
+            if self.mean_shift:
+                u = u - torch.mean(u, dim=1, keepdim=True)
+            yield idx, u, iters
+
 
 class randomwalk(ssl):
     """Lazy random-walk learning: CG solve of
@@ -314,6 +592,7 @@ class randomwalk(ssl):
         self.alpha = alpha
         self.tau = tau
         self.name = "Random Walk"
+        self.accuracy_filename = "_randomwalk"
 
     def _fit(self, train_ind, train_labels, all_labels=None):
         G = self.graph
@@ -362,6 +641,11 @@ class poisson(ssl):
         self.tol = tol
         self.spectral_cutoff = spectral_cutoff
         self.name = "Poisson Learning"
+        fname = "_poisson"
+        if solver == "spectral":
+            fname += "_N%d" % spectral_cutoff
+            self.requires_eig = True
+        self.accuracy_filename = fname
 
     def _fit(self, train_ind, train_labels, all_labels=None):
         n = self.graph.num_nodes
@@ -422,6 +706,50 @@ class poisson(ssl):
             g, b, train_ind, self.min_iter, self.max_iter)
         return u
 
+    def _fit_batched(self, trainsets, labels):
+        """The trials' predicted labels by :meth:`_solve_batched` (solvers
+        other than conjugate_gradient take one ``fit_predict`` a trial)."""
+        labels = np.asarray(labels)
+        if self.solver != "conjugate_gradient":
+            return [self.fit_predict(t, labels[t]) for t in trainsets]
+        return self._predict_batched(trainsets, labels)
+
+    def _solve_batched(self, trainsets, labels):
+        """CG on the normalized Laplacian of the zero-diagonal graph for the
+        trials (``(T, m)`` train indices), a group at a time
+        (:func:`_batch_groups`), by :func:`solvers.cg.conjgrad_batched` on
+        the plain ELL, as the JAX package's vmapped solve, each trial's
+        kernel component projected out.  Yields ``(indices, u (G, n, C),
+        iters)``."""
+        dev = self.graph.device
+        dtype = config.float_dtype(dev)
+        n = self.graph.num_nodes
+        _, G0 = self._nodiag_graph()
+        g = G0.sparse
+        classes, remap = _trial_classes(labels)
+        k = len(classes)
+        deg = _ops.degree_vector(g)
+        s = 1.0 / torch.sqrt(deg)
+
+        def Lnorm(X):
+            return X - s[:, None] * _ops.spmm(g, s[:, None] * X)
+
+        for idx in _batch_groups(len(trainsets), g, k, dtype):
+            sources = np.zeros((len(idx), n, k))
+            for t, i in enumerate(idx):
+                ti = np.asarray(trainsets[i])
+                onehot = np.zeros((len(ti), k))
+                onehot[np.arange(len(ti)), remap[labels[ti]]] = 1.0
+                sources[t, ti] = onehot - onehot.mean(0)
+            b = torch.as_tensor(sources, device=dev).to(dtype)
+            with config.exact_matmul():          # d = trials x classes
+                v, iters, _ = _cg.conjgrad_batched(
+                    Lnorm, s[None, :, None] * b, tol=self.tol,
+                    max_iter=10**5)
+            u = torch.stack([s[:, None] * _project_out_nlap_kernel(vt, deg)
+                             for vt in v])
+            yield idx, u, iters
+
 
 def _poisson_gradient_descent(g: SparseGraph, b, train_ind, min_iter,
                               max_iter):
@@ -476,6 +804,12 @@ class poisson_mbo(ssl):
         self.Ns = Ns
         self.mu = mu
         self.T = T
+        fname = "_poisson_mbo"
+        if solver == "spectral":
+            fname += "_N%d" % spectral_cutoff
+            self.requires_eig = True
+        fname += "_Ns_%d_mu_%.2f_T_%d" % (Ns, mu, T)
+        self.accuracy_filename = fname
         self.name = "Poisson MBO"
 
     def _fit(self, train_ind, train_labels, all_labels=None):
@@ -558,6 +892,8 @@ class volume_mbo(ssl):
         self.volume_constraint = volume_constraint
         self.max_iters = max_iters
         self.seed = seed
+        self.accuracy_filename = "_volume_mbo_temp_%.2f_vol_%.2f" % (
+            temperature, volume_constraint)
         self.name = "Volume MBO (T=%.2f, V=%.2f)" % (temperature,
                                                      volume_constraint)
 
@@ -652,6 +988,9 @@ class multiclass_mbo(ssl):
         self.Ns, self.T, self.dt, self.mu = Ns, T, dt, mu
         self.num_eig = num_eig
         self.seed = seed
+        self.requires_eig = True
+        self.accuracy_filename = (
+            "_multiclass_mbo_Ns_%d_T_%d_dt_%.3f_mu_%.2f" % (Ns, T, dt, mu))
         self.name = "Multiclass MBO"
 
     def _fit(self, train_ind, train_labels, all_labels=None):
@@ -705,6 +1044,10 @@ class modularity_mbo(ssl):
         super().__init__(W, class_priors, device=device)
         self.gamma, self.epsilon, self.lamb = gamma, epsilon, lamb
         self.T, self.Ns = T, Ns
+        self.requires_eig = True
+        self.accuracy_filename = (
+            "_modularity_mbo_gamma_%.2f_epsilon_%.2f_lamb_%.2f"
+            % (gamma, epsilon, lamb))
         self.name = "Modularity MBO"
 
     def _fit(self, train_ind, train_labels, all_labels=None):
@@ -767,6 +1110,7 @@ class centered_kernel(ssl):
         self.power_it = power_it
         self.alpha = alpha
         self.seed = seed
+        self.accuracy_filename = "_centered_kernel"
         self.name = "Centered Kernel"
 
     def _fit(self, train_ind, train_labels, all_labels=None):
@@ -826,6 +1170,8 @@ class graph_nearest_neighbor(ssl):
             self.onevsrest = True
             self.similarity = False
         self.f = _density_speed(D, alpha)
+        self.accuracy_filename = ("_graph_nearest_neighbor_alpha%.2f"
+                                  % self.alpha)
         self.name = "Graph NN (alpha=%.2f)" % self.alpha
 
     def _fit(self, train_ind, train_labels, all_labels=None):
@@ -877,6 +1223,7 @@ class amle(ssl):
         self.max_num_it = max_num_it
         self.weighted = weighted
         self.onevsrest = True
+        self.accuracy_filename = "_amle" + ("" if weighted else "_unweighted")
         self.name = "AMLE"
 
     def _fit(self, train_ind, train_labels, all_labels=None):
@@ -917,6 +1264,8 @@ class peikonal(ssl):
             self.f = (d / np.max(d)) ** (-alpha)
         else:
             self.f = _density_speed(D, alpha)
+        self.accuracy_filename = "_peikonal_p%.2f_alpha%.2f" % (self.p,
+                                                                self.alpha)
         self.name = "p-eikonal (p=%.2f, alpha=%.2f)" % (self.p, self.alpha)
 
     def _fit(self, train_ind, train_labels, all_labels=None):
@@ -949,6 +1298,7 @@ class plaplace(ssl):
         self.tol = 1e-5 if fast else tol
         self.onevsrest = True
         self.fast = fast
+        self.accuracy_filename = "_plaplace_p%.2f" % self.p
         self.name = "p-Laplace (p=%.2f)" % self.p
 
     def _fit(self, train_ind, train_labels, all_labels=None):
@@ -967,3 +1317,286 @@ class plaplace(ssl):
         self.iters, self.path = info.get("iters"), info.get("path")
         self.info = info
         return u
+
+
+# -- dynamic and sparse label propagation -------------------------------------
+
+
+class dynamic_label_propagation(ssl):
+    """Dynamic label propagation: ``T`` rounds of ``u <- P_t u`` (the
+    labels reset on the labeled rows) and ``P_t <- P P_t P^T + alpha v v^T
+    + lam I`` (``v = P u``), with ``P`` the dense row-normalised weight
+    matrix of the zero-diagonal graph: dense products on the device, in
+    full f32 on CUDA.  The graph must have at most 5000 nodes; above that
+    the fit prints so and returns zeros, as the JAX package does.  The
+    parameters are the JAX package's, in its order, with ``device`` last.
+    With ``all_labels`` the fit prints each round's accuracy."""
+
+    def __init__(self, W=None, class_priors=None, alpha=0.05, lam=0.1, T=2,
+                 device=None):
+        super().__init__(W, class_priors, device=device)
+        self.alpha, self.lam, self.T = alpha, lam, T
+        self.accuracy_filename = "_dynamic_label_propagation"
+        self.name = "Dynamic Label Propagation"
+
+    def _fit(self, train_ind, train_labels, all_labels=None):
+        n = self.graph.num_nodes
+        k = len(np.unique(train_labels))
+        if n > 5000:
+            print("Cannot use Dynamic Label Propagation on large datasets.")
+            return np.zeros((n, k))
+        dev = self.graph.device
+        dtype = config.float_dtype(dev)
+        W = self.graph.weight_matrix.copy()
+        W.setdiag(0)
+        W.eliminate_zeros()
+        d = np.asarray(W.sum(1)).ravel()
+        as_t = lambda a: torch.as_tensor(a, device=dev).to(dtype)
+        P = as_t(np.asarray(W.todense()) / d[:, None])
+        K = utils.labels_to_onehot(train_labels, k)
+        k = K.shape[1]       # one-hot widens k for non-consecutive label ids
+        u = np.zeros((n, k))
+        u[train_ind] = K
+        u, K = as_t(u), as_t(K)
+        ti = torch.as_tensor(np.asarray(train_ind), device=dev)
+        eye = torch.eye(n, dtype=dtype, device=dev)
+        Pt = P
+        for _ in range(self.T):
+            with config.exact_matmul():
+                v = P @ u
+                u = Pt @ u
+                u[ti] = K
+                Pt = P @ Pt @ P.T + self.alpha * (v @ v.T) + self.lam * eye
+            if all_labels is not None:
+                self.prob = u.cpu().numpy()
+                print("Accuracy = %.2f" % ssl_accuracy(
+                    self.predict(), all_labels, train_ind))
+        return u
+
+
+class sparse_label_propagation(ssl):
+    """Sparse label propagation: ``T`` rounds of the primal-dual TV
+    iteration on the graph's flat edge list (:meth:`_edge_list`), the
+    classes batched: the dual field ``Y`` on the edges, the divergence
+    summed per row by :func:`core.sparse.segment_reduce` (sorted rows, the
+    same sums in every run), the labels reset on the labeled rows.  The
+    parameters are the JAX package's, in its order, with ``device``
+    last."""
+
+    def __init__(self, W=None, class_priors=None, T=100, device=None):
+        super().__init__(W, class_priors, device=device)
+        self.T = T
+        self.accuracy_filename = "_sparse_label_propagation"
+        self.name = "Sparse LP"
+
+    def _edge_list(self):
+        """``(erow, ecol, ew, emir)`` on the graph's device: the stored
+        entries in row order, padded to a multiple of 256 with rows at
+        ``n`` and zero weights, and the position of each edge's mirror
+        ``(col, row)`` (a pad, or an edge with no mirror, its own).  Built
+        once and kept on the scipy matrix, a copy per device."""
+        W0 = self.graph.weight_matrix
+        dev = self.graph.device
+        cache = getattr(W0, "_gltt_edges", None)
+        if not isinstance(cache, dict):
+            cache = W0._gltt_edges = {}
+        key = str(dev)
+        if key not in cache:
+            coo = W0.tocoo()
+            m = coo.nnz
+            n = W0.shape[0]
+            mp = max(256, ((m + 255) // 256) * 256)
+            erow = np.full(mp, n, np.int64)
+            ecol = np.zeros(mp, np.int64)
+            ew = np.zeros(mp, np.float64)
+            erow[:m] = coo.row
+            ecol[:m] = coo.col
+            ew[:m] = coo.data
+            ekey = erow * (n + 1) + ecol
+            mkey = ecol * (n + 1) + erow
+            mkey[m:] = ekey[m:]                 # pads mirror themselves
+            order = np.argsort(ekey, kind="stable")
+            pos = np.clip(np.searchsorted(ekey[order], mkey), 0, mp - 1)
+            emir = np.where(ekey[order][pos] == mkey, order[pos],
+                            np.arange(mp))
+            as_t = lambda a: torch.as_tensor(a, device=dev)
+            cache[key] = (as_t(erow), as_t(ecol),
+                          as_t(ew).to(config.float_dtype(dev)), as_t(emir))
+        return cache[key]
+
+    def _fit(self, train_ind, train_labels, all_labels=None):
+        n = self.graph.num_nodes
+        dev = self.graph.device
+        dtype = config.float_dtype(dev)
+        kc = len(np.unique(train_labels))
+        onehot = utils.labels_to_onehot(train_labels, kc)
+        if onehot.shape[1] != kc:
+            raise ValueError("sparse_label_propagation takes the label ids "
+                             f"0..{kc - 1}, not {np.unique(train_labels)}")
+        onehot = torch.as_tensor(onehot, device=dev).to(dtype)
+        erow, ecol, ew, emir = self._edge_list()
+        ti = torch.as_tensor(np.asarray(train_ind), device=dev)
+        gamma = 1.0 / _ops.degree_vector(self.graph.sparse).to(dtype)
+        return _sparse_lp_run(erow, ecol, ew, emir, gamma, ti, onehot, n, kc,
+                              self.T)
+
+
+def _sparse_lp_run(erow, ecol, ew, emir, gamma, ti, onehot, n, kc, T):
+    """The primal-dual TV iteration of :class:`sparse_label_propagation`,
+    ``lam_e = 1 / (2 w_e + 1e-10)``; zero-weight pads add nothing to the
+    gradient or the divergence."""
+    from graphlearning_tpu_torch.core.sparse import segment_reduce
+
+    lam = 1.0 / (2.0 * ew + 1e-10)
+    rows = torch.clamp(erow, max=n - 1)
+    u = torch.zeros((n, kc), dtype=gamma.dtype, device=gamma.device)
+    Y = torch.zeros((erow.shape[0], kc), dtype=gamma.dtype,
+                    device=gamma.device)
+    for _ in range(T):
+        u_prev = u
+        contrib = ew[:, None] * (Y - Y[emir])
+        div = 0.5 * segment_reduce(
+            torch.zeros((n + 1, kc), dtype=u.dtype, device=u.device), erow,
+            contrib, "sum")[:n]
+        u = u_prev - gamma[:, None] * (2.0 * div)
+        u[ti] = onehot
+        u_tilde = 2.0 * u - u_prev
+        Gu = -(ew[:, None] * (u_tilde[ecol] - u_tilde[rows]))
+        Y = torch.clamp(Y + Gu * lam[:, None], -1.0, 1.0)
+    return u
+
+
+# -- report generators ------------------------------------------------------
+
+
+def accuracy_plot(model_list, tag="", testerror=False, savefile=None,
+                  title=None, errorbars=False, loglog=False, ylim=None,
+                  fontsize=16, legend_fontsize=16, label_fontsize=16):
+    """Plot each model's mean accuracy (or test error) against the number
+    of labels from its :meth:`ssl.ssl_trials` file, class-priors runs with
+    a second '+CP' series, on a new matplotlib figure (saved to
+    ``savefile``, else shown).  Needs matplotlib, imported here."""
+    import matplotlib
+    import matplotlib.pyplot as plt
+
+    if errorbars:
+        matplotlib.rcParams.update({"errorbar.capsize": 5})
+    matplotlib.rcParams.update({"font.size": fontsize})
+    styles = ["^b-", "or-", "dg-", "sk-", "pm-", "xc-", "*y-"]
+    plt.figure()
+    si = -1
+    for model in model_list:
+        num_train, acc_mean, acc_std, _ = model.trials_statistics(tag=tag)
+        if testerror:
+            acc_mean = 100.0 - acc_mean
+        series = [(acc_mean[:, 0], acc_std[:, 0], model.name)]
+        if acc_mean.shape[1] > 1:
+            series.append((acc_mean[:, 1], acc_std[:, 1],
+                           model.name + "+CP"))
+        for y, yerr, name in series:
+            si = (si + 1) % len(styles)
+            style = styles[si]
+            if errorbars:
+                plt.errorbar(num_train, y, fmt=style, yerr=yerr, label=name)
+            elif loglog:
+                plt.loglog(num_train, y, style, label=name)
+            else:
+                plt.plot(num_train, y, style, label=name)
+    plt.xlabel("Number of labels", fontsize=label_fontsize)
+    if testerror:
+        plt.ylabel("Test error (%)", fontsize=label_fontsize)
+        plt.legend(loc="upper right", fontsize=legend_fontsize)
+    else:
+        plt.ylabel("Accuracy (%)", fontsize=label_fontsize)
+        plt.legend(loc="lower right", fontsize=legend_fontsize)
+    if title is not None:
+        plt.title(title)
+    plt.tight_layout()
+    plt.grid(True)
+    if ylim is not None:
+        plt.ylim(ylim)
+    if savefile is not None:
+        plt.savefig(savefile)
+    else:
+        plt.show()
+
+
+def accuracy_table(model_list, tag="", testerror=False, savefile="table.tex",
+                   title="", fontsize="small", append=False, two_column=False,
+                   small_caps=True):
+    """Write a LaTeX table of each model's mean (standard deviation)
+    accuracy by label count from its :meth:`ssl.ssl_trials` file, the best
+    of each column in bold (class-priors runs add a '+CP' row and compete
+    for it); ``testerror`` reports 100 less the accuracy."""
+    stats = [m.trials_statistics(tag=tag) for m in model_list]
+    num_train = stats[0][0]
+    ncols = len(num_train)
+    num_trials = int(stats[0][3])
+
+    best = [None] * ncols
+    class_priors_best = [False] * ncols
+    best_score = [-np.inf] * ncols
+    for i, (_, acc_mean, _, _) in enumerate(stats):
+        for j in range(ncols):
+            if acc_mean[j, 0] > best_score[j]:
+                best_score[j] = acc_mean[j, 0]
+                best[j] = i
+                class_priors_best[j] = False
+        if acc_mean.shape[1] > 1:
+            for j in range(ncols):
+                if acc_mean[j, 1] > best_score[j]:
+                    best_score[j] = acc_mean[j, 1]
+                    best[j] = i
+                    class_priors_best[j] = True
+
+    env = "table*" if two_column else "table"
+    lines = []
+    if not append:
+        lines += ["\\documentclass{article}", "\\usepackage[T1]{fontenc}",
+                  "\\usepackage{booktabs}",
+                  "\\usepackage[margin=1in]{geometry}",
+                  "\\begin{document}"]
+    lines += [
+        "", f"\\begin{{{env}}}[t!]", "\\vspace{-3mm}",
+        ("\\caption{%s: Average (standard deviation) %s over %d trials.}"
+         % (title, "test error" if testerror else "classification accuracy",
+            num_trials)),
+        "\\vspace{-3mm}", "\\label{tab:%s}" % title, "\\vskip 0.15in",
+        "\\begin{center}", f"\\begin{{{fontsize}}}",
+    ]
+    if small_caps:
+        lines.append("\\begin{sc}")
+    lines.append("\\begin{tabular}{l" + "l" * ncols + "}")
+    lines.append("\\toprule")
+    lines.append("\\# Labels" + "".join(
+        "&\\textbf{%d}" % int(m) for m in num_train) + "\\\\")
+    lines.append("\\midrule")
+
+    def emit_row(name, vals, errs, is_best):
+        row = name.ljust(15)
+        for j in range(ncols):
+            v = 100.0 - vals[j] if testerror else vals[j]
+            cell = "%.1f (%.1f)" % (v, errs[j])
+            row += "&{\\bf %s}" % cell if is_best(j) else "&%s      " % cell
+        lines.append(row + "\\\\")
+
+    for i, model in enumerate(model_list):
+        _, acc_mean, acc_std, _ = stats[i]
+        emit_row(model.name, acc_mean[:, 0], acc_std[:, 0],
+                 lambda j, i=i: best[j] == i and not class_priors_best[j])
+        if acc_mean.shape[1] > 1:
+            emit_row(model.name + "+CP", acc_mean[:, 1], acc_std[:, 1],
+                     lambda j, i=i: best[j] == i and class_priors_best[j])
+    lines += ["\\bottomrule", "\\end{tabular}"]
+    if small_caps:
+        lines.append("\\end{sc}")
+    lines += [f"\\end{{{fontsize}}}", "\\end{center}", "\\vskip -0.1in",
+              f"\\end{{{env}}}", "", "\\end{document}", ""]
+
+    if append and os.path.exists(savefile):
+        with open(savefile) as fh:
+            old = [ln for ln in fh.read().splitlines()
+                   if ln != "\\end{document}"]
+        lines = old + lines
+    with open(savefile, "w") as fh:
+        fh.write("\n".join(lines))

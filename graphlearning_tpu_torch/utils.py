@@ -1,6 +1,6 @@
-"""Label encodings, class priors, sparse helpers, the randomized SVD and
-the Dirichlet eigenvectors (counterpart of ``graphlearning_tpu/utils.py:
-28-40, 92-110, 148-191, 194-235``)."""
+"""Label encodings, class priors, sparse helpers, the randomized SVD, the
+Dirichlet eigenvectors and the file helpers (counterpart of
+``graphlearning_tpu/utils.py:28-40, 92-110, 148-191, 194-235, 468-491``)."""
 
 from __future__ import annotations
 
@@ -125,3 +125,35 @@ def sparse_max(A, B):
     IB = B > A
     IA = I - IB
     return A.multiply(IA) + B.multiply(IB)
+
+
+# -- file helpers -------------------------------------------------------------
+
+
+def csvread(filename):
+    """The rows of a CSV file after its header line, as a float array
+    (empty rows skipped; ``np.zeros((0,))`` when there is no data row)."""
+    import csv
+
+    with open(filename) as fh:
+        rows = [r for r in csv.reader(fh) if r]
+    return np.array(rows[1:], dtype=float) if len(rows) > 1 else np.zeros((0,))
+
+
+def numpy_load(file, field):
+    """The array ``field`` of an npz file (object arrays allowed)."""
+    return np.load(file, allow_pickle=True)[field]
+
+
+def download_file(url, file):
+    """Fetch ``url`` into ``file``, with TLS certificates verified (the JAX
+    package turns verification off).  Raises a ``RuntimeError`` that names
+    the URL when the download fails."""
+    import urllib.request
+
+    try:
+        print(f"Downloading {url} to {file}...")
+        with urllib.request.urlopen(url) as resp, open(file, "wb") as out:
+            out.write(resp.read())
+    except Exception as e:
+        raise RuntimeError(f"Could not download {url}: {e}") from e

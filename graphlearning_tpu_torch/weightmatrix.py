@@ -1,19 +1,25 @@
 """kNN graph construction (counterpart of
-``graphlearning_tpu/weightmatrix.py:37-93,195-250,264-341``).
+``graphlearning_tpu/weightmatrix.py:37-93,195-341``).
 
 Brute-force search is a chunked distance matmul plus ``torch.topk`` on the
 device; low-dimensional data takes a host cKDTree.  Kernel weights are
 computed on the device.  ``knn`` returns a scipy CSR matrix, as the JAX
-package does.
+package does.  The kNN data of a named dataset is kept in ``knn_dir`` (a
+module attribute the caller may reassign) as ``<dataset>_<metric>.npz``
+with fields ``J`` (indices) and ``D`` (distances), the JAX package's files.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import scipy.sparse as sparse
 import torch
 
 from graphlearning_tpu_torch import config, utils
+
+knn_dir = os.path.abspath(os.path.join(os.getcwd(), "knn_data"))
 
 
 def _chunk_topk(Q, X, Xsq, k: int, similarity: str):
@@ -72,13 +78,9 @@ def knnsearch(X, k, method=None, similarity="euclidean", dataset=None,
               metric="raw", device=None):
     """kNN search: ``method`` is 'kdtree' (host cKDTree, the default for
     dim <= 5) or 'brute' (device matmul + top-k, the default above).  The
-    parameters are the JAX package's, in its order, with ``device`` last;
-    ``dataset`` (with ``metric``) names the dataset whose kNN data the JAX
-    package stores, which waits for the port of ``datasets``."""
-    if dataset is not None:
-        raise NotImplementedError(
-            f"knnsearch storing the kNN data of the dataset {dataset!r} "
-            f"(metric {metric!r}) comes with datasets, not ported yet (P13)")
+    parameters are the JAX package's, in its order, with ``device`` last.
+    With ``dataset`` the result is also written to
+    ``knn_dir/<dataset>_<metric>.npz`` for :func:`load_knn_data`."""
     X = np.asarray(X)
     n, m = X.shape
     k = min(k, n)
@@ -96,10 +98,31 @@ def knnsearch(X, k, method=None, similarity="euclidean", dataset=None,
         if k == 1:
             knn_dist = knn_dist[:, None]
             knn_ind = knn_ind[:, None]
-        return knn_ind, knn_dist
-    if method == "brute":
-        return _brute_knn_device(X, k, similarity=similarity, device=device)
-    raise ValueError("Invalid choice of knnsearch method " + method)
+    elif method == "brute":
+        knn_ind, knn_dist = _brute_knn_device(X, k, similarity=similarity,
+                                              device=device)
+    else:
+        raise ValueError("Invalid choice of knnsearch method " + method)
+    if dataset is not None:
+        os.makedirs(knn_dir, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(knn_dir, dataset.lower() + "_" + metric.lower()
+                         + ".npz"), J=knn_ind, D=knn_dist)
+    return knn_ind, knn_dist
+
+
+def load_knn_data(dataset, metric="raw"):
+    """``(J, D)``, the kNN indices and distances that :func:`knnsearch`
+    stored for ``dataset`` and ``metric``, fetched from the GraphLearning
+    repository when ``knn_dir`` lacks them."""
+    fname = dataset.lower() + "_" + metric.lower() + ".npz"
+    path = os.path.join(knn_dir, fname)
+    if not os.path.exists(path):
+        os.makedirs(knn_dir, exist_ok=True)
+        utils.download_file(
+            "https://github.com/jwcalder/GraphLearning/raw/master/kNNData/"
+            + fname, path)
+    return utils.numpy_load(path, "J"), utils.numpy_load(path, "D")
 
 
 def _knn_weights_device(knn_ind, knn_dist, kernel: str):
@@ -127,9 +150,9 @@ def knn(data, k, kernel="gaussian", eta=None, symmetrize=True, metric="raw",
         similarity="euclidean", knn_data=None, device=None):
     """kNN weight matrix as scipy CSR.  The parameters are the JAX
     package's, in its order, with ``device`` last.  Symmetrization per
-    kernel as in the JAX package.  ``metric`` names the stored kNN data of
-    a dataset (``data`` a dataset name), which waits for the port of
-    ``datasets``.  Low-dimensional (<= 3) point coordinates ride along as
+    kernel as in the JAX package.  With ``data`` a dataset name, the kNN
+    data stored for it under ``metric`` (:func:`load_knn_data`) is read in
+    place of a search.  Low-dimensional (<= 3) point coordinates ride along as
     ``W._glt_points`` for the space-filling-curve ordering of
     ``ops.accel.AccelSpMM``."""
     dev = config.device(device)
@@ -137,9 +160,7 @@ def knn(data, k, kernel="gaussian", eta=None, symmetrize=True, metric="raw",
     if knn_data is not None:
         knn_ind, knn_dist = knn_data
     elif isinstance(data, str):
-        raise NotImplementedError(
-            f"knn of the dataset {data!r} (metric {metric!r}) loads its "
-            "stored kNN data through datasets, not ported yet (P13)")
+        knn_ind, knn_dist = load_knn_data(data, metric=metric)
     else:
         knn_ind, knn_dist = knnsearch(data, k, similarity=similarity,
                                       device=dev)

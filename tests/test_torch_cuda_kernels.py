@@ -1294,3 +1294,92 @@ def test_cuda_k2_at_the_eigenbasis_widths(banded_tiles, cuda_device, dtype,
     assert bs.band_tiles_spmm_packed.bf16_launches == (
         _tiles_launches(d) if dtype == torch.bfloat16 else 0)
     _close(out, bs._tiles_spmm_plain(packed, pplan, X), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["laplace", "poisson"])
+def test_cuda_batched_fits_match_the_single_solves(cuda_device, model,
+                                                   monkeypatch):
+    """The batched Laplace and Poisson fits (the trials folded into the
+    columns of one plain ELL product) on the card, at a tolerance of 1e-6:
+    each trial stops within 1 % of its own solve's steps and ends within
+    1e-4 of max|u| of its answer, with the same predictions on >= 0.999 of
+    the nodes.  Not bit for bit: the sums over the folded columns may
+    round otherwise than the single solve's, and CG carries that on (in
+    float32 two Poisson solves at the default tolerance stopped 2 steps
+    of 295 apart)."""
+    import graphlearning_tpu_torch as gl
+
+    monkeypatch.setenv("GLT_NO_ACCEL", "1")
+    W = _knn_csr(8192, 10, seed=3)
+    pts = W._glt_points
+    y = (pts[:, 0] > 0.5).astype(int) + 2 * (pts[:, 1] > 0.5)
+    trials = gl.trainsets.generate(y, rate=4, num_trials=5, seed=0)
+    make = lambda: getattr(gl.ssl, model)(W, tol=1e-6, device=cuda_device)
+    (idx, u, iters), = make()._solve_batched(np.stack(trials), y)
+    assert u.device.type == "cuda" and u.shape == (5, 8192, 4)
+    preds = make().fit_predict_batched(trials, y)
+    for t in idx:
+        single = make()
+        us = single._fit(trials[t], y[trials[t]])
+        assert abs(int(iters[t]) - single.iters) <= 0.01 * single.iters
+        err = float((u[t] - us).abs().max() / us.abs().max())
+        assert err <= 1e-4, (t, err)
+        assert np.mean(preds[t] == single.fit_predict(
+            trials[t], y[trials[t]])) >= 0.999
+
+
+@pytest.mark.cuda
+def test_cuda_batched_cg_freezes_each_trial(cuda_device):
+    """``conjgrad_batched`` on the card: a trial whose right-hand side is an
+    eigenvector stops after a step or two and stays there while the other
+    runs on; each ends at its own solve's answer."""
+    from graphlearning_tpu_torch import config
+    from graphlearning_tpu_torch.solvers import cg
+
+    rs = np.random.RandomState(4)
+    n = 256
+    Q, _ = np.linalg.qr(rs.randn(n, n))
+    A = torch.as_tensor(Q @ np.diag(np.linspace(1.0, 50.0, n)) @ Q.T,
+                        dtype=torch.float32, device=cuda_device)
+    b = torch.as_tensor(np.stack([np.repeat(Q[:, [7]], 2, axis=1),
+                                  rs.randn(n, 2)]), dtype=torch.float32,
+                        device=cuda_device)
+    with config.exact_matmul():
+        x, iters, _ = cg.conjgrad_batched(lambda X: A @ X, b, tol=1e-6)
+        single = [cg.conjgrad(lambda X: A @ X, b[t], tol=1e-6)
+                  for t in range(2)]
+    assert iters[0] <= 2 and iters[1] > 20
+    for t, (xs, it, _) in enumerate(single):
+        assert abs(it - int(iters[t])) <= 1
+        torch.testing.assert_close(x[t], xs, rtol=0,
+                                   atol=1e-4 * float(xs.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_label_propagation_the_same_in_every_run(cuda_device):
+    """``ssl.sparse_label_propagation`` sums its divergence by sorted rows:
+    two fits on the card give the same bits.  Against the float64 fit on
+    the CPU, its accuracy within a point and its predictions on >= 0.95 of
+    the nodes: the dual step's clip makes the rounds discontinuous, so
+    float32 and float64 part (on the CPU, on this graph, they agree on
+    0.987 of the nodes, 0.04 points of accuracy apart, the scores up to
+    1.8 apart)."""
+    import graphlearning_tpu_torch as gl
+
+    W = _knn_csr(8192, 10, seed=5)
+    pts = W._glt_points
+    y = (pts[:, 0] > 0.5).astype(int) + 2 * (pts[:, 1] > 0.5)
+    ti = gl.trainsets.generate(y, rate=5, seed=0)
+    runs = [gl.ssl.sparse_label_propagation(W, device=cuda_device)
+            for _ in range(2)]
+    for m in runs:
+        m.fit(ti, y[ti])
+    np.testing.assert_array_equal(runs[0].prob, runs[1].prob)
+    ref = gl.ssl.sparse_label_propagation(W, device="cpu")
+    ref.fit(ti, y[ti])
+    pred, pref = runs[0].predict(), ref.predict()
+    assert np.isfinite(runs[0].prob).all()
+    assert np.mean(pred == pref) >= 0.95
+    assert abs(gl.ssl.ssl_accuracy(pred, y, ti)
+               - gl.ssl.ssl_accuracy(pref, y, ti)) <= 1.0

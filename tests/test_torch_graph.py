@@ -131,11 +131,19 @@ def test_knn_matches_jax(dim, method, kernel):
     assert hasattr(W, "_glt_points") == (dim <= 3)
 
 
+@pytest.fixture
+def knn_dirs(tmp_path, monkeypatch):
+    """Both packages' ``knn_dir`` in a temporary directory."""
+    monkeypatch.setattr(jgl.weightmatrix, "knn_dir", str(tmp_path / "jax"))
+    monkeypatch.setattr(tgl.weightmatrix, "knn_dir", str(tmp_path / "torch"))
+    return tmp_path
+
+
 @pytest.mark.parametrize("similarity", ["euclidean", "angular"])
-def test_knn_positional_metric_matches_jax(similarity):
+def test_knn_positional_metric_matches_jax(similarity, knn_dirs):
     """``knn(X, 10, "gaussian", None, True, "raw", similarity)``: the JAX
-    package's positional order, ``metric`` sixth, gives its CSR matrix; a
-    dataset name (JAX loads its stored kNN data) waits for ``datasets``."""
+    package's positional order, ``metric`` sixth, gives its CSR matrix; so
+    does a dataset name with ``metric``, on the kNN data JAX stored."""
     X = np.random.RandomState(7).rand(400, 3) + 0.5
     W = tgl.weightmatrix.knn(X, 10, "gaussian", None, True, "raw",
                              similarity, device="cpu")
@@ -144,16 +152,20 @@ def test_knn_positional_metric_matches_jax(similarity):
     np.testing.assert_array_equal(W.indptr, Wj.indptr)
     np.testing.assert_array_equal(W.indices, Wj.indices)
     np.testing.assert_allclose(W.data, Wj.data, **TOL)
-    with pytest.raises(NotImplementedError, match="P13"):
-        tgl.weightmatrix.knn("mnist", 10, device="cpu")
+    jgl.weightmatrix.knnsearch(X, 11, None, similarity, "Points", "raw")
+    tgl.weightmatrix.knn_dir = jgl.weightmatrix.knn_dir
+    Wn = tgl.weightmatrix.knn("points", 10, "gaussian", None, True, "raw",
+                              device="cpu")
+    Wnj = jgl.weightmatrix.knn("points", 10, "gaussian", None, True, "raw")
+    assert abs(Wn - Wnj).max() < 1e-10 and Wn.nnz == Wnj.nnz
 
 
 @pytest.mark.parametrize("method", [None, "kdtree", "brute"])
-def test_knnsearch_positional_dataset_metric_matches_jax(method):
+def test_knnsearch_positional_dataset_metric_matches_jax(method, knn_dirs):
     """``knnsearch(X, 5, method, "euclidean", None, "raw")``: the JAX
     package's positional order, ``dataset`` fifth and ``metric`` sixth,
-    gives its neighbors and distances; a dataset name (JAX stores the kNN
-    data under it) waits for ``datasets``."""
+    gives its neighbors and distances; with a dataset name both packages
+    store the same kNN data under it."""
     X = np.random.RandomState(8).rand(200, 3)
     args = (X, 5, method, "euclidean", None, "raw")
     ind, dist = tgl.weightmatrix.knnsearch(*args, device="cpu")
@@ -161,9 +173,14 @@ def test_knnsearch_positional_dataset_metric_matches_jax(method):
     assert ind.shape == jind.shape == (200, 5)
     np.testing.assert_array_equal(ind, jind)
     np.testing.assert_allclose(dist[:, 1:], jdist[:, 1:], **TOL)
-    with pytest.raises(NotImplementedError, match="P13"):
-        tgl.weightmatrix.knnsearch(X, 5, method, "euclidean", "mnist", "raw",
-                                   device="cpu")
+    tgl.weightmatrix.knnsearch(X, 5, method, "euclidean", "MNIST", "vae",
+                               device="cpu")
+    jgl.weightmatrix.knnsearch(X, 5, method, "euclidean", "MNIST", "vae")
+    for pkg in (tgl, jgl):
+        with np.load(os.path.join(pkg.weightmatrix.knn_dir,
+                                  "mnist_vae.npz")) as f:
+            np.testing.assert_array_equal(f["J"], jind)
+            np.testing.assert_allclose(f["D"][:, 1:], jdist[:, 1:], **TOL)
 
 
 @pytest.mark.parametrize("alpha", [0.5, 1.0])

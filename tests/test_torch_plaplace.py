@@ -26,6 +26,27 @@ torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-10, atol=1e-10)
 
+# ``tests/test_distance_solvers.py`` deletes the JAX class's class-batched
+# fit (``del type(m2)._fit_onevsrest``) to run its per-class loop, and
+# restores nothing.  In a process that ran it first, JAX's ``ssl.plaplace``
+# takes that loop, which stops at a different iterate (that test allows
+# the two 5e-4 apart), and the comparison below would fail.  The method is
+# kept here when the module is imported, at collection, and put back before
+# each test of this file.
+_JAX_PLAPLACE_FIT_ONEVSREST = jgl.ssl.plaplace.__dict__["_fit_onevsrest"]
+
+
+def _restore_jax_plaplace():
+    """Put JAX's ``ssl.plaplace._fit_onevsrest`` back where it is missing."""
+    if "_fit_onevsrest" not in jgl.ssl.plaplace.__dict__:
+        jgl.ssl.plaplace._fit_onevsrest = _JAX_PLAPLACE_FIT_ONEVSREST
+
+
+@pytest.fixture(autouse=True)
+def _jax_plaplace_intact():
+    _restore_jax_plaplace()
+    yield
+
 
 def _skewed_csr(n, seed):
     """A kNN-like graph with a few hubs, so the ELL is much wider than
@@ -202,6 +223,21 @@ def test_ssl_models_predict_as_jax(moons, name):
                                   jm.fit_predict(ti, y[ti]))
     np.testing.assert_allclose(tm.prob, jm.prob, **TOL)
     assert tm.path == "plain" and tm.iters > 20
+
+
+@pytest.mark.parametrize("name", ["plaplace", "plaplace_p4"])
+def test_ssl_models_predict_as_jax_after_the_method_is_deleted(moons, name):
+    """The comparison above after the JAX method is deleted as
+    ``tests/test_distance_solvers.py`` deletes it: it holds once the method
+    is put back, as the autouse fixture does before every test."""
+    m2 = jgl.ssl.plaplace(moons[0], p=10)
+    del type(m2)._fit_onevsrest
+    try:
+        _restore_jax_plaplace()
+        assert "_fit_onevsrest" in jgl.ssl.plaplace.__dict__
+        test_ssl_models_predict_as_jax(moons, name)
+    finally:
+        _restore_jax_plaplace()
 
 
 @pytest.fixture
