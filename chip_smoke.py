@@ -95,6 +95,21 @@ Phases (any failure exits non-zero before the result line):
    with class priors (sequential on the band, K2 held to the fits' CG
    steps) and ``poisson.fit_device`` (a CUDA tensor); dynamic label
    propagation on the ``FP_N`` cut;
+4f. active learning, the IVF search, the ``utils`` solvers and
+   checkpoints: on a fresh copy of the moons graph
+   ``active_learning.spectral_covariance(laplace(W), k=20)`` on the band
+   (K1 once, K2 by width held to LOBPCG's steps, eigenvalues to scipy's
+   float64 eigsh), then a cold and a warm ``var_opt`` learner over
+   eigsh's covariance from one label a class (JAX's queries, K2 = CG
+   steps + 2 a refit, fewer warm steps, each accuracy within a point of
+   JAX's); on the ten-cluster input ``knnsearch(method="ivf")`` twice
+   (bit-equal, JAX's recall) and on JAX's recall input, and a warm
+   and a cold Poisson learner on ``model_change`` over
+   ``spectral_covariance`` on the gather (the same queries, JAX's
+   accuracy); ``utils.constrained_solve`` against scipy's f64 solve,
+   ``utils.constrained_solve_gmres`` to its tolerance and, where it
+   stalls, to JAX's residual; PoissonMBO and
+   VolumeMBO killed after a checkpoint and resumed bit-equal;
 5. the rectangular route: the same graph under ``GLT_NO_BAND=1``
    (Laplace and Poisson on the unstored band, K6; ``graph.dijkstra`` on
    the plain path), then ``AccelSpMM(W, materialize=True)`` (K4 band; the
@@ -386,6 +401,52 @@ TRIALS_REFERENCE = {"laplace_1": 19.9689, "laplace_2": 15.8897,
 # TRIALS_AGREEMENT.
 TRIALS_MARGIN = {"laplace": 4.0}
 TRIALS_AGREEMENT = 0.999
+
+# Phase 4f (active learning).  The moons learners run AL_QUERIES rounds of
+# one query each on var_opt over eigsh's covariance (AL_TAU); the
+# ten-cluster learner AL_TEN_ROUNDS rounds of AL_TEN_BATCH.  AL_REFERENCE
+# holds the JAX package's float32 figures on these inputs, from
+# ``JAX_PLATFORMS=cpu python3 tools/al_reference.py``: the moons queries
+# (var_opt reads no fit, so they follow from the covariance), the moons
+# accuracy after each query, the ten-cluster learner's final accuracy and
+# the stalled GMRES solve's residual (GMRES_STALL_TOL below).
+AL_QUERIES = 10
+AL_TAU = 0.11
+AL_TEN_ROUNDS = 10
+AL_TEN_BATCH = 5
+AL_AGREEMENT = 0.999       # cold against warm learner, final argmax
+AL_REFERENCE = {
+    "moons_queries": [6145, 39715, 1953, 58491, 33846, 27501, 2178, 14598,
+                      16467, 12243],
+    "moons_accuracy": [82.096, 84.02, 75.4834, 86.2155, 98.9287, 99.8108,
+                       99.5208, 99.7802, 99.8504, 99.8062],
+    "ten_accuracy": 98.0555, "ten_ivf_recall": 0.5393,
+    "gmres_stall_residual": 3.5708e-4}
+# The IVF search's recall against the brute search: on the ten clusters
+# within IVF_RECALL_MARGIN of JAX's (its defaults probe 16 of 1093
+# clusters there, and 20-d unit gaussians spread a point's neighbours
+# over many cells: the port's indices equal JAX's on the CPU, recall
+# 0.5393 both), and at least IVF_RECALL on the clustered input of JAX's
+# recall test (tests/test_weightmatrix.py: n=4000, 30-d).
+IVF_RECALL_MARGIN = 0.01
+IVF_RECALL = 0.95
+# GMRES on the moons Laplacian (utils.constrained_solve_gmres) at JAX's
+# default tolerance, GMRES_RATE labels a class.  At the fits' 5 a class
+# the float32 solve stalls near 1.7 times its tolerance, in both packages
+# (JAX's Gram-Schmidt repeats its pass only where the overlaps are small,
+# so the rotated residual runs ahead of the true one; each restart then
+# ends after a step or two): PERF.md, PR 14.
+GMRES_TOL = 1e-5
+GMRES_RATE = 1000
+# Where it stalls, at 5 labels a class and GMRES_STALL_TOL, the solve runs
+# all its 1000 restarts; the preconditioned residual of its answer
+# (gmres_residual, float64 on the host) is held to the JAX package's
+# float32 figure (AL_REFERENCE["gmres_stall_residual"], tools/
+# al_reference.py) within GMRES_STALL_MARGIN, relative, both ways: the
+# stall's level is set by float32 rounding, which the card and the CPU
+# order differently.
+GMRES_STALL_TOL = 1e-4
+GMRES_STALL_MARGIN = 0.10
 
 
 class SmokeFailure(RuntimeError):
@@ -787,6 +848,23 @@ def eigsh_reference(W, k, shift_invert=True):
         vals = 1.0 - sla.eigsh(A, k=k, which="LA", tol=1e-12,
                                return_eigenvectors=False)
     return np.sort(vals)
+
+
+def eigsh_pairs(W, k):
+    """The ``k`` lowest eigenpairs of the normalized Laplacian of ``W`` by
+    scipy's float64 ``eigsh`` in shift-invert mode about ``-1e-3``, from a
+    seeded start: increasing eigenvalues, eigenvectors as columns."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as sla
+
+    W = sp.csr_matrix(W, dtype=np.float64)
+    n = W.shape[0]
+    s = sp.diags(np.asarray(W.sum(axis=1)).ravel() ** -0.5)
+    L = (sp.identity(n) - s @ W @ s).tocsc()
+    vals, vecs = sla.eigsh(L, k=k, sigma=-1e-3, which="LM",
+                           v0=np.random.RandomState(0).rand(n))
+    order = np.argsort(vals)
+    return vals[order], vecs[:, order]
 
 
 def two_moons(n, noise, seed):
@@ -2342,6 +2420,17 @@ def rel_to(u, ref):
                  / np.abs(ref).max())
 
 
+def gmres_residual(L, ind, bdy, x):
+    """The preconditioned residual ``||(A x - b) / diag||`` of
+    ``utils.constrained_solve_gmres(L, 0, I, bdy, ind)``'s answer ``x``, in
+    float64 on the host: ``A`` the rows of ``L`` with those of ``ind``
+    replaced by the identity's, ``diag`` its diagonal."""
+    mask = np.zeros(L.shape[0], bool)
+    mask[ind] = True
+    diag = np.where(mask, 1.0, L.diagonal())
+    return float(np.linalg.norm((np.where(mask, x, L @ x) - bdy) / diag))
+
+
 def check_solve(label, u, u_plain, u_ref):
     """A band path's masked Laplace solve within SOLVE_MARGIN of the plain
     path's error against scipy's f64 solve."""
@@ -2768,6 +2857,409 @@ def bench_phase(torch, accel, bs):
     return entries, {k: launches[k] for k in Q_KERNELS}
 
 
+@contextlib.contextmanager
+def killed_after(gl, saves):
+    """``gl.checkpoint.save`` raising after ``saves`` saves inside the block:
+    a fit that dies mid-run with some of its state on disk."""
+    real, left = gl.checkpoint.save, [saves]
+
+    def save(path, state, step=0):
+        real(path, state, step)
+        left[0] -= 1
+        if left[0] == 0:
+            raise KilledFit(f"killed after save {saves}")
+
+    gl.checkpoint.save = save
+    try:
+        yield
+    finally:
+        gl.checkpoint.save = real
+
+
+class KilledFit(RuntimeError):
+    """The simulated kill of :func:`killed_after`."""
+
+
+def recorded(bs, m):
+    """Wrap ``m._fit`` to record each fit's CG steps and its K1 and K2
+    launches (counted from 0 around the fit).  Returns the record."""
+    rec = {"steps": [], "k1": [], "k2": []}
+    fit = m._fit
+
+    def run(*a, **k):
+        bs.reset_launches()
+        out = fit(*a, **k)
+        got = bs.launches()
+        rec["steps"].append(int(m.iters))
+        rec["k1"].append(got["materialize_band_tiles"])
+        rec["k2"].append(got["band_tiles_spmm_packed"])
+        return out
+
+    m._fit = run
+    return rec
+
+
+def al_learners(torch, gl, bs, W, labels, ti, C0, V):
+    """The cold and the warm Laplace learner on ``var_opt`` over ``(C0, V)``,
+    AL_QUERIES queries of one node each.  Returns ``{warm: (learner,
+    queries, accuracies, record)}``."""
+    from graphlearning_tpu_torch import active_learning as al
+
+    runs = {}
+    for warm in (False, True):
+        m = gl.ssl.laplace(W)
+        rec = recorded(bs, m)
+        label = "warm" if warm else "cold"
+        t = time.perf_counter()
+        learner = al.active_learner(m, al.var_opt, ti, labels[ti],
+                                    warm_start=warm, C=C0, V=V)
+        queries, accs = [], []
+        for _ in range(AL_QUERIES):
+            q = learner.select_queries()
+            learner.update(q, labels[q])
+            queries += [int(i) for i in np.atleast_1d(q)]
+            u = learner.u
+            u = u.cpu().numpy() if isinstance(u, torch.Tensor) else u
+            accs.append(float(gl.ssl.ssl_accuracy(
+                np.argmax(u, axis=1), labels, learner.labeled_ind)))
+        torch.cuda.synchronize()
+        say(f"  {label} learner: {time.perf_counter() - t:.3f} s for "
+            f"{AL_QUERIES} queries, CG steps {rec['steps']}, K2 launches "
+            f"{rec['k2']}, K1 {rec['k1']}; queries {queries}; accuracy "
+            f"{[round(a, 4) for a in accs]}")
+        runs[warm] = (learner, queries, accs, rec)
+    return runs
+
+
+def al_moons(torch, gl, bs, W, labels):
+    """Phase 4f on the moons band: ``spectral_covariance`` of a Laplace
+    model (K1 once, K2 held to LOBPCG's steps, eigenvalues to eigsh), then
+    the cold and warm learners on eigsh's covariance (the same queries,
+    JAX's queries, fewer warm CG steps, K2 = CG steps + 2 a refit, no K1,
+    the accuracy after each query within ACCURACY_MARGIN of JAX's)."""
+    from graphlearning_tpu_torch import active_learning as al
+    from graphlearning_tpu_torch.solvers import eig
+
+    ti = gl.trainsets.generate(labels, rate=1, seed=0)
+    vals, V = timed(torch, "eigsh (float64, host, 20 pairs)",
+                    lambda: eigsh_pairs(W, 20))
+    C0 = np.diag(1.0 / (vals + AL_TAU))
+    We = W.copy()
+    We._glt_points = W._glt_points
+    model = gl.ssl.laplace(We)
+    bs.reset_launches()
+    Cs, Vs = timed(torch, "spectral_covariance(laplace(W), k=20) on the band",
+                   lambda: al.spectral_covariance(model, k=20, tau=AL_TAU))
+    launches = bs.launches()
+    by_d = dict(bs.band_tiles_spmm_packed.launches_by_d)
+    (key, info), = model.graph.eigen_info.items()
+    p = eig._default_power(gl.config.float_dtype(gl.config.device()))
+    K = key[2] + min(2 + key[2] // 10, max(We.shape[0] // 4 - key[2], 0))
+    want = lobpcg_launches(K, info["iters"], p)
+    say(f"  {info['iters']} LOBPCG steps of {K} vectors on "
+        f"{info['path']}; launches {launches}; K2 by X's columns "
+        f"{dict(sorted(by_d.items()))}, want {dict(sorted(want.items()))}")
+    if info["path"] != "packed tiles (K2)":
+        raise SmokeFailure(f"spectral_covariance ran on {info['path']}")
+    if launches["materialize_band_tiles"] != 1 or by_d != want:
+        raise SmokeFailure(f"spectral_covariance: launches {launches}, K2 "
+                           f"by width {by_d}, its steps give {want}")
+    check_spectrum("band/spectral_covariance", 1.0 / np.diag(Cs) - AL_TAU,
+                   vals, EIG_TOL["moons"])
+    if Vs.shape != V.shape or not np.isfinite(Vs).all():
+        raise SmokeFailure(f"spectral_covariance: V {Vs.shape}")
+
+    runs = al_learners(torch, gl, bs, We, labels, ti, C0, V)
+    (cold, qc, ac, rc), (warm, qw, aw, rw) = runs[False], runs[True]
+    if qw != qc:
+        raise SmokeFailure(f"warm queries {qw} differ from cold {qc}")
+    if qc != AL_REFERENCE["moons_queries"]:
+        raise SmokeFailure(f"queries {qc} differ from JAX's "
+                           f"{AL_REFERENCE['moons_queries']}")
+    say(f"  the queries are JAX's: {qc}")
+    if not isinstance(warm.u, torch.Tensor) or not warm.u.is_cuda:
+        raise SmokeFailure("the warm learner's scores left the card")
+    agree = float(np.mean(torch.argmax(warm.u, 1).cpu().numpy()
+                          == np.argmax(cold.u, axis=1)))
+    say(f"  cold and warm final argmax agree on {agree:.6f}; CG steps "
+        f"after the first fit cold {sum(rc['steps'][1:])}, warm "
+        f"{sum(rw['steps'][1:])}")
+    if agree < AL_AGREEMENT:
+        raise SmokeFailure(f"cold against warm {agree} < {AL_AGREEMENT}")
+    if sum(rw["steps"][1:]) >= sum(rc["steps"][1:]):
+        raise SmokeFailure("the warm learner took no fewer CG steps")
+    for rec in (rc, rw):
+        if any(rec["k1"]) or rec["k2"] != [s + 2 for s in rec["steps"]]:
+            raise SmokeFailure(f"refit launches: K1 {rec['k1']}, K2 "
+                               f"{rec['k2']}, CG steps {rec['steps']}")
+    ref = AL_REFERENCE["moons_accuracy"]
+    for label, accs in (("cold", ac), ("warm", aw)):
+        for i, (a, target) in enumerate(zip(accs, ref)):
+            if abs(a - target) > ACCURACY_MARGIN:
+                raise SmokeFailure(f"{label} learner, query {i + 1}: "
+                                   f"accuracy {a:.4f} % against JAX's "
+                                   f"{target:.4f} %")
+    say(f"  accuracy after each query within {ACCURACY_MARGIN} of JAX's "
+        f"{ref}")
+
+
+def ivf_recall(J, D, Jb, Db):
+    """The IVF search's recall against the brute search's neighbours, and
+    the largest relative difference of the distances where both found the
+    same neighbour in the same place."""
+    k = J.shape[1]
+    recall = float(np.mean([len(np.intersect1d(Jb[i], J[i])) / k
+                            for i in range(len(J))]))
+    hit = J == Jb
+    rel = float(np.max(np.abs(D[hit] - Db[hit])
+                       / np.maximum(np.abs(Db[hit]), 1e-30)))
+    return recall, rel
+
+
+def al_ten(torch, gl):
+    """Phase 4f on the ten-cluster input: the IVF search (recall, exact
+    hits, two runs bit-equal, beside the brute search), then a cold and a
+    warm Poisson learner on ``model_change`` over ``spectral_covariance``
+    on the gather: the same queries, argmax agreement AL_AGREEMENT, each
+    final accuracy within ACCURACY_MARGIN of JAX's."""
+    from graphlearning_tpu_torch import active_learning as al
+    from graphlearning_tpu_torch import bench
+
+    pts, y = bench.ten_cluster_points(70000)
+    Jb, Db = timed(torch, "knnsearch(pts, 10, method='brute')",
+                   lambda: gl.weightmatrix.knnsearch(pts, 10, method="brute"))
+    runs = [timed(torch, f"knnsearch(pts, 10, method='ivf'), run {i}",
+                  lambda: gl.weightmatrix.knnsearch(pts, 10, method="ivf"))
+            for i in (1, 2)]
+    (J, D), (J2, D2) = runs
+    if not (np.array_equal(J, J2) and np.array_equal(D, D2)):
+        raise SmokeFailure("ivf: two searches differ")
+    recall, rel = ivf_recall(J, D, Jb, Db)
+    ref = AL_REFERENCE["ten_ivf_recall"]
+    say(f"  ivf: recall {recall:.4f} against brute (JAX float32 {ref}), "
+        f"the hits' distances within {rel:.3e} relative, two runs "
+        f"bit-equal")
+    if abs(recall - ref) > IVF_RECALL_MARGIN or rel > 1e-5:
+        raise SmokeFailure(f"ivf: recall {recall}, distances {rel}")
+    rs = np.random.RandomState(3)             # JAX's recall test input
+    centers = rs.randn(10, 30) * 2.0
+    Xr = centers[rs.randint(0, 10, 4000)] + rs.randn(4000, 30) * 0.5
+    recall_r, rel_r = ivf_recall(
+        *gl.weightmatrix.knnsearch(Xr, 10, method="ivf"),
+        *gl.weightmatrix.knnsearch(Xr, 10, method="brute"))
+    say(f"  ivf on JAX's recall input (n=4000, 30-d): recall "
+        f"{recall_r:.4f}, hits within {rel_r:.3e}")
+    if recall_r < IVF_RECALL or rel_r > 1e-5:
+        raise SmokeFailure(f"ivf on JAX's recall input: {recall_r}")
+
+    W = timed(torch, "knn(pts, 10)", lambda: gl.weightmatrix.knn(pts, 10))
+    ti = gl.trainsets.generate(y, rate=1, seed=0)
+    model = gl.ssl.poisson(W)
+    C0, V = timed(torch, "spectral_covariance(poisson(W), k=20)",
+                  lambda: al.spectral_covariance(model, k=20))
+    (info,) = model.graph.eigen_info.values()
+    say(f"  {info['iters']} LOBPCG steps on {info['path']}")
+    if "GatherAccel" not in info["path"]:
+        raise SmokeFailure(f"ten clusters: the covariance ran on "
+                           f"{info['path']}, not the gather")
+    runs = {}
+    for warm in (False, True):
+        name = "warm" if warm else "cold"
+        t = time.perf_counter()
+        learner = al.active_learner(model, al.model_change, ti, y[ti],
+                                    warm_start=warm, C=C0, V=V)
+        steps, queries = [model.iters], []
+        for _ in range(AL_TEN_ROUNDS):
+            q = learner.select_queries(batch_size=AL_TEN_BATCH)
+            learner.update(q, y[q])
+            steps.append(model.iters)
+            queries.append(np.sort(np.atleast_1d(q)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        u = torch.as_tensor(learner.u)
+        if warm and not u.is_cuda:
+            raise SmokeFailure("ten clusters: the scores left the card")
+        pred = torch.argmax(u, 1).cpu().numpy()
+        acc = gl.ssl.ssl_accuracy(pred, y, learner.labeled_ind)
+        runs[name] = (queries, pred)
+        say(f"  {name} poisson learner on model_change: {secs:.3f} s for "
+            f"{AL_TEN_ROUNDS} rounds of {AL_TEN_BATCH}, CG steps {steps} "
+            f"(sum after the first fit {sum(steps[1:])}), final accuracy "
+            f"{acc:.4f} % (JAX float32 {AL_REFERENCE['ten_accuracy']} %)")
+        if abs(acc - AL_REFERENCE["ten_accuracy"]) > ACCURACY_MARGIN:
+            raise SmokeFailure(
+                f"ten/active learning ({name}): accuracy {acc:.4f} % "
+                f"against JAX's {AL_REFERENCE['ten_accuracy']} %")
+    (qc, pc), (qw, pw) = runs["cold"], runs["warm"]
+    agree = float(np.mean(pc == pw))
+    same = all(np.array_equal(a, b) for a, b in zip(qc, qw))
+    say(f"  ten/active learning: warm and cold pick the same queries: "
+        f"{same}; argmax agreement {agree:.6f}")
+    if not same or agree < AL_AGREEMENT:
+        raise SmokeFailure(f"ten/active learning: warm and cold differ "
+                           f"(same queries {same}, agreement {agree})")
+
+
+def al_solvers(torch, gl, W, labels, ti):
+    """Phase 4f's ``utils`` solvers on the moons Laplacian:
+    ``constrained_solve`` at the labels ``ti`` against scipy's f64 solve
+    (at most SOLVE_MARGIN times the plain f32 masked solve's error) and
+    ``constrained_solve_gmres`` at GMRES_RATE labels a class to
+    GMRES_TOL, then at 5 labels a class and GMRES_STALL_TOL, where it
+    stalls, its residual held to JAX's within GMRES_STALL_MARGIN."""
+    import scipy.sparse as sp
+    from graphlearning_tpu_torch import ssl as tssl
+    from graphlearning_tpu_torch.solvers import gmres
+
+    n = W.shape[0]
+    L = gl.graph(W).laplacian()
+    ti = np.sort(ti)           # g is read in the order of the mask
+    g = labels[ti].astype(float)
+    mask = np.zeros(n, bool)
+    mask[ti] = True
+    bdy = np.zeros(n)
+    bdy[ti] = g
+    u_ref = harmonic_reference(W, mask, bdy)
+    u = timed(torch, "utils.constrained_solve(L, ti, g)",
+              lambda: gl.utils.constrained_solve(L, ti, g))
+    dev = gl.config.device()
+    as_t = lambda a: torch.as_tensor(a, device=dev).to(
+        gl.config.float_dtype(dev))
+    u_p, _ = tssl._laplace_constrained(
+        gl.graph(W).sparse, as_t(np.zeros(n)),
+        torch.as_tensor(mask, device=dev), as_t(bdy), 1e-10)
+    check_solve("utils.constrained_solve", torch.as_tensor(u), u_p, u_ref)
+
+    R = sp.identity(n, format="csr")
+
+    def solve(rate, tol):
+        ind = np.sort(gl.trainsets.generate(labels, rate=rate, seed=0))
+        bdy = np.zeros(n)
+        bdy[ind] = labels[ind]
+        info, real = {}, gmres.gmres
+
+        def kept(*a, **k):             # keep the solver's own record
+            return real(*a, **{**k, "info": info})
+
+        gmres.gmres = kept
+        try:
+            x = timed(torch, f"utils.constrained_solve_gmres(L, 0, I, g, "
+                      f"ti), {rate} labels a class, tol {tol:g}",
+                      lambda: gl.utils.constrained_solve_gmres(
+                          L, np.zeros(n), R, bdy, ind, tol=tol))
+        finally:
+            gmres.gmres = real
+        res64 = gmres_residual(L, ind, bdy, x)
+        say(f"  gmres: {info['restarts']} restarts, {info['steps']} steps, "
+            f"preconditioned residual {info['residual']:.3e} (float64 on "
+            f"the host: {res64:.4e}), tolerance "
+            f"{tol * np.linalg.norm(bdy):.3e}")
+        if not np.isfinite(x).all():
+            raise SmokeFailure(f"gmres gave non-finite values: {info}")
+        return x, bdy, ind, info, res64
+
+    x, bdy, ind, info, _ = solve(GMRES_RATE, GMRES_TOL)
+    mask = np.zeros(n, bool)
+    mask[ind] = True
+    say(f"  max|x - u_ref| "
+        f"{np.abs(x - harmonic_reference(W, mask, bdy)).max():.3e}")
+    if info["residual"] > GMRES_TOL * np.linalg.norm(bdy):
+        raise SmokeFailure(f"gmres did not reach its tolerance: {info}")
+    _, _, _, info, res64 = solve(5, GMRES_STALL_TOL)
+    ref = AL_REFERENCE["gmres_stall_residual"]
+    say(f"  gmres stalled: {res64:.4e} against JAX's float32 {ref:.4e} "
+        f"({res64 / ref - 1:+.4f} relative, margin {GMRES_STALL_MARGIN})")
+    if abs(res64 / ref - 1) > GMRES_STALL_MARGIN:
+        raise SmokeFailure(f"stalled gmres residual {res64:.4e} not within "
+                           f"{GMRES_STALL_MARGIN} of JAX's {ref:.4e}")
+
+
+def al_checkpoints(torch, gl, bs, W, labels, ti):
+    """Phase 4f's checkpoints on phase 4b's moons fits (the bf16 band),
+    ``checkpoint_every=5`` in a temporary directory: PoissonMBO killed
+    after its second save and run again, bit-equal to the fused fit and
+    running only the rounds it had not saved (K2 bf16 launches); VolumeMBO
+    at temperature 0.1 likewise, bit-equal to an uninterrupted
+    checkpointed fit."""
+    import tempfile
+
+    priors = gl.utils.class_priors(labels)
+    k2 = bs.band_tiles_spmm_packed
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "poisson_mbo")
+
+        def pmbo(**kw):
+            m = MBO_FITS["poisson_mbo"](gl, W, priors, None)
+            n0 = k2.bf16_launches
+            pred = m.fit_predict(ti, labels[ti], **kw)
+            return pred, m, k2.bf16_launches - n0
+
+        pred0, m0, heat0 = timed(torch, "poisson_mbo, fused", pmbo)
+        with killed_after(gl, 2):
+            try:
+                pmbo(checkpoint_path=path, checkpoint_every=5)
+                raise SmokeFailure("poisson_mbo: the kill did not happen")
+            except KilledFit:
+                say("  poisson_mbo, checkpointed: killed after its second "
+                    "save")
+        saved = gl.checkpoint.load(path)[1]
+        pred2, m2, heat2 = timed(torch, "poisson_mbo, resumed", lambda: pmbo(
+            checkpoint_path=path, checkpoint_every=5))
+        per = heat0 // m0.T
+        say(f"  poisson_mbo: saved at round {saved} of {m0.T}; K2 bf16 "
+            f"launches fused {heat0}, resumed {heat2} ({per} a round)")
+        if heat0 != per * m0.T or heat2 != per * (m0.T - saved):
+            raise SmokeFailure("poisson_mbo: the resumed fit ran rounds it "
+                               "had saved")
+        if not (np.array_equal(pred2, pred0)
+                and np.array_equal(m2.prob, m0.prob)):
+            raise SmokeFailure("poisson_mbo: the resumed fit differs from "
+                               "the fused fit")
+        say("  poisson_mbo: resumed bit-equal to the fused fit")
+
+        def vmbo(path):
+            m = MBO_FITS["volume_mbo_t0.1"](gl, W, priors, None)
+            return m.fit_predict(ti, labels[ti], checkpoint_path=path,
+                                 checkpoint_every=5), m
+
+        ref, mref = timed(torch, "volume_mbo_t0.1, checkpointed", lambda: vmbo(
+            os.path.join(root, "vmbo_ref")))
+        vpath = os.path.join(root, "vmbo")
+        with killed_after(gl, 2):
+            try:
+                vmbo(vpath)
+                raise SmokeFailure("volume_mbo: the kill did not happen")
+            except KilledFit:
+                say("  volume_mbo_t0.1, checkpointed: killed after its "
+                    "second save")
+        saved = gl.checkpoint.load(vpath)[1]
+        pred, m = timed(torch, "volume_mbo_t0.1, resumed", lambda: vmbo(vpath))
+        say(f"  volume_mbo_t0.1: {mref.iters} iterations, resumed from "
+            f"iteration {saved}")
+        if not np.array_equal(pred, ref) or m.iters != mref.iters:
+            raise SmokeFailure("volume_mbo_t0.1: the resumed fit differs "
+                               "from the uninterrupted one")
+        say("  volume_mbo_t0.1: resumed bit-equal to the uninterrupted "
+            "checkpointed fit")
+
+
+def al_phase(torch, gl, bs, W, labels, ti):
+    """Phase 4f: active learning, the IVF search, the ``utils`` solvers and
+    checkpointed fits."""
+    t0 = time.perf_counter()
+    say("== phase 4f: active learning on the moons band (n=65536, one label "
+        "a class)")
+    al_moons(torch, gl, bs, W, labels)
+    say("== phase 4f on the ten-cluster input (n=70000, 20-d): the IVF "
+        "search and a warm Poisson learner")
+    al_ten(torch, gl)
+    say("== phase 4f: the utils solvers on the moons Laplacian")
+    al_solvers(torch, gl, W, labels, ti)
+    say("== phase 4f: checkpointed MBO fits on the moons (bf16 band)")
+    al_checkpoints(torch, gl, bs, W, labels, ti)
+    say(f"== phase 4f: {time.perf_counter() - t0:.1f} s")
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2843,6 +3335,7 @@ def main():
     eig_entries, _ = eig_phase(torch, gl, accel, bs, W, labels)
     p10b_entries, _ = p10b_phase(torch, gl, accel, bs, W, labels, ti)
     trials_phase(torch, gl, bs, W, labels, ti)
+    al_phase(torch, gl, bs, W, labels, ti)
     rect_entries, rect_launches = rect_phase(torch, gl, accel, bs, W, labels,
                                              ti, plain_pred)
     launches.update(rect_launches)

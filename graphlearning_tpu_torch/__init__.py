@@ -36,7 +36,16 @@ default (see :mod:`config`).  Ported so far:
   ``weightmatrix.knnsearch`` / ``load_knn_data`` / ``knn(name, k)``, the
   host methods of ``graph``, ``warmup`` and ``ssl_trials`` with its
   batched Laplace and Poisson fits, ``trials_statistics``,
-  ``ssl.accuracy_table`` and ``ssl.accuracy_plot``.
+  ``ssl.accuracy_table`` and ``ssl.accuracy_plot``;
+* active learning (``active_learning``: the query loop with warm-started
+  Laplace and Poisson refits, uncertainty sampling and the covariance
+  acquisitions over ``spectral_covariance``), solver-state checkpoints
+  (``checkpoint``; ``fit(..., checkpoint_path=, checkpoint_every=)`` of
+  PoissonMBO and VolumeMBO), the epsilon-ball and grid graphs,
+  ``weightmatrix.knn_graph`` and the approximate kNN search
+  (``knnsearch(method="ivf")``), and the ``utils`` solvers (CG, the
+  constrained solves, GMRES), samplers, boundary statistic and image
+  helpers.
 
     import graphlearning_tpu_torch as gl
     W = gl.weightmatrix.knn(X, 10)
@@ -49,6 +58,7 @@ from graphlearning_tpu_torch.core.sparse import BucketedELL, SparseGraph
 from graphlearning_tpu_torch.core.graphclass import graph
 from graphlearning_tpu_torch import ops, solvers, utils, weightmatrix
 from graphlearning_tpu_torch import clustering, datasets, ssl, trainsets
+from graphlearning_tpu_torch import active_learning, checkpoint
 from graphlearning_tpu_torch.ssl import warmup
 
 __version__ = "0.1.0"
@@ -67,4 +77,6 @@ __all__ = [
     "clustering",
     "datasets",
     "trainsets",
+    "active_learning",
+    "checkpoint",
 ]

@@ -11,6 +11,9 @@
 * :func:`mbo_loop` / :func:`mbo_round`: VolumeMBO's fixed point (dual
   convolution, annealed Gumbel noise, assignment).
 
+Both outer loops optionally save their state every few rounds
+(:mod:`checkpoint`); saved or not, they run the same rounds.
+
 The JAX package runs each loop as a ``lax.while_loop`` on the device.
 Here the loops keep their state on the device too (:func:`_while`): each
 step computes its successor and keeps it only where the loop's condition
@@ -25,6 +28,8 @@ rows is not ported (it comes with the distribution layer).
 from __future__ import annotations
 
 import torch
+
+from graphlearning_tpu_torch import checkpoint as _checkpoint
 
 _CHECK_EVERY = 16
 
@@ -159,13 +164,23 @@ def poisson_mbo_round(heat_steps, state, priors):
                    u.dtype), w, err
 
 
-def poisson_mbo_loop(heat_steps, u0, w0, priors, T: int):
+def poisson_mbo_loop(heat_steps, u0, w0, priors, T: int, ckpt=None):
     """T PoissonMBO rounds (:func:`poisson_mbo_round`) from ``(u0, w0)``;
-    the projection weights thread through the rounds.  Returns ``(u, w,
-    err)``."""
+    the projection weights thread through the rounds.  With ``ckpt =
+    (path, every)`` the state is saved every ``every`` rounds and a run
+    restarted on ``path`` goes on from its last save
+    (:func:`checkpoint.run_checkpointed`).  Returns ``(u, w, err)``."""
     state = (u0, w0, torch.ones((), dtype=u0.dtype, device=u0.device))
+
+    def step(state):
+        return poisson_mbo_round(heat_steps, state, priors)
+
+    if ckpt is not None:
+        path, every = ckpt
+        return _checkpoint.run_checkpointed(step, state, int(T), path,
+                                            every=every)[0]
     for _ in range(int(T)):
-        state = poisson_mbo_round(heat_steps, state, priors)
+        state = step(state)
     return state
 
 
@@ -204,17 +219,37 @@ def mbo_round(dual_conv, state, fixed_mask, fixed_labels, lower, upper,
 
 def mbo_loop(dual_conv, labels0, fixed_mask, fixed_labels, lower, upper,
              temp, draw, n_true: int, max_iters: int,
-             max_price_it: int = 500, on_round=None):
+             max_price_it: int = 500, on_round=None, ckpt=None,
+             generator=None):
     """The VolumeMBO fixed point: :func:`mbo_round` from ``labels0`` until
     it stops or ``max_iters`` iterations.  ``dual_conv``: (n,) labels ->
     (n, k) affinities.  ``on_round(old labels, state)``, when given, is
-    called after each iteration.  Returns ``(labels, iters)``."""
-    state = (labels0.long(), 0, False)
-    while not state[2] and state[1] < max_iters:
-        old = state[0]
-        state = mbo_round(dual_conv, state, fixed_mask, fixed_labels, lower,
-                          upper, temp, draw, n_true=n_true,
-                          max_price_it=max_price_it)
+    called after each iteration.  With ``ckpt = (path, every)`` the state
+    is saved every ``every`` iterations with the state of ``generator``
+    (the one ``draw`` reads), and a run restarted on ``path`` goes on from
+    its last save with the same noise
+    (:func:`checkpoint.run_checkpointed_while`).  Returns ``(labels,
+    iters)``."""
+
+    def step(state):
+        if state[2]:
+            return state            # a stopped state is left as it is
+        if ckpt is not None:
+            generator.set_state(state[3])
+        new = mbo_round(dual_conv, state[:3], fixed_mask, fixed_labels,
+                        lower, upper, temp, draw, n_true=n_true,
+                        max_price_it=max_price_it)
         if on_round is not None:
-            on_round(old, state)
+            on_round(state[0], new)
+        return new if ckpt is None else new + (generator.get_state(),)
+
+    state = (labels0.long(), 0, False)
+    if ckpt is not None:
+        path, every = ckpt
+        state, _ = _checkpoint.run_checkpointed_while(
+            step, state + (generator.get_state(),), lambda st: st[2],
+            max_iters, path, every=every)
+    else:
+        while not state[2] and state[1] < max_iters:
+            state = step(state)
     return state[0], state[1]

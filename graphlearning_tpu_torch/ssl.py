@@ -169,8 +169,11 @@ class ssl:
             return np.argmax(scores * w, axis=1)
         return np.argmin(scores * w, axis=1)
 
-    def fit_predict(self, train_ind, train_labels, all_labels=None):
-        self.fit(train_ind, train_labels, all_labels=all_labels)
+    def fit_predict(self, train_ind, train_labels, all_labels=None,
+                    checkpoint_path=None, checkpoint_every=1):
+        self.fit(train_ind, train_labels, all_labels=all_labels,
+                 checkpoint_path=checkpoint_path,
+                 checkpoint_every=checkpoint_every)
         return self.predict()
 
     def warmup(self, num_classes=2, num_labels=None, seed=0):
@@ -239,9 +242,19 @@ class ssl:
         self.class_priors_error = float(err)
         return self.predict()
 
-    def fit(self, train_ind, train_labels, all_labels=None):
+    def fit(self, train_ind, train_labels, all_labels=None,
+            checkpoint_path=None, checkpoint_every=1):
+        """Fit the model; returns the (n, C) scores.  ``checkpoint_path``
+        makes the outer loop of PoissonMBO and VolumeMBO resumable: its
+        state is saved there every ``checkpoint_every`` rounds
+        (:mod:`checkpoint`), and a killed fit run again on the same path
+        goes on from its last save to the same prediction.  Models without
+        such a loop ignore both."""
         if self.graph is None:
             raise RuntimeError("SSL object has no graph. Use set_graph().")
+        self._ckpt = ((os.path.abspath(checkpoint_path),
+                       int(checkpoint_every))
+                      if checkpoint_path else None)
         train_ind = np.asarray(train_ind)
         train_labels = np.asarray(train_labels)
         self.fitted = True
@@ -265,6 +278,15 @@ class ssl:
     def _fit(self, train_ind, train_labels, all_labels=None):
         raise NotImplementedError("Must override _fit")
 
+    def _warm_start(self, n, k, dev, dtype):
+        """The previous round's scores that an active learner with
+        ``warm_start`` leaves in ``self._warm_u``, as a tensor on ``dev``,
+        where they have the shape (n, k) of this fit; else None."""
+        warm = getattr(self, "_warm_u", None)
+        if warm is None or tuple(warm.shape) != (n, k):
+            return None
+        return torch.as_tensor(warm, device=dev).to(dtype)
+
     def fit_device(self, train_ind, train_labels):
         """:meth:`fit` that returns the ``(n, C)`` scores as a tensor on
         the graph's device, with no copy to the host; ``self.prob`` is that
@@ -276,6 +298,7 @@ class ssl:
         if self.onevsrest or self.class_priors is not None:
             return torch.as_tensor(self.fit(train_ind, train_labels),
                                    device=dev)
+        self._ckpt = None
         self.fitted = True
         self.prob = self._fit_on_device(np.asarray(train_ind),
                                         np.asarray(train_labels))
@@ -507,6 +530,7 @@ class laplace(ssl):
         as_t = lambda a: torch.as_tensor(a, device=dev).to(dtype)
         tau_t, bdy_t = as_t(tau), as_t(bdy)
         mask_t = torch.as_tensor(mask, device=dev)
+        u0 = self._warm_start(n, k, dev, dtype)
 
         # a reweighted graph's accel rides on its own W, not on the model
         acc = _accel.maybe_build(
@@ -522,12 +546,13 @@ class laplace(ssl):
             u, self.iters = acc.laplace_constrained(
                 deg_p, diag_p, acc.to_perm(tau_t),
                 acc.to_perm(mask_t.to(torch.int32)) > 0, acc.to_perm(bdy_t),
-                self.tol, normalization=self.normalization, order=self.order)
+                self.tol, normalization=self.normalization, order=self.order,
+                u0_p=None if u0 is None else acc.to_perm(u0))
             u = acc.from_perm(u)
         else:
             u, self.iters = _laplace_constrained(
                 G.sparse, tau_t, mask_t, bdy_t, self.tol,
-                normalization=self.normalization, order=self.order)
+                normalization=self.normalization, order=self.order, u0=u0)
         if self.mean_shift:
             u = u - torch.mean(u, dim=0)
         return u
@@ -672,12 +697,18 @@ class poisson(ssl):
 
         if self.solver == "conjugate_gradient":
             s = 1.0 / torch.sqrt(deg)
+            # an active learner's warm start u seeds the scaled iterate
+            # v = u / s
+            x0 = self._warm_start(n, k, dev, dtype)
+            if x0 is not None:
+                x0 = x0 * torch.sqrt(deg)[:, None]
             acc = _accel.maybe_build(W, cache_obj=self, device=dev)
             if acc is not None:
                 # padding rows have s = 0: identity rows with zero rhs
                 s_p = acc.to_perm(s)
                 v, self.iters = acc.cg_scaled(
-                    s_p, s_p[:, None] * acc.to_perm(b), tol=self.tol)
+                    s_p, s_p[:, None] * acc.to_perm(b), tol=self.tol,
+                    x0=None if x0 is None else acc.to_perm(x0))
                 deg_p = torch.where(
                     s_p > 0, 1.0 / torch.where(s_p == 0, torch.ones_like(s_p),
                                                s_p) ** 2,
@@ -685,7 +716,7 @@ class poisson(ssl):
                 v = _project_out_nlap_kernel(v, deg_p)
                 return acc.from_perm(s_p[:, None] * v)
             v, self.iters = _cg_scaled_solve(g, s, s[:, None] * b, 1.0, 1.0,
-                                             self.tol)
+                                             self.tol, x0=x0)
             return s[:, None] * _project_out_nlap_kernel(v, deg)
 
         # gradient descent: the band path needs a symmetric graph
@@ -848,7 +879,7 @@ class poisson_mbo(ssl):
         if all_labels is None:
             u, w, err = _volume.poisson_mbo_loop(
                 heat_steps, u, as_t(self.weights), as_t(self.class_priors),
-                self.T)
+                self.T, ckpt=getattr(self, "_ckpt", None))
             self.weights = w.cpu().numpy().astype(float)
             self.class_priors_error = float(err)
             return u
@@ -959,7 +990,8 @@ class volume_mbo(ssl):
                                  train_ind)))
         labels, self.iters = _volume.mbo_loop(
             dual_conv, as_t(labels), fixed, fixed_labels, lower, upper, temp,
-            draw, n_true=n, max_iters=self.max_iters, on_round=report)
+            draw, n_true=n, max_iters=self.max_iters, on_round=report,
+            ckpt=getattr(self, "_ckpt", None), generator=gen)
         labels = labels.cpu().numpy()
         labels[train_ind] = train_labels
         return utils.labels_to_onehot(labels, k)

@@ -1,10 +1,12 @@
-"""kNN graph construction (counterpart of
-``graphlearning_tpu/weightmatrix.py:37-93,195-341``).
+"""Graph construction (counterpart of ``graphlearning_tpu/weightmatrix.py``
+but for ``vae``): kNN, epsilon-ball and grid graphs.
 
 Brute-force search is a chunked distance matmul plus ``torch.topk`` on the
-device; low-dimensional data takes a host cKDTree.  Kernel weights are
-computed on the device.  ``knn`` returns a scipy CSR matrix, as the JAX
-package does.  The kNN data of a named dataset is kept in ``knn_dir`` (a
+device; low-dimensional data takes a host cKDTree; the approximate search
+("ivf", and "annoy", which routes to it) is an inverted-file search on the
+device.  Kernel weights are computed on the device.  ``knn``,
+``epsilon_ball`` and ``grid_graph`` return scipy CSR matrices, as the JAX
+package does; ``knn_graph`` returns the device :class:`SparseGraph`.  The kNN data of a named dataset is kept in ``knn_dir`` (a
 module attribute the caller may reassign) as ``<dataset>_<metric>.npz``
 with fields ``J`` (indices) and ``D`` (distances), the JAX package's files.
 """
@@ -18,6 +20,7 @@ import scipy.sparse as sparse
 import torch
 
 from graphlearning_tpu_torch import config, utils
+from graphlearning_tpu_torch.core.sparse import SparseGraph, segment_reduce
 
 knn_dir = os.path.abspath(os.path.join(os.getcwd(), "knn_data"))
 
@@ -74,11 +77,109 @@ def _brute_knn_device(X, k, similarity="euclidean", chunk_size=2048,
     return (torch.cat(inds).cpu().numpy(), torch.cat(dists).cpu().numpy())
 
 
+# The largest (G, M, p M) distance block of one IVF search step, in bytes:
+# the clusters are searched G at a time (the JAX package's 1 << 27).
+_IVF_BLOCK_BYTES = 1 << 27
+
+
+def _ivf_knn_device(X, k, num_clusters=None, num_probe=16, kmeans_iters=10,
+                    seed=0, device=None):
+    """Approximate kNN by an inverted-file search on ``device``, the JAX
+    package's replacement for annoy's trees:
+
+    1. a coarse k-means of ``C`` clusters (about 64 points each), its
+       starts drawn by ``np.random.RandomState(seed).choice`` as in JAX,
+       ``kmeans_iters`` rounds of assignment and mean; the means are sums
+       over the sorted assignment (:func:`segment_reduce`), the same in
+       every run;
+    2. each cluster's members in a table padded to the largest cluster,
+       and each cluster's ``num_probe`` nearest clusters by centroid;
+    3. every query of a cluster scans the members of its cluster's probes,
+       exact distances and a top-k, clusters in groups whose distance
+       block stays within ``_IVF_BLOCK_BYTES``.
+
+    Returns numpy ``(ind, dist)`` of shape (n, k), self first."""
+    dev = config.device(device)
+    dtype = config.float_dtype(dev)
+    Xn = np.asarray(X, dtype=np.float64 if dtype == torch.float64
+                    else np.float32)
+    n, d = Xn.shape
+    k = min(k, n)
+    C = min(int(num_clusters or max(8, min(4096, n // 64))), n)
+    p = int(min(num_probe, C))
+    Xd = torch.as_tensor(Xn, device=dev)
+    Xsq = torch.sum(Xd * Xd, dim=1)
+
+    with config.exact_matmul():
+        cent = Xd[torch.as_tensor(np.random.RandomState(seed).choice(
+            n, C, replace=False), device=dev)]
+
+        def assign(cent):
+            d2 = (Xsq[:, None] - 2.0 * Xd @ cent.T
+                  + torch.sum(cent * cent, dim=1)[None, :])
+            return torch.argmin(d2, dim=1)
+
+        ones = torch.ones((n, 1), dtype=dtype, device=dev)
+        for _ in range(kmeans_iters):
+            a = assign(cent)
+            sums = segment_reduce(torch.zeros((C, d + 1), dtype=dtype,
+                                              device=dev), a,
+                                  torch.cat([Xd, ones], dim=1), "sum")
+            cnts = sums[:, d:]
+            cent = torch.where(cnts > 0, sums[:, :d] / torch.clamp(cnts, 1.0),
+                               cent)
+        a = assign(cent).cpu().numpy()
+
+    # member tables: cluster c's members in ascending index order, padded
+    # with -1 to the largest cluster
+    counts = np.bincount(a, minlength=C)
+    M = int(counts.max())
+    order = np.argsort(a, kind="stable")
+    starts = np.cumsum(counts) - counts
+    members = np.full((C, M), -1, np.int64)
+    members[a[order], np.arange(n) - starts[a[order]]] = order
+    cent_np = cent.cpu().numpy()
+    cd2 = ((cent_np[:, None, :] - cent_np[None, :, :]) ** 2).sum(-1)
+    probes = np.argsort(cd2, axis=1)[:, :p]
+
+    members_t = torch.as_tensor(members, device=dev)
+    probes_t = torch.as_tensor(probes, device=dev)
+    ind_out = torch.zeros((n, k), dtype=torch.int64, device=dev)
+    dist_out = torch.zeros((n, k), dtype=dtype, device=dev)
+    G = max(1, _IVF_BLOCK_BYTES // max(1, M * p * M * Xd.element_size()))
+    with config.exact_matmul():
+        for s in range(0, C, G):
+            cs = torch.arange(s, min(s + G, C), device=dev)
+            q_idx = members_t[cs]                               # (G, M)
+            cand = members_t[probes_t[cs]].reshape(len(cs), -1)  # (G, pM)
+            cand_valid = cand >= 0
+            cand_c = torch.clamp(cand, min=0)
+            Q = Xd[torch.clamp(q_idx, min=0)]                   # (G, M, d)
+            Cd = Xd[cand_c]                                     # (G, pM, d)
+            d2 = (torch.sum(Q * Q, 2)[:, :, None]
+                  - 2.0 * torch.bmm(Q, Cd.transpose(1, 2))
+                  + torch.sum(Cd * Cd, 2)[:, None, :])
+            d2 = torch.where(cand_valid[:, None, :], d2,
+                             torch.full((), float("inf"), dtype=dtype,
+                                        device=dev))
+            score, local = torch.topk(-d2, k, dim=2)
+            idx = torch.gather(cand_c[:, None, :].expand(-1, M, -1), 2,
+                               local)
+            valid = q_idx >= 0
+            rows = q_idx[valid]              # each query once: no collisions
+            ind_out[rows] = idx[valid]
+            dist_out[rows] = torch.sqrt(torch.clamp(-score, min=0.0))[valid]
+    return ind_out.cpu().numpy(), dist_out.cpu().numpy()
+
+
 def knnsearch(X, k, method=None, similarity="euclidean", dataset=None,
               metric="raw", device=None):
     """kNN search: ``method`` is 'kdtree' (host cKDTree, the default for
-    dim <= 5) or 'brute' (device matmul + top-k, the default above).  The
-    parameters are the JAX package's, in its order, with ``device`` last.
+    dim <= 5), 'brute' (device matmul + top-k, the default above), 'ivf'
+    (the approximate inverted-file search on the device,
+    :func:`_ivf_knn_device`, euclidean or angular) or 'annoy' (routed to
+    'ivf', as in the JAX package).  The parameters are the JAX package's,
+    in its order, with ``device`` last.
     With ``dataset`` the result is also written to
     ``knn_dir/<dataset>_<metric>.npz`` for :func:`load_knn_data`."""
     X = np.asarray(X)
@@ -86,7 +187,16 @@ def knnsearch(X, k, method=None, similarity="euclidean", dataset=None,
     k = min(k, n)
     if method is None:
         method = "kdtree" if m <= 5 else "brute"
-    if method == "kdtree":
+    if method == "annoy":
+        method = "ivf"
+    if method == "ivf":
+        if similarity == "angular":
+            X = X / np.maximum(np.linalg.norm(X, axis=1, keepdims=True), 1e-30)
+        elif similarity != "euclidean":
+            raise ValueError("ivf knnsearch supports euclidean/angular "
+                             "similarity")
+        knn_ind, knn_dist = _ivf_knn_device(X, k, device=device)
+    elif method == "kdtree":
         from scipy import spatial
 
         if similarity not in ("euclidean", "angular"):
@@ -195,4 +305,94 @@ def knn(data, k, kernel="gaussian", eta=None, symmetrize=True, metric="raw",
     W.eliminate_zeros()
     if np.ndim(data) == 2 and np.shape(data)[1] <= 3:
         W._glt_points = np.asarray(data)
+    return W
+
+
+def knn_graph(data, k, kernel="gaussian", similarity="euclidean",
+              symmetrize=True, dtype=None, device=None):
+    """:func:`knn` as the device :class:`SparseGraph` (padded ELL) on
+    ``device``."""
+    dev = config.device(device)
+    W = knn(data, k, kernel=kernel, similarity=similarity,
+            symmetrize=symmetrize, device=dev)
+    return SparseGraph.from_scipy(W, dtype=dtype, device=dev)
+
+
+# -- epsilon-ball and grid graphs ---------------------------------------------
+
+
+def _ball_weights(dists2, epsilon, kernel, eta):
+    """The weights of squared distances ``dists2`` in an ``epsilon`` ball,
+    and the weight of a node with itself (0 for "distance")."""
+    if eta is None:
+        if kernel == "uniform":
+            return np.ones_like(dists2), 1.0
+        if kernel == "gaussian":
+            return np.exp(-4 * dists2 / (epsilon * epsilon)), 1.0
+        if kernel == "distance":
+            return np.sqrt(dists2), 0.0
+        if kernel == "singular":
+            w = np.sqrt(dists2)
+            w[dists2 == 0] = 1
+            return 1 / w, 1.0
+        raise ValueError("Invalid choice of kernel: " + kernel)
+    return eta(dists2 / (epsilon * epsilon)), eta(0)
+
+
+def epsilon_ball(data, epsilon, kernel="gaussian", features=None, epsilon_f=1,
+                 eta=None):
+    """The epsilon-ball weight matrix (scipy CSR, zero diagonal) from the
+    pairs of a host cKDTree: weights by ``kernel`` or by ``eta`` of
+    ``|x - y|^2 / epsilon^2``, times the same of the ``features`` at scale
+    ``epsilon_f`` when given.  Data of 3 columns or fewer rides along as
+    ``W._glt_points`` for the curve order of ``ops.accel.AccelSpMM``."""
+    from scipy import spatial
+
+    data = np.asarray(data)
+    n = data.shape[0]
+    M = np.array(list(spatial.cKDTree(data).query_pairs(epsilon)))
+    if len(M) == 0:
+        return sparse.csr_matrix((n, n))
+    V = data[M[:, 0], :] - data[M[:, 1], :]
+    weights, fzero = _ball_weights(np.sum(V * V, axis=1), epsilon, kernel,
+                                   eta)
+    if features is not None:
+        VF = features[M[:, 0], :] - features[M[:, 1], :]
+        fw, _ = _ball_weights(np.sum(VF * VF, axis=1), epsilon_f, kernel, eta)
+        weights = weights * fw
+        fzero = fzero**2
+    weights = np.concatenate((weights, weights, fzero * np.ones(n)))
+    M1 = np.concatenate((M[:, 0], M[:, 1], np.arange(n)))
+    M2 = np.concatenate((M[:, 1], M[:, 0], np.arange(n)))
+    W = sparse.csr_matrix(sparse.coo_matrix((weights, (M1, M2)),
+                                            shape=(n, n)))
+    W.setdiag(0)
+    W.eliminate_zeros()
+    if data.ndim == 2 and data.shape[1] <= 3:
+        W._glt_points = data
+    return W
+
+
+def grid_graph(n, m=None, return_xy=False):
+    """The 4-neighbour graph of an ``n`` by ``m`` grid (of an image's
+    shape when ``m`` is None and ``n`` is the image), nodes row-major;
+    with ``return_xy`` also each node's ``(x, y)``."""
+    if m is None:
+        s = np.asarray(n).shape
+        m, n = s[1], s[0]
+    xm, ym = np.meshgrid(np.arange(m), np.arange(n))
+    c = (xm + m * ym).flatten()
+    nbrs = [
+        (np.clip(xm + 1, 0, m - 1) + m * ym).flatten(),
+        (np.clip(xm - 1, 0, m - 1) + m * ym).flatten(),
+        (xm + m * np.clip(ym + 1, 0, n - 1)).flatten(),
+        (xm + m * np.clip(ym - 1, 0, n - 1)).flatten(),
+    ]
+    edges = np.vstack([np.vstack((c, nb)).T for nb in nbrs])
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    W = sparse.coo_matrix((np.ones(len(edges)), (edges[:, 0], edges[:, 1])),
+                          shape=(m * n, m * n)).tocsr()
+    if return_xy:
+        X = np.vstack((xm.flatten(), ym.flatten())).T.astype(float)
+        return W, X
     return W

@@ -1383,3 +1383,116 @@ def test_cuda_sparse_label_propagation_the_same_in_every_run(cuda_device):
     assert np.mean(pred == pref) >= 0.95
     assert abs(gl.ssl.ssl_accuracy(pred, y, ti)
                - gl.ssl.ssl_accuracy(pref, y, ti)) <= 1.0
+
+
+# -- active learning, checkpoints and the IVF search ------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_ivf_search_the_same_in_every_run(cuda_device):
+    """``knnsearch(method="ivf")`` on the card, on the clustered input of
+    the JAX package's recall test (n=4000, 30-d): the k-means sums by
+    sorted rows, the member tables and the searches give the same bits in
+    two runs, with recall against the brute search above 0.95 (the JAX
+    test's bound; with 16 probes it holds where a point's neighbours
+    share few cells)."""
+    import graphlearning_tpu_torch as gl
+
+    rs = np.random.RandomState(3)
+    centers = rs.randn(10, 30) * 2.0
+    X = centers[rs.randint(0, 10, 4000)] + rs.randn(4000, 30) * 0.5
+    runs = [gl.weightmatrix.knnsearch(X, 10, method="ivf",
+                                      device=cuda_device) for _ in range(2)]
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
+    Jb, _ = gl.weightmatrix.knnsearch(X, 10, method="brute",
+                                      device=cuda_device)
+    recall = np.mean([len(np.intersect1d(Jb[i], runs[0][0][i])) / 10
+                      for i in range(len(X))])
+    assert recall > 0.95, recall
+
+
+@pytest.mark.cuda
+def test_cuda_unc_sampling_matches_the_host_branch(cuda_device):
+    """``unc_sampling`` of a CUDA tensor (every node on the card, the (n,)
+    values copied back) against the host branch on its copy: within 1e-5
+    for each method."""
+    from graphlearning_tpu_torch import active_learning as al
+
+    u = torch.rand((5000, 4), generator=torch.Generator().manual_seed(0))
+    ud = u.to(cuda_device)
+    cand = np.arange(0, 5000, 7)
+    for method in ("norm", "entropy", "least_confidence", "smallest_margin",
+                   "largest_margin", "unc_2norm"):
+        acq = al.unc_sampling(method)
+        np.testing.assert_allclose(acq.compute(ud, cand),
+                                   acq.compute(u.numpy(), cand), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_poisson_mbo_killed_and_resumed_equals_fused(cuda_device,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """A checkpointed PoissonMBO on the card (the bf16 band where
+    ``maybe_build`` takes it), killed after its second save and run again
+    on the same path: the fused fit's prediction and scores, bit for
+    bit."""
+    import graphlearning_tpu_torch as gl
+    from graphlearning_tpu_torch import checkpoint as ckpt
+
+    W = _knn_csr(8192, 10, seed=6)
+    pts = W._glt_points
+    y = (pts[:, 0] > 0.5).astype(int) + 2 * (pts[:, 1] > 0.5)
+    ti = gl.trainsets.generate(y, rate=3, seed=0)
+    priors = gl.utils.class_priors(y)
+    make = lambda: gl.ssl.poisson_mbo(W, class_priors=priors, T=8,
+                                      device=cuda_device)
+    m0 = make()
+    pred0 = m0.fit_predict(ti, y[ti])
+    real, left = ckpt.save, [2]
+
+    def killing_save(path, state, step=0):
+        real(path, state, step)
+        left[0] -= 1
+        if left[0] == 0:
+            raise RuntimeError("simulated kill")
+
+    path = str(tmp_path / "pmbo")
+    monkeypatch.setattr(ckpt, "save", killing_save)
+    with pytest.raises(RuntimeError, match="simulated kill"):
+        make().fit(ti, y[ti], checkpoint_path=path, checkpoint_every=2)
+    monkeypatch.setattr(ckpt, "save", real)
+    m2 = make()
+    pred2 = m2.fit_predict(ti, y[ti], checkpoint_path=path,
+                           checkpoint_every=2)
+    np.testing.assert_array_equal(pred2, pred0)
+    np.testing.assert_array_equal(m2.prob, m0.prob)
+
+
+@pytest.mark.cuda
+def test_cuda_warm_laplace_refit_on_the_band(cuda_device, monkeypatch):
+    """A Laplace refit on the band (its cost model set aside) started from
+    the last scores, as ``active_learner(warm_start=True)`` refits: fewer
+    CG steps than the cold refit, the same argmax."""
+    import graphlearning_tpu_torch as gl
+    from graphlearning_tpu_torch.ops import accel
+
+    monkeypatch.setattr(accel, "_hybrid_estimate", lambda acc: 0.0)
+    W = _knn_csr(16384, 10, seed=7)
+    pts = W._glt_points
+    y = (pts[:, 0] > 0.5).astype(int)
+    ti = gl.trainsets.generate(y, rate=2, seed=0)
+    m = gl.ssl.laplace(W, device=cuda_device)
+    u = m.fit_device(ti, y[ti])
+    assert isinstance(m._accel_cache, accel.AccelSpMM)
+    more = np.append(ti, [5, 77])
+    cold = gl.ssl.laplace(W, device=cuda_device)
+    u_cold = cold.fit_device(more, y[more])
+    m._warm_u = u
+    try:
+        u_warm = m.fit_device(more, y[more])
+    finally:
+        m._warm_u = None
+    assert m.iters < cold.iters, (m.iters, cold.iters)
+    assert torch.equal(torch.argmax(u_warm, 1), torch.argmax(u_cold, 1))
