@@ -110,6 +110,20 @@ Phases (any failure exits non-zero before the result line):
    ``utils.constrained_solve_gmres`` to its tolerance and, where it
    stalls, to JAX's residual; PoissonMBO and
    VolumeMBO killed after a checkpoint and resumed bit-equal;
+4g. the embedding trainers, the host oracles and observability:
+   ``graph.ars`` on the ten-cluster points at n=70000 (cut to
+   ARS_FULL_ITERS iterations) and on ARS_SUBSET of them for ARS_ITERS,
+   the plan's seconds and an iteration's ms, the 10-NN label accuracy
+   held to the JAX package's float32 figure, then ARS_REPLAY_ITERS
+   iterations on the card against the CPU; ``weightmatrix.vae`` on an
+   MNIST-shaped input (n=70000, 784 values a row) for VAE_EPOCHS
+   epochs, its loss falling, Laplace and Poisson on its latent means'
+   kNN graph held to the JAX package's float32 accuracies, and
+   VAE_REPLAY_STEPS steps on the card against the CPU;
+   ``native.dijkstra_host`` against the band (K7) and plain distances on
+   the moons graph, ``hostpath.laplace_host`` against a Laplace fit; a
+   band Laplace fit inside ``observability.trace`` (K2 launched, the
+   trace written) and timed by ``Timer`` and by CUDA events;
 5. the rectangular route: the same graph under ``GLT_NO_BAND=1``
    (Laplace and Poisson on the unstored band, K6; ``graph.dijkstra`` on
    the plain path), then ``AccelSpMM(W, materialize=True)`` (K4 band; the
@@ -447,6 +461,51 @@ GMRES_RATE = 1000
 # order differently.
 GMRES_STALL_TOL = 1e-4
 GMRES_STALL_MARGIN = 0.10
+
+# Phase 4g (the embedding trainers, the host oracles, observability).
+# ARS at its defaults (dim 2, perplexity 30, chunk 1024; use_pca is moot
+# at 20 < 200 columns) on the ten-cluster points: at n=70000 cut to
+# ARS_FULL_ITERS iterations (about 0.19 s each on the card, so 1000 would
+# take over three minutes), and in full, ARS_ITERS, on the first
+# ARS_SUBSET points, where the 10-NN label accuracy in the embedding
+# (knn_label_accuracy) is held to the JAX package's float32 figure
+# (ARS_REFERENCE, ``tools/ars_reference.py``) less ACCURACY_MARGIN.
+# ARS_REPLAY_N points replay ARS_REPLAY_ITERS iterations on the card and
+# on the CPU from the same P and start: within ARS_REPLAY_TOL of max|Y|.
+ARS_FULL_ITERS = 250
+ARS_ITERS = 1000
+ARS_SUBSET = 8192
+ARS_KNN = 10
+ARS_REPLAY_N = 2048
+ARS_REPLAY_ITERS = 20
+ARS_REPLAY_TOL = 1e-4
+ARS_REFERENCE = {"knn_accuracy": 97.9736}
+# The VAE on an MNIST-shaped input (mnist_shaped: n=70000 rows of 784
+# values in [0, 1]) at JAX's defaults (widths (400, 20), batch 128, lr
+# 1e-3), cut from 100 epochs to VAE_EPOCHS (about 1.6 s an epoch on the
+# card).  knn(Z, 10) and Laplace and Poisson at one label a class, each
+# held to the lowest of the JAX package's float32 accuracies over
+# VAE_SEEDS (VAE_REFERENCE, ``tools/vae_reference.py``) less
+# ACCURACY_MARGIN: the spread of JAX's seeds widens the margin to it.
+# VAE_REPLAY_STEPS steps replay on the card and on the CPU from the same
+# carried-across parameters and CPU-drawn noise: the latent means within
+# VAE_REPLAY_TOL of their largest.  Laplace at one label a class is
+# degenerate on this graph, as on the raw points (JAX's seeds 10-19 %).
+# At VAE_SCALE 4 the JAX package's training loss turned infinite at step
+# 221 of seed 0 (its latent means NaN), where the port, replaying JAX's
+# parameters and noise, stayed finite (PERF.md, section 7).
+VAE_SCALE = 2.0
+VAE_EPOCHS = 20
+VAE_SEEDS = (0, 1, 2)
+VAE_REPLAY_STEPS = 20
+VAE_REPLAY_TOL = 1e-4
+VAE_REFERENCE = {"laplace": [10.4086, 19.0627, 10.3358],
+                 "poisson": [93.7091, 93.109, 93.1304]}
+# native: the laplace_host check's moons cut.
+NATIVE_LAPLACE_N = 4096
+# observability: the traced band Laplace fit's CG tolerance (a looser one
+# than the fits' keeps the trace to some hundred CG steps).
+OBS_TOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -892,6 +951,37 @@ def trial_sets(gl, labels, dataset=None):
         out += gl.trainsets.generate(labels, rate=r, num_trials=TRIAL_NUM,
                                      seed=r, **kw)
     return out
+
+
+def ten_points(n):
+    """``bench.ten_cluster_points(n)`` in numpy alone: ``n`` points of a
+    20-d mixture of ten unit gaussians and their labels."""
+    rs = np.random.RandomState(0)
+    centers = rs.randn(10, 20)
+    labels = rs.randint(0, 10, n)
+    return centers[labels] + rs.randn(n, 20), labels
+
+
+def mnist_shaped(pts):
+    """Phase 4g's VAE input: the 20-d points through a fixed random
+    ``20 -> 784`` map scaled by VAE_SCALE and a sigmoid, rows of 784
+    values in [0, 1], as MNIST's pixels."""
+    M = np.random.RandomState(1).randn(pts.shape[1], 784) / np.sqrt(
+        pts.shape[1])
+    return 1.0 / (1.0 + np.exp(-VAE_SCALE * (pts @ M)))
+
+
+def knn_label_accuracy(Y, labels, k=ARS_KNN):
+    """Percent of points whose label is the most common among their ``k``
+    nearest other points in the embedding ``Y`` (ties to the smaller
+    label)."""
+    from scipy import spatial
+
+    _, J = spatial.cKDTree(Y).query(Y, k=k + 1)
+    votes = labels[J[:, 1:]]
+    C = int(labels.max()) + 1
+    counts = np.stack([(votes == c).sum(1) for c in range(C)], axis=1)
+    return 100.0 * float(np.mean(np.argmax(counts, axis=1) == labels))
 
 
 def bench_graph(n, k, seed):
@@ -3260,6 +3350,273 @@ def al_phase(torch, gl, bs, W, labels, ti):
     say(f"== phase 4f: {time.perf_counter() - t0:.1f} s")
 
 
+@contextlib.contextmanager
+def wrapped(module, name, record):
+    """``module.name`` timed and its result kept while inside the block:
+    ``record`` gets one ``(seconds, result)`` a call, the seconds closed by
+    a CUDA synchronize."""
+    import torch
+
+    real = getattr(module, name)
+
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t, out))
+        return out
+
+    setattr(module, name, run)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def check_zero_mean(label, Y):
+    m = float(np.abs(Y.mean(0)).max())
+    say(f"  {label}: max |column mean| {m:.3e}, max |Y| "
+        f"{float(np.abs(Y).max()):.4f}")
+    if not np.isfinite(Y).all() or m > 1e-5 * float(np.abs(Y).max()):
+        raise SmokeFailure(f"{label}: the embedding is not finite and "
+                           f"zero-mean (max |mean| {m})")
+
+
+def embed_ars(torch, gl, card):
+    """Phase 4g's ARS: ``graph.ars`` on the ten-cluster points at n=70000
+    (ARS_FULL_ITERS iterations) and on ARS_SUBSET of them (ARS_ITERS), the
+    plan's seconds and an iteration's ms, the 10-NN label accuracy against
+    JAX's, then ARS_REPLAY_ITERS iterations on the card and the CPU from
+    the same P and start."""
+    from graphlearning_tpu_torch import ars
+
+    pts, y = ten_points(70000)
+    for n, iters in ((len(pts), ARS_FULL_ITERS), (ARS_SUBSET, ARS_ITERS)):
+        plans, loops = [], []
+        t = time.perf_counter()
+        with wrapped(ars, "_build_P", plans), \
+                wrapped(ars, "_ars_iterate", loops):
+            Y = gl.graph.ars(pts[:n], iters=iters)
+        secs = time.perf_counter() - t
+        (plan_s, P), = plans
+        (loop_s, _), = loops
+        acc = knn_label_accuracy(Y, y[:n])
+        say(f"  graph.ars, n={n}, {iters} iterations: {secs:.3f} s; "
+            f"_build_P {plan_s:.3f} s (P's ELL k={P.k}, nnz {P.nnz}), "
+            f"{1000 * loop_s / iters:.3f} ms an iteration ({card}); "
+            f"{ARS_KNN}-NN label accuracy {acc:.4f} %")
+        check_zero_mean(f"graph.ars n={n}", Y)
+        if Y.shape != (n, 2):
+            raise SmokeFailure(f"graph.ars gave the shape {Y.shape}")
+    ref = ARS_REFERENCE["knn_accuracy"]
+    say(f"  n={ARS_SUBSET}: accuracy {acc:.4f} % against JAX's float32 "
+        f"{ref} %")
+    check_target(f"ars n={ARS_SUBSET}", acc, ref)
+
+    X, Y0 = ars._preprocess(pts[:ARS_REPLAY_N], 2, True, 200, "pca")
+    P = ars._build_P(X, 30)
+    kw = dict(iters=ARS_REPLAY_ITERS, num_early=ARS_REPLAY_ITERS // 2,
+              time_step=1.0, theta1=2.0, theta2=3.0, alpha=10.0, chunk=1024)
+    Y0 = Y0.astype(np.float32)
+    Yg = ars._ars_iterate(torch.as_tensor(Y0, device=P.device), P.cols,
+                          P.vals, **kw).cpu().numpy()
+    Yc = ars._ars_iterate(torch.as_tensor(Y0), P.cols.cpu(), P.vals.cpu(),
+                          **kw).numpy()
+    err = float(np.abs(Yg - Yc).max() / np.abs(Yc).max())
+    say(f"  ars replay, n={ARS_REPLAY_N}, {ARS_REPLAY_ITERS} iterations, "
+        f"card against CPU: {err:.3e} of max|Y| (tolerance "
+        f"{ARS_REPLAY_TOL})")
+    if not err <= ARS_REPLAY_TOL:
+        raise SmokeFailure(f"ars replay: {err:.3e} > {ARS_REPLAY_TOL}")
+
+
+def vae_replay(torch, wm, X, dev, draws, params):
+    """VAE_REPLAY_STEPS steps on ``dev`` from ``params`` with the noise
+    ``draws``; the latent means and the mean loss."""
+    it = iter(draws)
+    batch = draws[0].shape[0]
+    model, hist = wm._vae_train(
+        X, (400, 20), wm.vae_params_from_flax(params),
+        lambda shape: next(it).to(dev), batch, 1, 1e-3, 0, dev)
+    return wm._vae_encode(model, X, dev), hist[0]["loss"]
+
+
+def embed_vae(torch, gl, card):
+    """Phase 4g's VAE: ``weightmatrix.vae`` on the MNIST-shaped input for
+    VAE_EPOCHS epochs (seconds and loss an epoch; the loss must fall), its
+    latent means' kNN graph under Laplace and Poisson at one label a class
+    against JAX's accuracies, then VAE_REPLAY_STEPS steps on the card and
+    the CPU from carried-across parameters and CPU-drawn noise."""
+    from graphlearning_tpu_torch import weightmatrix as wm
+
+    pts, y = ten_points(70000)
+    X = mnist_shaped(pts)
+    runs = []
+    t = time.perf_counter()
+    with wrapped(wm, "_vae_train", runs):
+        Z = gl.weightmatrix.vae(X, epochs=VAE_EPOCHS)
+    secs = time.perf_counter() - t
+    (train_s, (_, hist)), = runs
+    say(f"  weightmatrix.vae(X, epochs={VAE_EPOCHS}), n={X.shape[0]}, "
+        f"784 -> 400 -> 20: {secs:.3f} s, training {train_s:.3f} s, "
+        f"{train_s / VAE_EPOCHS:.3f} s an epoch ({card})")
+    prev = 0.0
+    for e, h in enumerate(hist):
+        say(f"    epoch {e + 1}: loss {h['loss']:.4f}, "
+            f"{h['seconds'] - prev:.3f} s")
+        prev = h["seconds"]
+    if Z.shape != (X.shape[0], 20) or Z.dtype != np.float32 \
+            or not np.isfinite(Z).all():
+        raise SmokeFailure(f"vae: latent means {Z.shape} {Z.dtype}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise SmokeFailure("vae: the loss did not fall")
+    W = timed(torch, "knn(Z, 10)", lambda: gl.weightmatrix.knn(Z, 10))
+    ti = gl.trainsets.generate(y, rate=1, seed=0)
+    for name in ("laplace", "poisson"):
+        pred = getattr(gl.ssl, name)(W).fit_predict(ti, y[ti])
+        acc = gl.ssl.ssl_accuracy(pred, y, ti)
+        ref = VAE_REFERENCE[name]
+        say(f"  {name} on knn(Z, 10), one label a class: {acc:.4f} % "
+            f"(JAX float32 over seeds {VAE_SEEDS}: {ref})")
+        check_target(f"vae/{name}", acc, min(ref))
+
+    rs = np.random.RandomState(7)
+    params = {"params": {
+        name: {"kernel": rs.randn(i, o) / np.sqrt(i),
+               "bias": rs.randn(o) * 0.01}
+        for name, (i, o) in zip(
+            ("Dense_0", "Dense_1", "Dense_2", "Dense_3", "Dense_4"),
+            ((784, 400), (400, 20), (400, 20), (20, 400), (400, 784)))}}
+    gen = torch.Generator().manual_seed(3)
+    draws = [torch.randn((128, 20), generator=gen)
+             for _ in range(VAE_REPLAY_STEPS)]
+    Xr = wm._vae_data(X[:128 * VAE_REPLAY_STEPS])
+    Zg, lg = vae_replay(torch, wm, Xr, gl.config.device(), draws, params)
+    Zc, lc = vae_replay(torch, wm, Xr, torch.device("cpu"), draws, params)
+    err = float(np.abs(Zg - Zc).max() / np.abs(Zc).max())
+    say(f"  vae replay, {VAE_REPLAY_STEPS} steps from carried-across "
+        f"parameters: card against CPU {err:.3e} of max|mu| (tolerance "
+        f"{VAE_REPLAY_TOL}); mean loss {lg:.6f} / {lc:.6f}")
+    if not err <= VAE_REPLAY_TOL:
+        raise SmokeFailure(f"vae replay: {err:.3e} > {VAE_REPLAY_TOL}")
+
+
+def embed_native(torch, gl, bs, W, labels, ti):
+    """Phase 4g's oracles: ``native.dijkstra_host`` against
+    ``graph.dijkstra`` on the band (K7) and on the plain path, 1e-5
+    relative; ``hostpath.laplace_host`` against the Laplace fit on a
+    NATIVE_LAPLACE_N-node moons graph, the same predictions."""
+    from graphlearning_tpu_torch import native
+    from graphlearning_tpu_torch.native import hostpath
+
+    t = time.perf_counter()
+    built = native.build()
+    say(f"  native.build(): {time.perf_counter() - t:.3f} s "
+        f"({'compiled' if built else 'up to date'})")
+    d_host, _ = timed(torch, "native.dijkstra_host(W, ti)",
+                      lambda: native.dijkstra_host(W, ti))
+    G = gl.graph(W)
+    n0 = bs.band_tiles_minplus.launches
+    d_band = timed(torch, "band graph.dijkstra(ti)",
+                   lambda: G.dijkstra(ti, bdy_val=0))
+    k7 = bs.band_tiles_minplus.launches - n0
+    with env("GLT_NO_ACCEL", "1"):
+        d_plain = timed(torch, "plain graph.dijkstra(ti)",
+                        lambda: gl.graph(W).dijkstra(ti, bdy_val=0))
+    for label, d in (("band", d_band), ("plain", d_plain)):
+        fin = np.isfinite(d_host)
+        rel = float(np.max(np.abs(d[fin] - d_host[fin])
+                           / np.maximum(np.abs(d_host[fin]), 1e-30)))
+        say(f"  dijkstra_host against {label} graph.dijkstra: {rel:.3e} "
+            f"relative" + (f", {k7} K7 launches" if label == "band" else ""))
+        if not (np.array_equal(np.isinf(d), ~fin) and rel <= 1e-5):
+            raise SmokeFailure(f"dijkstra_host against {label}: {rel}")
+    if k7 < 1:
+        raise SmokeFailure("the band dijkstra launched no K7")
+
+    X4, y4 = two_moons(NATIVE_LAPLACE_N, 0.1, seed=0)
+    W4 = gl.weightmatrix.knn(X4, 10)
+    t4 = gl.trainsets.generate(y4, rate=5, seed=0)
+    pred = gl.ssl.laplace(W4).fit_predict(t4, y4[t4])
+    mask = np.zeros(NATIVE_LAPLACE_N, bool)
+    mask[t4] = True
+    bdy = np.zeros((NATIVE_LAPLACE_N, 2))
+    bdy[t4] = np.eye(2)[y4[t4]]
+    u = timed(torch, f"hostpath.laplace_host, n={NATIVE_LAPLACE_N}",
+              lambda: hostpath.laplace_host(W4, mask, bdy, 0.0))
+    differ = int(np.sum(np.argmax(u, 1) != pred))
+    say(f"  laplace_host against ssl.laplace on the card: {differ} of "
+        f"{NATIVE_LAPLACE_N} predictions differ")
+    if differ:
+        raise SmokeFailure(f"laplace_host: {differ} predictions differ")
+
+
+def embed_observability(torch, gl, bs, W, labels, ti):
+    """Phase 4g's ``observability``: one band Laplace fit inside ``trace``
+    (a trace file must be written; whether it names K2's kernel is
+    printed, not checked), then the same fit timed by ``Timer`` and by
+    CUDA events."""
+    import tempfile
+
+    obs = gl.observability
+    model = gl.ssl.laplace(W, tol=OBS_TOL)
+    model.fit_predict(ti, labels[ti])            # the plan, K1
+    with tempfile.TemporaryDirectory() as logdir:
+        bs.reset_launches()
+        t = time.perf_counter()
+        with obs.trace(logdir) as prof:
+            model.fit_predict(ti, labels[ti])
+        secs = time.perf_counter() - t
+        k2 = bs.launches()["band_tiles_spmm_packed"]
+        files = os.listdir(logdir)
+        if len(files) != 1:
+            raise SmokeFailure(f"trace wrote {files}")
+        with open(os.path.join(logdir, files[0])) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        size = os.path.getsize(os.path.join(logdir, files[0]))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    named = [e for e in kernels if "tiles_spmm_kernel" in e.get("name", "")]
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e6
+    say(f"  observability.trace around a band laplace fit (tol {OBS_TOL:g}, "
+        f"{model.iters} CG steps): {secs:.3f} s, "
+        f"{size} bytes, {len(events)} events, {len(kernels)} kernel "
+        f"events ({busy:.4f} s of device time); K2 launches {k2}, K2 "
+        f"(tiles_spmm_kernel) events {len(named)}")
+    avg = [a for a in prof.key_averages() if "tiles_spmm_kernel" in a.key]
+    say(f"  key_averages names K2: {bool(avg)}")
+    if k2 < 1:
+        raise SmokeFailure("the traced fit launched no K2")
+    s0, e0 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with obs.Timer() as t:
+        s0.record()
+        pred = model.fit_predict(ti, labels[ti])
+        e0.record()
+        torch.cuda.synchronize()
+    say(f"  the same fit: Timer {t.seconds:.4f} s, CUDA events "
+        f"{s0.elapsed_time(e0) / 1000:.4f} s")
+    res = obs.benchmark(lambda: model.fit_predict(ti, labels[ti]), iters=2)
+    say(f"  observability.benchmark of the fit: {res}")
+    if not np.isfinite(pred).all():
+        raise SmokeFailure("the timed fit gave no prediction")
+
+
+def embed_phase(torch, gl, bs, W, labels, ti):
+    """Phase 4g: the embedding trainers, the host oracles and
+    observability."""
+    t0 = time.perf_counter()
+    card = card_line()
+    say("== phase 4g: ARS t-SNE on the ten-cluster points (20-d)")
+    embed_ars(torch, gl, card)
+    say("== phase 4g: the VAE on the MNIST-shaped input (n=70000, 784)")
+    embed_vae(torch, gl, card)
+    say("== phase 4g: the host oracles against the moons fits")
+    embed_native(torch, gl, bs, W, labels, ti)
+    say("== phase 4g: observability on a band Laplace fit")
+    embed_observability(torch, gl, bs, W, labels, ti)
+    say(f"== phase 4g: {time.perf_counter() - t0:.1f} s")
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3336,6 +3693,7 @@ def main():
     p10b_entries, _ = p10b_phase(torch, gl, accel, bs, W, labels, ti)
     trials_phase(torch, gl, bs, W, labels, ti)
     al_phase(torch, gl, bs, W, labels, ti)
+    embed_phase(torch, gl, bs, W, labels, ti)
     rect_entries, rect_launches = rect_phase(torch, gl, accel, bs, W, labels,
                                              ti, plain_pred)
     launches.update(rect_launches)

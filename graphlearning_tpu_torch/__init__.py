@@ -45,7 +45,13 @@ default (see :mod:`config`).  Ported so far:
   ``weightmatrix.knn_graph`` and the approximate kNN search
   (``knnsearch(method="ivf")``), and the ``utils`` solvers (CG, the
   constrained solves, GMRES), samplers, boundary statistic and image
-  helpers.
+  helpers;
+* the embedding trainers: ARS t-SNE (``ars.ars``, ``graph.ars``; exact
+  all-pairs repulsion in row chunks) and ``weightmatrix.vae`` (autograd
+  and the JAX package's Adam), the exact serial host oracles of
+  ``native`` (built from the port's own ``native/oracles.cpp`` with g++)
+  and ``native.hostpath.laplace_host``, and ``observability`` (``trace``
+  over ``torch.profiler``, ``Timer``, ``benchmark``, ``Counters``).
 
     import graphlearning_tpu_torch as gl
     W = gl.weightmatrix.knn(X, 10)
@@ -59,6 +65,7 @@ from graphlearning_tpu_torch.core.graphclass import graph
 from graphlearning_tpu_torch import ops, solvers, utils, weightmatrix
 from graphlearning_tpu_torch import clustering, datasets, ssl, trainsets
 from graphlearning_tpu_torch import active_learning, checkpoint
+from graphlearning_tpu_torch import ars, native, observability
 from graphlearning_tpu_torch.ssl import warmup
 
 __version__ = "0.1.0"
@@ -79,4 +86,7 @@ __all__ = [
     "trainsets",
     "active_learning",
     "checkpoint",
+    "ars",
+    "native",
+    "observability",
 ]

@@ -473,3 +473,19 @@ class graph:
         ax.scatter(X[:, 0], X[:, 1], c=c, cmap=cmap, s=markersize, zorder=3,
                    alpha=alpha)
         return X
+
+    @staticmethod
+    def ars(X, dim=2, perplexity=30, kappa=0.5, iters=1000, time_step=1,
+            theta1=2, theta2=3, alpha=10, num_early=250, use_pca=True,
+            init_dim=200, init="pca", prog=False, dump=False, device=None,
+            **kwargs):
+        """Attraction-Repulsion Swarming t-SNE embedding (static, reference
+        ``graph.py:1494-1609``); ``kwargs`` (``chunk``) pass on.  See
+        :func:`graphlearning_tpu_torch.ars.ars`."""
+        from graphlearning_tpu_torch.ars import ars as _ars
+
+        return _ars(X, dim=dim, perplexity=perplexity, kappa=kappa,
+                    iters=iters, time_step=time_step, theta1=theta1,
+                    theta2=theta2, alpha=alpha, num_early=num_early,
+                    use_pca=use_pca, init_dim=init_dim, init=init,
+                    prog=prog, dump=dump, device=device, **kwargs)

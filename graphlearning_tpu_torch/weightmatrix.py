@@ -1,19 +1,24 @@
-"""Graph construction (counterpart of ``graphlearning_tpu/weightmatrix.py``
-but for ``vae``): kNN, epsilon-ball and grid graphs.
+"""Graph construction and the VAE embedding (counterpart of
+``graphlearning_tpu/weightmatrix.py``): kNN, epsilon-ball and grid graphs,
+and ``vae``.
 
 Brute-force search is a chunked distance matmul plus ``torch.topk`` on the
 device; low-dimensional data takes a host cKDTree; the approximate search
 ("ivf", and "annoy", which routes to it) is an inverted-file search on the
 device.  Kernel weights are computed on the device.  ``knn``,
 ``epsilon_ball`` and ``grid_graph`` return scipy CSR matrices, as the JAX
-package does; ``knn_graph`` returns the device :class:`SparseGraph`.  The kNN data of a named dataset is kept in ``knn_dir`` (a
-module attribute the caller may reassign) as ``<dataset>_<metric>.npz``
-with fields ``J`` (indices) and ``D`` (distances), the JAX package's files.
+package does; ``knn_graph`` returns the device :class:`SparseGraph`.  The
+kNN data of a named dataset is kept in ``knn_dir`` (a module attribute the
+caller may reassign) as ``<dataset>_<metric>.npz`` with fields ``J``
+(indices) and ``D`` (distances), the JAX package's files.  ``vae`` trains
+the JAX package's VAE with autograd and the JAX package's Adam, in float32.
 """
 
 from __future__ import annotations
 
+import math
 import os
+import time
 
 import numpy as np
 import scipy.sparse as sparse
@@ -396,3 +401,178 @@ def grid_graph(n, m=None, return_xy=False):
         X = np.vstack((xm.flatten(), ym.flatten())).T.astype(float)
         return W, X
     return W
+
+
+# -- VAE embedding (reference weightmatrix.py:467-646; JAX package
+# weightmatrix.py:434-495) ---------------------------------------------------
+
+# the standard deviation of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal(fan_in: int, fan_out: int, generator):
+    """A (fan_out, fan_in) weight drawn as flax's ``lecun_normal`` draws a
+    kernel (``jax.random.truncated_normal``): ``sqrt(2) erfinv(u)`` for ``u``
+    uniform between ``erf(-sqrt(2))`` and ``erf(sqrt(2))``, a unit normal
+    truncated at two standard deviations, scaled to variance
+    ``1 / fan_in``."""
+    b = math.erf(math.sqrt(2.0))
+    u = torch.rand((fan_out, fan_in), generator=generator,
+                   device=generator.device, dtype=torch.float32)
+    z = (math.sqrt(2.0) * torch.erfinv(u * (2.0 * b) - b)).clamp_(-2.0, 2.0)
+    return z * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+
+
+class VAE(torch.nn.Module):
+    """The JAX package's two-layer VAE: ``d -> h`` (relu), ``h -> z`` twice
+    (mean and log-variance), ``z -> h`` (relu), ``h -> d`` (sigmoid).
+    Layer names follow the reference's torch VAE."""
+
+    def __init__(self, d: int, h: int, z: int, device=None):
+        super().__init__()
+        kw = {"device": device}
+        self.fc1 = torch.nn.Linear(d, h, **kw)
+        self.fc21 = torch.nn.Linear(h, z, **kw)
+        self.fc22 = torch.nn.Linear(h, z, **kw)
+        self.fc3 = torch.nn.Linear(z, h, **kw)
+        self.fc4 = torch.nn.Linear(h, d, **kw)
+
+    def encode(self, x):
+        e = torch.relu(self.fc1(x))
+        return self.fc21(e), self.fc22(e)
+
+    def forward(self, x, eps):
+        """``(out, mu, logvar)`` with the noise ``eps`` of shape (b, z)."""
+        mu, logvar = self.encode(x)
+        zs = mu + torch.exp(0.5 * logvar) * eps
+        return torch.sigmoid(self.fc4(torch.relu(self.fc3(zs)))), mu, logvar
+
+
+# flax's auto-named Dense layers, in call order, and the port's names
+_FLAX_LAYERS = (("Dense_0", "fc1"), ("Dense_1", "fc21"), ("Dense_2", "fc22"),
+                ("Dense_3", "fc3"), ("Dense_4", "fc4"))
+
+
+def vae_params_from_flax(params):
+    """The :class:`VAE` ``state_dict`` of the JAX package's flax parameter
+    tree (numpy arrays; ``{"params": {...}}`` or its inner dict), kernels
+    ``(in, out)`` turned into weights ``(out, in)``."""
+    p = params.get("params", params)
+    sd = {}
+    for flax_name, name in _FLAX_LAYERS:
+        sd[f"{name}.weight"] = torch.as_tensor(
+            np.ascontiguousarray(np.asarray(p[flax_name]["kernel"]).T,
+                                 dtype=np.float32))
+        sd[f"{name}.bias"] = torch.as_tensor(
+            np.array(p[flax_name]["bias"], dtype=np.float32))
+    return sd
+
+
+def _vae_init(d: int, h: int, z: int, generator):
+    """Initial parameters as flax initializes ``nn.Dense``: LeCun-normal
+    kernels and zero biases, drawn from ``generator`` in layer order."""
+    sd = {}
+    for (_, name), (fan_in, fan_out) in zip(
+            _FLAX_LAYERS, ((d, h), (h, z), (h, z), (z, h), (h, d))):
+        sd[f"{name}.weight"] = _lecun_normal(fan_in, fan_out, generator)
+        sd[f"{name}.bias"] = torch.zeros(fan_out, dtype=torch.float32,
+                                         device=generator.device)
+    return sd
+
+
+def _vae_loss(model, xb, eps):
+    """The JAX package's loss: the BCE sum (1e-8 inside the logs) plus the
+    KL divergence."""
+    out, mu, logvar = model(xb, eps)
+    bce = -torch.sum(xb * torch.log(out + 1e-8)
+                     + (1 - xb) * torch.log(1 - out + 1e-8))
+    kld = -0.5 * torch.sum(1 + logvar - mu**2 - torch.exp(logvar))
+    return bce + kld
+
+
+def _vae_train(X, layer_widths, params, noise, batch_size, epochs,
+               learning_rate, seed, dev):
+    """Train :class:`VAE` on the rows of ``X`` (float32 numpy, scaled) from
+    the ``state_dict`` ``params``, with ``noise(shape)`` giving each step's
+    (batch, z) draw.  The JAX package's batches (``RandomState(seed)``, one
+    permutation an epoch, ``max(1, n // batch_size)`` steps) and Adam with
+    optax's defaults and order of operations.  Returns ``(model,
+    history)``, one ``{"loss", "seconds"}`` an epoch (the mean loss of its
+    steps, and the seconds since the start, read after the loss)."""
+    n, d = X.shape
+    h, z = int(layer_widths[0]), int(layer_widths[1])
+    # built on the meta device: nn.Linear's own init draws nothing
+    model = VAE(d, h, z, device="meta").to_empty(device=dev)
+    model.load_state_dict(params)
+    Xd = torch.as_tensor(X, device=dev)
+    ps = list(model.parameters())
+    mu = [torch.zeros_like(p) for p in ps]
+    nu = [torch.zeros_like(p) for p in ps]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    steps_per_epoch = max(1, n // batch_size)
+    rs = np.random.RandomState(seed)
+    history, t0, count = [], time.perf_counter(), 0
+    for _ in range(epochs):
+        perm = torch.as_tensor(rs.permutation(n), device=dev)
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(steps_per_epoch):
+            xb = Xd[perm[i * batch_size:(i + 1) * batch_size]]
+            loss = _vae_loss(model, xb, noise((xb.shape[0], z)))
+            grads = torch.autograd.grad(loss, ps)
+            count += 1
+            # optax.adam's update, op for op, over all tensors at once
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
+            g2 = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(g2, 1.0 - b2)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, g2)
+            den = torch._foreach_div(nu, 1.0 - b2**count)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            upd = torch._foreach_div(torch._foreach_div(mu, 1.0 - b1**count),
+                                     den)
+            torch._foreach_mul_(upd, -learning_rate)
+            with torch.no_grad():
+                torch._foreach_add_(ps, upd)
+            total += loss.detach()
+        history.append({"loss": float(total) / steps_per_epoch,
+                        "seconds": time.perf_counter() - t0})
+    return model, history
+
+
+def _vae_encode(model, X, dev):
+    """The latent means of the rows of ``X``, in blocks of 4096, as
+    float32 numpy."""
+    with torch.no_grad():
+        return np.concatenate([
+            model.encode(torch.as_tensor(X[s:s + 4096], device=dev))[0]
+            .cpu().numpy() for s in range(0, X.shape[0], 4096)], axis=0)
+
+
+def _vae_data(data):
+    """The training rows: float32, scaled by the largest value."""
+    X = np.asarray(data, dtype=np.float32)
+    return X / max(1e-12, X.max())
+
+
+def vae(data, layer_widths=(400, 20), no_cuda=False, batch_size=128,
+        epochs=100, learning_rate=1e-3, seed=0, device=None):
+    """Train a two-layer VAE on raw data and return the latent means, used
+    to build ``metric='vae'`` graphs.  The parameters of the JAX package's
+    ``vae`` in its order, with ``device`` last; ``no_cuda=True`` asks for
+    the CPU, as in the reference.  The initial parameters and each step's
+    noise come from one ``torch.Generator`` on the device seeded by
+    ``seed``; the batches from ``RandomState(seed)`` on the host, as in
+    the JAX package.  Trains in float32; returns float32 numpy (n, z)."""
+    dev = config.device("cpu" if no_cuda else device)
+    X = _vae_data(data)
+    n, d = X.shape
+    h, z = int(layer_widths[0]), int(layer_widths[1])
+    gen = config.generator(seed, dev)
+    params = _vae_init(d, h, z, gen)
+    noise = lambda shape: torch.randn(shape, generator=gen, device=dev,
+                                      dtype=torch.float32)
+    model, _ = _vae_train(X, (h, z), params, noise, batch_size, epochs,
+                          learning_rate, seed, dev)
+    return _vae_encode(model, X, dev)

@@ -1496,3 +1496,70 @@ def test_cuda_warm_laplace_refit_on_the_band(cuda_device, monkeypatch):
         m._warm_u = None
     assert m.iters < cold.iters, (m.iters, cold.iters)
     assert torch.equal(torch.argmax(u_warm, 1), torch.argmax(u_cold, 1))
+
+
+def _ars_case(n, dev):
+    """P of n ten-cluster-like 20-d points built on ``dev`` and a start."""
+    from graphlearning_tpu_torch import ars
+
+    rs = np.random.RandomState(5)
+    X = rs.randn(10, 20)[rs.randint(0, 10, n)] + rs.randn(n, 20)
+    X, Y0 = ars._preprocess(X, 2, True, 200, "pca")
+    return ars._build_P(X, 30, device=dev), Y0.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1024, 700])
+def test_cuda_ars_forces_and_iterations_match_the_cpu(cuda_device, chunk):
+    """ARS's forces (float32, full-f32 products) within 1e-5 of the largest
+    and 20 iterations within 1e-4 of max|Y| of the CPU's, from the same P
+    and start; chunk 700 leaves a ragged last chunk."""
+    from graphlearning_tpu_torch import ars
+
+    P, Y0 = _ars_case(2048, cuda_device)
+    cols, vals = P.cols.cpu(), P.vals.cpu()
+    Y = np.random.RandomState(6).randn(2048, 2).astype(np.float32)
+    got = ars._ars_forces(torch.as_tensor(Y, device=cuda_device), P.cols,
+                          P.vals, 2.0, 3.0, chunk)
+    want = ars._ars_forces(torch.as_tensor(Y), cols, vals, 2.0, 3.0, chunk)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+    kw = dict(iters=20, num_early=10, time_step=1.0, theta1=2.0,
+              theta2=3.0, alpha=10.0, chunk=chunk)
+    Yg = ars._ars_iterate(torch.as_tensor(Y0, device=cuda_device), P.cols,
+                          P.vals, **kw)
+    Yc = ars._ars_iterate(torch.as_tensor(Y0), cols, vals, **kw)
+    torch.testing.assert_close(Yg.cpu(), Yc, rtol=0,
+                               atol=1e-4 * float(Yc.abs().max()))
+    assert float(Yg.mean(0).abs().max()) < 1e-5 * float(Yg.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_vae_replay_matches_the_cpu(cuda_device):
+    """20 VAE steps from carried-across parameters (a flax-shaped tree) and
+    noise drawn on a CPU generator: the card's latent means within 1e-4 of
+    the largest of the CPU's."""
+    from graphlearning_tpu_torch import weightmatrix as wm
+
+    rs = np.random.RandomState(7)
+    n, d, h, z, batch = 640, 50, 64, 8, 32
+    X = wm._vae_data(rs.rand(n, d))
+    params = {"params": {
+        name: {"kernel": rs.randn(i, o) / np.sqrt(i),
+               "bias": rs.randn(o) * 0.01}
+        for name, (i, o) in zip(
+            ("Dense_0", "Dense_1", "Dense_2", "Dense_3", "Dense_4"),
+            ((d, h), (h, z), (h, z), (z, h), (h, d)))}}
+    gen = torch.Generator().manual_seed(3)
+    draws = [torch.randn((batch, z), generator=gen) for _ in range(20)]
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        it = iter(draws)
+        model, hist = wm._vae_train(
+            X, (h, z), wm.vae_params_from_flax(params),
+            lambda shape: next(it).to(dev), batch, 1, 1e-3, 0, dev)
+        out[dev.type] = (wm._vae_encode(model, X, dev), hist[0]["loss"])
+    (Zg, lg), (Zc, lc) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(Zg, Zc, rtol=0, atol=1e-4 * np.abs(Zc).max())
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
