@@ -124,6 +124,16 @@ Phases (any failure exits non-zero before the result line):
    the moons graph, ``hostpath.laplace_host`` against a Laplace fit; a
    band Laplace fit inside ``observability.trace`` (K2 launched, the
    trace written) and timed by ``Timer`` and by CUDA events;
+4h. the distribution layer (P15a) on a one-rank NCCL group: the moons
+   graph's Laplace, Poisson CG and GD, random-walk and PoissonMBO fits
+   through ``distribute(GLTConfig(sharded_kernel="banded"))``, each twice
+   (the first builds the operator: RCM, the partition, K1), with its
+   route, iterations and K3 launches (one a product), held to the JAX
+   package's float32 accuracy less a point, to the plain fit (0.99; GD's
+   steps within 1 %) and to its K3 count; Laplace on the "gspmd" (ELL)
+   route; then the graph's P=4 partition in one process, K1 and K3 (d=2,
+   over each block's halo-extended X, wrapped as the ring does) against
+   their twins and the blocks plus the residual against ``W @ X``;
 5. the rectangular route: the same graph under ``GLT_NO_BAND=1``
    (Laplace and Poisson on the unstored band, K6; ``graph.dijkstra`` on
    the plain path), then ``AccelSpMM(W, materialize=True)`` (K4 band; the
@@ -3617,6 +3627,230 @@ def embed_phase(torch, gl, bs, W, labels, ti):
     say(f"== phase 4g: {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 4h (P15a): the sharded fits through ``model.distribute`` on a
+# one-rank NCCL group, on the moons fit input at full width.  Each is held
+# to the JAX package's float32 accuracy (REFERENCE_ACCURACY,
+# MBO_REFERENCE; random walk has none) less ACCURACY_MARGIN, to the plain
+# single-device fit (DIST_AGREEMENT; gradient descent's steps within
+# ITERS_MARGIN), and its K3 launches to ``dist_k3_launches``.  Then the
+# P=4 partition (DIST_P) of the same graph in one process: K1 and K3 of
+# each block against their twins and the plain product.
+DIST_FITS = {
+    "laplace": lambda gl, W, priors: gl.ssl.laplace(W),
+    "poisson_cg": lambda gl, W, priors: gl.ssl.poisson(W),
+    "poisson_gd": lambda gl, W, priors: gl.ssl.poisson(
+        W, solver="gradient_descent"),
+    "randomwalk": lambda gl, W, priors: gl.ssl.randomwalk(W),
+    "poisson_mbo": lambda gl, W, priors: gl.ssl.poisson_mbo(W, priors),
+}
+DIST_REFERENCE = {"laplace": REFERENCE_ACCURACY["laplace"],
+                  "poisson_cg": REFERENCE_ACCURACY["poisson_cg"],
+                  "poisson_gd": REFERENCE_ACCURACY["poisson_gd"],
+                  "poisson_mbo": MBO_REFERENCE["poisson_mbo"]}
+DIST_AGREEMENT = 0.99
+DIST_P = 4
+DIST_RW = 512            # the band geometry on CUDA: R = WT = 512
+
+
+def dist_k3_launches(name, m):
+    """K3's launches in one banded sharded fit: one a product of the
+    solver, d <= 128 (the Laplace CG also applies L to the boundary
+    values; PoissonMBO starts from a Poisson CG fit, then T rounds of Ns
+    heat steps)."""
+    if name == "laplace":
+        return m.iters + 2
+    if name in ("poisson_cg", "randomwalk"):
+        return m.iters + 1
+    if name == "poisson_gd":
+        return 2 * m.iters
+    return m.poisson_model.iters + 1 + m.T * m.Ns
+
+
+def dist_fit(torch, gl, label, m, labels, ti):
+    """One timed ``fit_predict`` of phase 4h: ``(pred, accuracy, s)``."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pred = m.fit_predict(ti, labels[ti])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    accuracy = gl.ssl.ssl_accuracy(pred, labels, ti)
+    return pred, accuracy, secs
+
+
+def dist_fits(torch, gl, bs, W, labels, ti):
+    """The banded and the ELL route on a one-rank NCCL group: returns the
+    launches of K1 and K3 in the banded fits."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    priors = gl.utils.class_priors(labels)
+    plain = {}
+    with env("GLT_NO_ACCEL", "1"):
+        for name, make in DIST_FITS.items():
+            m = make(gl, W, priors)
+            pred, accuracy, secs = dist_fit(torch, gl, name, m, labels, ti)
+            say(f"  plain/{name}: {secs:.3f} s, {m.iters} iterations, "
+                f"accuracy {accuracy:.4f} %")
+            plain[name] = (pred, m.iters)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            say(f"  process group: backend {dist.get_backend()}, world "
+                f"size {dist.get_world_size()}")
+            cfg = gl.GLTConfig(sharded_kernel="banded")
+            bs.reset_launches()
+            # each fit twice: the first builds the operator (RCM, the
+            # plan, K1) and pays NCCL's first collective
+            for name, make in DIST_FITS.items():
+                for run in (1, 2):
+                    label = f"banded/{name} (run {run})"
+                    before = bs.launches()
+                    m = make(gl, W, priors).distribute(cfg)
+                    pred, accuracy, secs = dist_fit(torch, gl, name, m,
+                                                    labels, ti)
+                    got = {k: bs.launches()[k] - before[k] for k in (
+                        "materialize_band_tiles", "band_tiles_spmm")}
+                    op = m._dist.last_op
+                    steps = (f"{m.iters} iterations" if name != "poisson_mbo"
+                             else f"{m.poisson_model.iters} CG iterations + "
+                             f"{m.T * m.Ns} heat steps")
+                    say(f"  {label}: {secs:.3f} s, route {m._dist.route}, "
+                        f"{steps}, accuracy {accuracy:.4f} %, K1 "
+                        f"{got['materialize_band_tiles']}, K3 "
+                        f"{got['band_tiles_spmm']} (B {op.n}, H {op.H}, "
+                        f"{op.plan.slab_block.numel()} tiles, "
+                        f"{op.n_residual} residual edges)")
+                    if m._dist.route != "banded":
+                        raise SmokeFailure(f"{label} took the "
+                                           f"{m._dist.route} route")
+                    want = dist_k3_launches(name, m)
+                    if got["band_tiles_spmm"] != want:
+                        raise SmokeFailure(f"{label}: "
+                                           f"{got['band_tiles_spmm']} K3 "
+                                           f"launches, not {want}")
+                    if name in DIST_REFERENCE:
+                        check_target(label, accuracy, DIST_REFERENCE[name])
+                    check_agreement(label, pred, plain[name][0],
+                                    DIST_AGREEMENT)
+                    ref_iters = plain[name][1]
+                    if (name == "poisson_gd" and abs(m.iters - ref_iters)
+                            > ITERS_MARGIN * ref_iters):
+                        raise SmokeFailure(
+                            f"{label}: {m.iters} iterations against the "
+                            f"plain path's {ref_iters}")
+            launches = bs.launches()
+            if launches["materialize_band_tiles"] < 1:
+                raise SmokeFailure("the banded fits launched no K1")
+            for run in (1, 2):
+                label = f"gspmd/laplace (run {run})"
+                before = bs.launches()
+                m = DIST_FITS["laplace"](gl, W, priors).distribute(
+                    gl.GLTConfig(sharded_kernel="gspmd"))
+                pred, accuracy, secs = dist_fit(torch, gl, "laplace", m,
+                                                labels, ti)
+                say(f"  {label}: {secs:.3f} s, route {m._dist.route}, "
+                    f"{m.iters} iterations, accuracy {accuracy:.4f} %")
+                if (m._dist.route != "gspmd"
+                        or bs.launches()["band_tiles_spmm"]
+                        != before["band_tiles_spmm"]):
+                    raise SmokeFailure(f"{label} did not take the ELL "
+                                       "route")
+                check_agreement(label, pred, plain["laplace"][0],
+                                DIST_AGREEMENT)
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
+def partition_entries(torch, bs, W, launches):
+    """The P=4 partition of the RCM-ordered moons graph in one process:
+    K1 and K3 (d=2, over each block's halo-extended X, wrapped as the
+    ring does) against their twins, the blocks' products with the
+    residual edges against the plain product; the kernels' entries on the
+    block with the most tiles."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from graphlearning_tpu_torch.parallel.band_shard import (
+        build_band_partition)
+
+    perm = np.asarray(reverse_cuthill_mckee(W, symmetric_mode=True))
+    Wp = W[perm][:, perm].tocsr()
+    n = Wp.shape[0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    part = build_band_partition(Wp, DIST_P, R=DIST_RW, WT=DIST_RW,
+                                device="cuda")
+    torch.cuda.synchronize()
+    tiles = [len(pl[0]) for pl in part.plans]
+    say(f"  partition P={DIST_P}: {time.perf_counter() - t:.2f} s (host "
+        f"plan and {DIST_P} K1), B {part.B}, H {part.H}, tiles {tiles}, "
+        f"{len(part.res_rows)} residual edges")
+    B, H = part.B, part.H
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    X = torch.randn((part.n_pad, 2), generator=gen, device="cuda")
+    X[n:] = 0.0
+    out = torch.zeros_like(X)
+    for p in range(DIST_P):
+        cols, vals, tb, ts, R, WT = part.k1_inputs(p, "cuda")
+        compare(f"K1 block {p}", part.bands[p],
+                bs._materialize_band_tiles_plain(cols, vals, tb, ts, R, WT,
+                                                 torch.float32), 1e-6)
+        rows = (torch.arange(B + 2 * H, device="cuda") + p * B - H) \
+            % part.n_pad
+        plan = part.tiles_plan(p, "cuda")
+        o = bs.band_tiles_spmm(part.bands[p], plan, X[rows])
+        compare(f"K3 block {p} over its halo", o,
+                bs._tiles_spmm_plain(part.bands[p], plan, X[rows]),
+                TOL["float32"])
+        out[p * B:(p + 1) * B] = o
+    Xh = X.double().cpu().numpy()
+    full = out.double().cpu().numpy()
+    np.add.at(full, part.res_rows, part.res_vals[:, None]
+              * Xh[part.res_cols])
+    compare("the blocks and the residual against W @ X",
+            torch.as_tensor(full[:n]), torch.as_tensor(Wp @ Xh[:n]),
+            TOL["float32"])
+
+    big = int(np.argmax(tiles))
+    k1 = k1_entry(torch, bs, f"partition P={DIST_P}",
+                  part.k1_inputs(big, "cuda"), torch.float32)
+    k1["launches"] = launches["materialize_band_tiles"]
+    sl = slice(big * B, (big + 1) * B)
+    lc, bv = part.lcols[sl], part.band_vals[sl]
+    keep = bv != 0
+    local = sp.csr_matrix((bv[keep].astype(np.float32),
+                           (np.nonzero(keep)[0], lc[keep])),
+                          shape=(B, B + 2 * H))
+    csr = torch.sparse_csr_tensor(
+        torch.as_tensor(local.indptr.astype(np.int64)),
+        torch.as_tensor(local.indices.astype(np.int64)),
+        torch.as_tensor(local.data), size=local.shape).to("cuda")
+    rows = (torch.arange(B + 2 * H, device="cuda") + big * B - H) \
+        % part.n_pad
+    Xloc = X[rows].contiguous()
+    k3 = spmm_entry(torch, bs, "band_tiles_spmm", "sharded halo d=2",
+                    part.bands[big], part.tiles_plan(big, "cuda"), Xloc,
+                    lambda: torch.sparse.mm(csr, Xloc))
+    k3["launches"] = launches["band_tiles_spmm"]
+    return [k1, k3]
+
+
+def dist_phase(torch, gl, bs, W, labels, ti):
+    """Phase 4h: the sharded fits (P15a) on a one-rank NCCL group, then
+    the P=4 partition's kernels.  Returns the K1 and K3 entries."""
+    t0 = time.perf_counter()
+    say("== phase 4h: sharded fits on a one-rank NCCL group (the moons, "
+        "n=65536)")
+    launches = dist_fits(torch, gl, bs, W, labels, ti)
+    say(f"== phase 4h: the P={DIST_P} partition's kernels, one process")
+    entries = partition_entries(torch, bs, W, launches)
+    say(f"== phase 4h: {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3694,6 +3928,7 @@ def main():
     trials_phase(torch, gl, bs, W, labels, ti)
     al_phase(torch, gl, bs, W, labels, ti)
     embed_phase(torch, gl, bs, W, labels, ti)
+    shard_entries = dist_phase(torch, gl, bs, W, labels, ti)
     rect_entries, rect_launches = rect_phase(torch, gl, accel, bs, W, labels,
                                              ti, plain_pred)
     launches.update(rect_launches)
@@ -3701,7 +3936,8 @@ def main():
     bench_entries, bench_launches = bench_phase(torch, accel, bs)
     launches.update(bench_launches)
     entries = (fit_entries + dist_entries + mbo_entries + eig_entries
-               + p10b_entries + rect_entries + bench_entries + entries)
+               + p10b_entries + shard_entries + rect_entries + bench_entries
+               + entries)
     for e in entries:
         # an entry of the MBO, eig or 4d phase carries that phase's count
         e.setdefault("launches", launches[e["name"]])

@@ -51,7 +51,12 @@ default (see :mod:`config`).  Ported so far:
   and the JAX package's Adam), the exact serial host oracles of
   ``native`` (built from the port's own ``native/oracles.cpp`` with g++)
   and ``native.hostpath.laplace_host``, and ``observability`` (``trace``
-  over ``torch.profiler``, ``Timer``, ``benchmark``, ``Counters``).
+  over ``torch.profiler``, ``Timer``, ``benchmark``, ``Counters``);
+* the first half of the distribution layer: ``GLTConfig``, ``parallel``
+  (the mesh over ``torch.distributed``, row-sharded graphs, the
+  partitioned band on K1 and K3 with a ring halo, the ``Distributor``)
+  and ``model.distribute(...)`` of the Laplace, random-walk, Poisson (CG
+  and gradient descent) and PoissonMBO fits.
 
     import graphlearning_tpu_torch as gl
     W = gl.weightmatrix.knn(X, 10)
@@ -60,12 +65,13 @@ default (see :mod:`config`).  Ported so far:
 """
 
 from graphlearning_tpu_torch import config
+from graphlearning_tpu_torch.config import GLTConfig
 from graphlearning_tpu_torch.core.sparse import BucketedELL, SparseGraph
 from graphlearning_tpu_torch.core.graphclass import graph
 from graphlearning_tpu_torch import ops, solvers, utils, weightmatrix
 from graphlearning_tpu_torch import clustering, datasets, ssl, trainsets
 from graphlearning_tpu_torch import active_learning, checkpoint
-from graphlearning_tpu_torch import ars, native, observability
+from graphlearning_tpu_torch import ars, native, observability, parallel
 from graphlearning_tpu_torch.ssl import warmup
 
 __version__ = "0.1.0"
@@ -74,6 +80,7 @@ __all__ = [
     "BucketedELL",
     "SparseGraph",
     "graph",
+    "GLTConfig",
     "warmup",
     "config",
     "ops",
@@ -89,4 +96,5 @@ __all__ = [
     "ars",
     "native",
     "observability",
+    "parallel",
 ]

@@ -122,12 +122,12 @@ def spectral_covariance(model_or_graph, k=20, tau=0.11,
     on the band or the gather where ``ops.accel.maybe_build`` takes one):
     ``var_opt(*spectral_covariance(model))``.  Takes an SSL model, a
     ``graph`` or a weight matrix (its graph on ``device``).  Returns numpy.
-    A distributed model is not ported (P15)."""
+    A distributed model is not ported (P15b)."""
     from graphlearning_tpu_torch.core.graphclass import graph as _graph
 
     if getattr(model_or_graph, "_dist", None) is not None:
         raise NotImplementedError("spectral_covariance of a distributed "
-                                  "model is not ported yet (P15)")
+                                  "model is not ported yet (P15b)")
     G = model_or_graph
     if hasattr(G, "graph"):              # an SSL model
         G = G.graph

@@ -36,11 +36,11 @@ class clustering:
         self.fitted = False
 
     def distribute(self, mesh="auto", strict=False):
-        """Sharded execution comes with the distribution layer, not ported
-        yet."""
+        """Sharded clustering comes with the second half of the
+        distribution layer (P15b)."""
         raise NotImplementedError(
-            "clustering.distribute: the distribution layer is not ported "
-            "yet (P15)")
+            "clustering.distribute: sharded clustering is not ported yet "
+            "(P15b)")
 
     def predict(self):
         if not self.fitted:

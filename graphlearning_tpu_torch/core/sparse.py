@@ -83,6 +83,17 @@ class SparseGraph:
                                        device=device)
 
     @staticmethod
+    def from_coo(rows, cols, vals, n: int, k: int | None = None, dtype=None,
+                 device=None) -> "SparseGraph":
+        """From COO triplets (duplicates summed), through scipy."""
+        import scipy.sparse as sp
+
+        W = sp.coo_matrix((np.asarray(vals), (np.asarray(rows),
+                                              np.asarray(cols))),
+                          shape=(n, n))
+        return SparseGraph.from_scipy(W, k=k, dtype=dtype, device=device)
+
+    @staticmethod
     def from_knn(knn_ind, knn_weight, n: int | None = None, dtype=None,
                  device=None) -> "SparseGraph":
         """Build directly from a dense kNN result ``(n, k)``: every row has
@@ -111,6 +122,10 @@ class SparseGraph:
                           shape=(self.n, self.n))
         return W.tocsr()
 
+    def todense(self):
+        """The dense ``(n, n)`` numpy matrix."""
+        return np.asarray(self.to_scipy().todense())
+
     # -- basic properties -------------------------------------------------
 
     @property
@@ -129,6 +144,26 @@ class SparseGraph:
         """(n, k) bool validity mask, recomputed on the fly."""
         slots = torch.arange(self.k, device=self.device)
         return slots[None, :] < self.deg[:, None]
+
+    def reorder_rcm(self):
+        """Reverse Cuthill-McKee order (host-side): ``(reordered graph,
+        perm)`` with ``perm`` mapping new to old indices, on the same
+        device and dtype."""
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+        W = self.to_scipy()
+        perm = np.asarray(reverse_cuthill_mckee(W, symmetric_mode=True))
+        return (SparseGraph.from_scipy(W[perm, :][:, perm],
+                                       dtype=self.vals.dtype,
+                                       device=self.device), perm)
+
+    def astype(self, dtype) -> "SparseGraph":
+        """The same graph with its values in ``dtype`` (a torch dtype or a
+        numpy one)."""
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch.from_numpy(np.zeros(0, dtype)).dtype
+        return SparseGraph(self.cols, self.vals.to(dtype), self.deg, self.n,
+                           self.k)
 
     def transpose(self) -> "SparseGraph":
         """Transpose (host-side rebuild)."""

@@ -515,6 +515,17 @@ class AccelSpMM(SpmmSolvers):
             self._chunks[band] = chunks
         return chunks
 
+    def packed_band(self):
+        """The band of the packed plan (K2), built on first use.  It is
+        the port's own slab layout (:func:`~band_spmm.pack_band`): the
+        slabs of the packed geometry, with no padding of d to the TPU's
+        128 lanes.  Raises when the matvec plan is not packed
+        (``GLT_NO_PACKED``, or the packed band over the budget)."""
+        if not self.packed:
+            raise ValueError(f"a {type(self.plan).__name__} has no packed "
+                             "band")
+        return self.band()
+
     def tiles_band(self):
         """The unpacked tiles band of the distance and Lipschitz kernels:
         the matvec band itself under the unpacked plan, else built by K1 on
@@ -536,6 +547,23 @@ class AccelSpMM(SpmmSolvers):
             self._ell = (self.g.cols[:, :k].contiguous(),
                          self.g.vals[:, :k].to(self.band_dtype).contiguous())
         return self._ell
+
+    def laplacian_matvec(self, normalization: str, deg_p):
+        """``X -> L X`` in permuted space on :meth:`spmm`, for the three
+        normalizations (``ops.graphops.laplacian_matvec``); ``deg_p`` the
+        permuted degrees, padding rows (degree 0) identity or zero rows."""
+        ok = deg_p > 0
+        safe = torch.where(ok, deg_p, torch.ones_like(deg_p))
+        zero = torch.zeros_like(deg_p)
+        if normalization == "combinatorial":
+            return lambda X: deg_p[:, None] * X - self.spmm(X)
+        if normalization == "randomwalk":
+            dinv = torch.where(ok, 1.0 / safe, zero)
+            return lambda X: X - dinv[:, None] * self.spmm(X)
+        if normalization == "normalized":
+            s = torch.where(ok, safe ** -0.5, zero)
+            return lambda X: X - s[:, None] * self.spmm(s[:, None] * X)
+        raise ValueError(f"unsupported normalization {normalization!r}")
 
     # -- index maps (one gather each, outside the solver loop) ------------
 

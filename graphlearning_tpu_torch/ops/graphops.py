@@ -5,6 +5,12 @@ gather plus a reduction over the fixed ``k`` axis.  This is the path for
 graphs the band kernels do not take, and the CPU path.  The graph calculus
 at the end (gradient, divergence, neighbor min/max, infinity Laplacian)
 serves the distance and Lipschitz solvers.
+
+Operator hooks, as in the JAX package: a graph-like object with
+``spmm_``, ``neighbor_take_``, ``deg_`` or ``diag_`` (the sharded graphs
+of ``parallel``) computes :func:`spmm`, :func:`neighbor_take`,
+:func:`degree_vector` or :func:`diagonal` itself.  That is how a sharded
+operator reaches the unchanged solvers.
 """
 
 from __future__ import annotations
@@ -34,8 +40,13 @@ _SUM_DMAX = 16
 
 def spmm(g: SparseGraph, X):
     """``W @ X``: gather neighbor rows, weight, reduce over k.  Padding
-    slots have ``vals == 0`` and a valid column, so no mask is needed."""
+    slots have ``vals == 0`` and a valid column, so no mask is needed.
+    A ``g`` with ``spmm_`` computes the product itself."""
     X2, was_1d = _as_2d(X)
+    custom = getattr(g, "spmm_", None)
+    if custom is not None:
+        out = custom(X2)
+        return out[:, 0] if was_1d else out
     gathered = X2[g.cols]                                # (n, k, d)
     vals = g.vals.to(X2.dtype)
     if X2.is_cuda and X2.shape[1] <= _SUM_DMAX:
@@ -46,7 +57,11 @@ def spmm(g: SparseGraph, X):
 
 
 def neighbor_take(g: SparseGraph, x):
-    """``x[g.cols]``: per-slot neighbor values, (n,) -> (n, k)."""
+    """``x[g.cols]``: per-slot neighbor values, (n,) -> (n, k).  A ``g``
+    with ``neighbor_take_`` takes them itself."""
+    custom = getattr(g, "neighbor_take_", None)
+    if custom is not None:
+        return custom(x)
     return x[g.cols]
 
 
@@ -82,7 +97,11 @@ def spmm_t(g: SparseGraph, X):
 
 
 def degree_vector(g: SparseGraph):
-    """Weighted degree ``d_i = sum_j w_ij``."""
+    """Weighted degree ``d_i = sum_j w_ij`` (``g.deg_()`` where ``g`` has
+    one: a hybrid graph whose spill edges lie outside its ELL)."""
+    custom = getattr(g, "deg_", None)
+    if custom is not None:
+        return custom()
     return torch.sum(g.vals, dim=1)
 
 
@@ -94,7 +113,12 @@ def degree_vector_p(g: SparseGraph, p: float):
 
 
 def diagonal(g: SparseGraph):
-    """diag(W).  Padding (col == row, val == 0) contributes nothing."""
+    """diag(W).  Padding (col == row, val == 0) contributes nothing.
+    ``g.diag_()`` where ``g`` has one (a hybrid graph, or a rank's rows
+    of a sharded one)."""
+    custom = getattr(g, "diag_", None)
+    if custom is not None:
+        return custom()
     rows = torch.arange(g.n, device=g.device)[:, None]
     return torch.sum(torch.where(g.cols == rows, g.vals,
                                  torch.zeros((), dtype=g.vals.dtype,

@@ -5,3 +5,6 @@
 (``eig``), k-means (``kmeans``), the centered kernel method's solve
 (``centered``), INCRES's rounds (``incres``) and PageRank
 (``pagerank``)."""
+from graphlearning_tpu_torch.solvers.cg import conjgrad, constrained_solve
+
+__all__ = ["conjgrad", "constrained_solve"]

@@ -9,6 +9,9 @@ is a ``lax.while_loop``; here the loop is Python with one convergence check
 * ``b`` is ``(n, m)``; one operator application serves all m columns.
 * Stopping rule: ``||r||_F < tol``, with ``tol`` clamped to what the dtype
   can reach.
+* ``reduce``: the sum over the nodes of a sharded solve
+  (``parallel.execute.Distributor.reduce``), applied to every dot
+  product and norm; None on one device.
 * The batched forms (:func:`conjgrad_batched`,
   :func:`constrained_solve_batched`) solve several trials at once, each to
   its own stop, as the JAX package's ``jax.vmap`` of these solvers does.
@@ -30,10 +33,23 @@ def _safe_div(num, den):
                        torch.zeros_like(num))
 
 
+def _sum(t, reduce):
+    return t if reduce is None else reduce(t)
+
+
+def _norm(r, reduce):
+    """``||r||_F``, over every rank's rows with ``reduce``."""
+    if reduce is None:
+        return float(torch.linalg.norm(r))
+    return float(torch.sqrt(reduce(torch.sum(r * r))))
+
+
 def conjgrad(A: Callable, b, x0=None, max_iter: int = 1000,
-             tol: float = 1e-10, M: Optional[Callable] = None):
+             tol: float = 1e-10, M: Optional[Callable] = None,
+             reduce: Optional[Callable] = None):
     """Preconditioned CG for an SPD operator ``A`` on ``(n, m)`` tensors;
-    ``M`` approximates ``A^{-1}``.  Returns ``(x, iters, residual)``."""
+    ``M`` approximates ``A^{-1}``; ``reduce`` sums over the ranks of a
+    sharded solve.  Returns ``(x, iters, residual)``."""
     was_1d = b.dim() == 1
     if was_1d:
         b = b[:, None]
@@ -44,42 +60,44 @@ def conjgrad(A: Callable, b, x0=None, max_iter: int = 1000,
     r = b - A(x)
     z = M(r)
     p = z
-    rz = torch.sum(r * z, dim=0)
+    rz = _sum(torch.sum(r * z, dim=0), reduce)
 
     # Clamp the tolerance to what the dtype can reach: f64-sized tolerances
     # would otherwise run f32 to max_iter.  The clamp uses the system scale
     # ||b||, not the warm-start residual, so a good x0 never tightens it.
     eps = torch.finfo(b.dtype).eps
-    tol = max(float(tol), 50.0 * eps * (float(torch.linalg.norm(b)) + 1.0))
+    tol = max(float(tol), 50.0 * eps * (_norm(b, reduce) + 1.0))
 
     it = 0
-    while it < max_iter and float(torch.linalg.norm(r)) > tol:
+    while it < max_iter and _norm(r, reduce) > tol:
         Ap = A(p)
-        pAp = torch.sum(p * Ap, dim=0)
+        pAp = _sum(torch.sum(p * Ap, dim=0), reduce)
         alpha = _safe_div(rz, pAp)
         x = x + alpha[None, :] * p
         r = r - alpha[None, :] * Ap
         z = M(r)
-        rz_new = torch.sum(r * z, dim=0)
+        rz_new = _sum(torch.sum(r * z, dim=0), reduce)
         beta = _safe_div(rz_new, rz)
         p = z + beta[None, :] * p
         rz = rz_new
         it += 1
-    res = float(torch.linalg.norm(r))
+    res = _norm(r, reduce)
     if was_1d:
         x = x[:, 0]
     return x, it, res
 
 
 def constrained_solve(L: Callable, Ldiag, bdy_mask, bdy_values, f=None,
-                      max_iter: int = 1000, tol: float = 1e-10, u0=None):
+                      max_iter: int = 1000, tol: float = 1e-10, u0=None,
+                      reduce: Optional[Callable] = None):
     """Solve ``L u = f`` subject to ``u = bdy_values`` on ``bdy_mask`` by
     masked Jacobi-preconditioned CG.
 
     ``L``: SPD operator on (n, m) tensors; ``Ldiag``: its (n,) diagonal;
     ``bdy_mask``: (n,) bool, True at labeled nodes; ``bdy_values``: (n, m);
     ``f``: optional (n, m) right-hand side on interior nodes; ``u0``:
-    optional warm start (only its interior rows are used).
+    optional warm start (only its interior rows are used); ``reduce``:
+    the sum over the ranks of a sharded solve.
     """
     was_1d = bdy_values.dim() == 1
     if was_1d:
@@ -107,7 +125,8 @@ def constrained_solve(L: Callable, Ldiag, bdy_mask, bdy_values, f=None,
     x0 = None
     if u0 is not None:
         x0 = torch.where(interior, u0[:, None] if u0.dim() == 1 else u0, zero)
-    x, iters, res = conjgrad(A, rhs, x0=x0, max_iter=max_iter, tol=tol, M=M)
+    x, iters, res = conjgrad(A, rhs, x0=x0, max_iter=max_iter, tol=tol, M=M,
+                             reduce=reduce)
     u = g_ext + torch.where(interior, x, zero)
     if was_1d:
         u = u[:, 0]

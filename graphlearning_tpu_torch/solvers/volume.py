@@ -21,8 +21,10 @@ held, so the state freezes once the condition fails, and the host reads
 the condition after 1, 2, 4, ... and then every ``_CHECK_EVERY`` steps.
 The results are those of a loop that stops at once, with few host
 synchronisations (the price ascent alone may take 500 steps in each of
-300 MBO iterations).  The sharded path's ``valid`` mask of mesh-padding
-rows is not ported (it comes with the distribution layer).
+300 MBO iterations).  On a sharded solve (``parallel.execute``) the
+PoissonMBO loop takes ``valid``, the mask of real rows (mesh padding
+stays out of the class sizes and the score scaling), and ``reduce``, the
+sum (or max) over the ranks; every rank then reads the same condition.
 """
 
 from __future__ import annotations
@@ -123,19 +125,34 @@ def assign_labels(a, fixed_mask, fixed_labels, lower, upper,
     return labels
 
 
-def projection_weights(scores, weights, priors, dt, *, similarity: bool):
+def _reducer(reduce):
+    return (lambda t, op="sum": t) if reduce is None else reduce
+
+
+def projection_weights(scores, weights, priors, dt, *, similarity: bool,
+                       valid=None, reduce=None):
     """The class-size gradient loop: ``w += dt (class_size(w) - priors)``,
     ``w /= w[0]`` until ``max|grad| <= 1e-3`` or 1e4 steps, the class of
     a node being the argmax (``similarity``) or argmin of ``scores * w``.
-    ``scores`` are normalized to [0, 1] by the caller.  Returns ``(w,
-    err)``, ``err`` a 0-d tensor."""
+    ``scores`` are normalized to [0, 1] by the caller.  ``valid`` leaves
+    rows out of the class sizes; ``reduce`` sums them over the ranks.
+    Returns ``(w, err)``, ``err`` a 0-d tensor."""
     n, k = scores.shape
     pick = torch.argmax if similarity else torch.argmin
+    red = _reducer(reduce)
+    if valid is not None:
+        n = red(torch.sum(valid).to(scores.dtype))
+
+    def class_counts(pred):
+        if valid is None:
+            return red(_counts(pred, k, scores.dtype))
+        pred = torch.where(valid, pred, torch.full_like(pred, k))
+        return red(_counts(pred, k + 1, scores.dtype)[:k])
 
     def body(state):
         w, err, i = state
         pred = pick(scores * w[None, :], dim=1)
-        grad = _counts(pred, k, scores.dtype) / n - priors
+        grad = class_counts(pred) / n - priors
         w = w + dt * grad
         return w / w[0], torch.max(torch.abs(grad)), i + 1
 
@@ -150,30 +167,48 @@ def _onehot(labels, k, dtype):
     return torch.nn.functional.one_hot(labels.long(), k).to(dtype)
 
 
-def poisson_mbo_round(heat_steps, state, priors):
+def poisson_mbo_round(heat_steps, state, priors, valid=None, reduce=None):
     """One PoissonMBO round on a ``(u, w, err)`` state: ``heat_steps``
     ((n, k) -> (n, k)), the scores normalized to [0, 1], the projection
-    weights warm-started from ``w``, and the one-hot threshold."""
+    weights warm-started from ``w``, and the one-hot threshold.  Rows
+    outside ``valid`` stay 0 and out of the scaling and the class sizes;
+    ``reduce`` takes the sums and extremes over the ranks."""
     u, w, err = state
     u = heat_steps(u)
-    s = u - torch.min(u)
-    m = torch.max(s)
+    red = _reducer(reduce)
+    if valid is None:
+        s = u - torch.min(u)
+    else:
+        v = valid[:, None]
+        u = torch.where(v, u, torch.zeros((), dtype=u.dtype,
+                                          device=u.device))
+        inf = torch.full_like(u, float("inf"))
+        umin = -red(-torch.min(torch.where(v, u, inf)), "max")
+        s = torch.where(v, u - umin, torch.zeros_like(u))
+    m = red(torch.max(s), "max")
     s = torch.where(m > 0, s / m, s)
-    w, err = projection_weights(s, w, priors, -0.1, similarity=True)
-    return _onehot(torch.argmax(s * w[None, :], dim=1), u.shape[1],
-                   u.dtype), w, err
+    w, err = projection_weights(s, w, priors, -0.1, similarity=True,
+                                valid=valid, reduce=reduce)
+    oh = _onehot(torch.argmax(s * w[None, :], dim=1), u.shape[1], u.dtype)
+    if valid is not None:
+        oh = torch.where(valid[:, None], oh, torch.zeros_like(oh))
+    return oh, w, err
 
 
-def poisson_mbo_loop(heat_steps, u0, w0, priors, T: int, ckpt=None):
+def poisson_mbo_loop(heat_steps, u0, w0, priors, T: int, ckpt=None,
+                     valid=None, reduce=None):
     """T PoissonMBO rounds (:func:`poisson_mbo_round`) from ``(u0, w0)``;
     the projection weights thread through the rounds.  With ``ckpt =
     (path, every)`` the state is saved every ``every`` rounds and a run
     restarted on ``path`` goes on from its last save
-    (:func:`checkpoint.run_checkpointed`).  Returns ``(u, w, err)``."""
+    (:func:`checkpoint.run_checkpointed`).  ``valid`` and ``reduce``: a
+    sharded loop's (:func:`poisson_mbo_round`).  Returns ``(u, w,
+    err)``."""
     state = (u0, w0, torch.ones((), dtype=u0.dtype, device=u0.device))
 
     def step(state):
-        return poisson_mbo_round(heat_steps, state, priors)
+        return poisson_mbo_round(heat_steps, state, priors, valid=valid,
+                                 reduce=reduce)
 
     if ckpt is not None:
         path, every = ckpt

@@ -1,5 +1,5 @@
 """Semi-supervised learning on graphs (counterpart of
-``graphlearning_tpu/ssl.py`` but for ``ssl.distribute``: Laplace (with its
+``graphlearning_tpu/ssl.py``): Laplace (with its
 reweightings), Poisson (its spectral solver too) and random-walk learning,
 PoissonMBO and VolumeMBO, the eigenbasis models Multiclass MBO and
 Modularity MBO, the centered kernel method, dynamic and sparse label
@@ -15,6 +15,11 @@ matvec goes through the band kernels (:mod:`ops.accel`); otherwise through
 the plain ELL gather (:mod:`ops.graphops`).  ``self.iters`` holds the
 solver's iteration (or sweep) count after a fit.  One-vs-rest models solve
 their C problems together (``_fit_onevsrest``) or one class at a time.
+
+``model.distribute(mesh)`` runs the fits of Laplace, random-walk,
+Poisson (CG and gradient descent) and PoissonMBO on a mesh of ranks
+(:mod:`parallel.execute`); the other families' distributed fits come with
+P15b and raise ``NotImplementedError`` when fitted on a mesh.
 """
 
 from __future__ import annotations
@@ -37,32 +42,37 @@ from graphlearning_tpu_torch.solvers import plaplace as _pl
 from graphlearning_tpu_torch.solvers import volume as _volume
 
 
-def _cg_scaled_solve(g, s, b, c0, c1, tol, max_iter=10**5, x0=None):
-    """CG solve of ``(c0 I - c1 diag(s) W diag(s)) x = b``.  Returns
-    ``(x, iters)``."""
+def _cg_scaled_solve(g, s, b, c0, c1, tol, max_iter=10**5, x0=None,
+                     reduce=None):
+    """CG solve of ``(c0 I - c1 diag(s) W diag(s)) x = b``; ``reduce`` sums
+    over the ranks of a sharded solve.  Returns ``(x, iters)``."""
 
     def A(X):
         return c0 * X - c1 * s[:, None] * _ops.spmm(g, s[:, None] * X)
 
-    x, iters, _ = _cg.conjgrad(A, b, x0=x0, tol=tol, max_iter=max_iter)
+    x, iters, _ = _cg.conjgrad(A, b, x0=x0, tol=tol, max_iter=max_iter,
+                               reduce=reduce)
     return x, iters
 
 
-def _project_out_nlap_kernel(v, deg):
+def _project_out_nlap_kernel(v, deg, reduce=None):
     """Remove the ``D^{1/2} 1`` kernel component of each column.  The
     normalized Laplacian is singular with that kernel, and float32 rounding
     drifts a different multiple of it into each class column, which shifts
     the argmax; projecting it out restores the f64 gauge.  Padding rows
-    (degree 0) contribute nothing."""
+    (degree 0) contribute nothing; ``reduce`` sums over the ranks."""
     q = torch.sqrt(torch.clamp(deg, min=0.0)).to(v.dtype)
-    coef = (q @ v) / torch.sum(q * q)
-    return v - q[:, None] * coef[None, :]
+    num, den = q @ v, torch.sum(q * q)
+    if reduce is not None:
+        num, den = reduce(num), reduce(den)
+    return v - q[:, None] * (num / den)[None, :]
 
 
 def _laplace_constrained(g, tau, mask, bdy, tol, normalization="combinatorial",
-                         order=1, max_iter=10**5, u0=None):
+                         order=1, max_iter=10**5, u0=None, reduce=None):
     """Masked CG solve of ``(tau + L)^order u = 0`` with ``u = bdy`` on
-    ``mask``.  Returns ``(u, iters)``."""
+    ``mask``; ``reduce`` sums over the ranks of a sharded solve.  Returns
+    ``(u, iters)``."""
     deg = _ops.degree_vector(g)
 
     def L(X):
@@ -74,7 +84,8 @@ def _laplace_constrained(g, tau, mask, bdy, tol, normalization="combinatorial",
 
     diag = _ops.laplacian_diag(g, normalization=normalization, deg=deg)
     u, iters, _ = _cg.constrained_solve(L, (tau + diag) ** order, mask, bdy,
-                                        tol=tol, max_iter=max_iter, u0=u0)
+                                        tol=tol, max_iter=max_iter, u0=u0,
+                                        reduce=reduce)
     return u, iters
 
 
@@ -127,6 +138,49 @@ class ssl:
         self.class_priors_error = 1
         self.iters = None
         self.onevsrest = False
+        self._dist = None
+
+    # Families with a sharded fit, or none at all (dynamic label
+    # propagation is dense and capped at n <= 5000: distribute() warns,
+    # and its fits run on one device, as the JAX package's do).
+    _sharded_supported = True
+
+    def distribute(self, mesh="auto", strict=False):
+        """Run this model's fits on a mesh of ranks (:mod:`parallel`):
+        ``mesh`` is a :class:`parallel.mesh.Mesh`, a
+        :class:`config.GLTConfig`, a ``Distributor``, ``"auto"`` (the
+        default config's mesh over the initialized process group, world
+        size 1 without one) or None to undo it.  The fits give the same
+        results as on one device up to the order of float sums.  A model
+        with no sharded path warns (``strict=True`` raises); one whose
+        sharded fit comes with P15b raises when fitted.  Returns self:
+        ``gl.ssl.poisson(W).distribute(cfg).fit_predict(...)``."""
+        if mesh is None:
+            self._dist = None
+        else:
+            if not type(self)._sharded_supported:
+                msg = (f"{type(self).__name__} has no sharded execution "
+                       "path; fits will run single-device despite "
+                       "distribute()")
+                if strict:
+                    raise NotImplementedError(msg)
+                import warnings
+
+                warnings.warn(msg, stacklevel=2)
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            self._dist = _exec.Distributor(mesh)
+        pm = getattr(self, "poisson_model", None)
+        if pm is not None:             # poisson_mbo's initializer model
+            pm._dist = self._dist
+        return self
+
+    def _dist_gap(self, all_labels=None):
+        """What of this fit has no sharded path yet (None: it has one, or
+        the model has none at all)."""
+        if not type(self)._sharded_supported:
+            return None
+        return f"the sharded {type(self).__name__} fit"
 
     def set_graph(self, W):
         if isinstance(W, _graphmod.graph):
@@ -202,7 +256,8 @@ class ssl:
         trainsets = [np.asarray(t) for t in trainsets]
         sizes = {len(t) for t in trainsets}
         if (len(sizes) == 1 and self.class_priors is None
-                and not self.onevsrest and hasattr(self, "_fit_batched")):
+                and not self.onevsrest and hasattr(self, "_fit_batched")
+                and self._dist is None):
             preds = self._fit_batched(np.stack(trainsets), labels)
             self.fitted = True
             return [np.asarray(p) for p in preds]
@@ -255,6 +310,12 @@ class ssl:
         self._ckpt = ((os.path.abspath(checkpoint_path),
                        int(checkpoint_every))
                       if checkpoint_path else None)
+        if self._dist is not None:
+            gap = self._dist_gap(all_labels)
+            if gap is not None:
+                raise NotImplementedError(
+                    f"{type(self).__name__}.fit on a mesh: {gap} comes with "
+                    "P15b")
         train_ind = np.asarray(train_ind)
         train_labels = np.asarray(train_labels)
         self.fitted = True
@@ -295,7 +356,8 @@ class ssl:
         if self.graph is None:
             raise RuntimeError("SSL object has no graph. Use set_graph().")
         dev = self.graph.device
-        if self.onevsrest or self.class_priors is not None:
+        if (self.onevsrest or self.class_priors is not None
+                or self._dist is not None):
             return torch.as_tensor(self.fit(train_ind, train_labels),
                                    device=dev)
         self._ckpt = None
@@ -532,6 +594,17 @@ class laplace(ssl):
         mask_t = torch.as_tensor(mask, device=dev)
         u0 = self._warm_start(n, k, dev, dtype)
 
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            u, self.iters = _exec.laplace_fit_sharded(
+                self._dist, G.weight_matrix, mask, bdy, tau, self.tol,
+                self.normalization, self.order,
+                u0=None if u0 is None else u0.cpu().numpy())
+            if self.mean_shift:
+                u = u - np.mean(u, axis=0)
+            return u
+
         # a reweighted graph's accel rides on its own W, not on the model
         acc = _accel.maybe_build(
             G.weight_matrix,
@@ -556,6 +629,9 @@ class laplace(ssl):
         if self.mean_shift:
             u = u - torch.mean(u, dim=0)
         return u
+
+    def _dist_gap(self, all_labels=None):
+        return None
 
     def _fit_batched(self, trainsets, labels):
         """The trials' predicted labels by :meth:`_solve_batched` (the
@@ -619,6 +695,9 @@ class randomwalk(ssl):
         self.name = "Random Walk"
         self.accuracy_filename = "_randomwalk"
 
+    def _dist_gap(self, all_labels=None):
+        return None
+
     def _fit(self, train_ind, train_labels, all_labels=None):
         G = self.graph
         dev = G.device
@@ -626,6 +705,12 @@ class randomwalk(ssl):
         k = len(np.unique(train_labels))
         F = np.zeros((n, k))
         F[train_ind] = utils.labels_to_onehot(train_labels, k)
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            u, self.iters = _exec.randomwalk_fit_sharded(
+                self._dist, G.weight_matrix, F, self.alpha, self.tau)
+            return u
         g = G.sparse
         s = 1.0 / torch.sqrt(_ops.degree_vector(g))
         F_t = torch.as_tensor(F, device=dev).to(config.float_dtype(dev))
@@ -672,6 +757,11 @@ class poisson(ssl):
             self.requires_eig = True
         self.accuracy_filename = fname
 
+    def _dist_gap(self, all_labels=None):
+        if self.solver == "spectral":
+            return "the sharded spectral solver (the sharded eigensolvers)"
+        return None
+
     def _fit(self, train_ind, train_labels, all_labels=None):
         n = self.graph.num_nodes
         dev = self.graph.device
@@ -683,6 +773,20 @@ class poisson(ssl):
         onehot = utils.labels_to_onehot(train_labels, k)
         source = np.zeros((n, k))
         source[train_ind] = onehot - np.mean(onehot, axis=0)
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            if self.solver == "conjugate_gradient":
+                warm = getattr(self, "_warm_u", None)
+                if warm is not None and np.shape(warm) != (n, k):
+                    warm = None
+                u, self.iters = _exec.poisson_cg_fit_sharded(
+                    self._dist, W, source, self.tol, u0=warm)
+            else:
+                u, self.iters = _exec.poisson_gd_fit_sharded(
+                    self._dist, W, source, train_ind, self.min_iter,
+                    self.max_iter)
+            return u
         b = torch.as_tensor(source, device=dev).to(dtype)
         deg = _ops.degree_vector(g)
 
@@ -843,6 +947,14 @@ class poisson_mbo(ssl):
         self.accuracy_filename = fname
         self.name = "Poisson MBO"
 
+    def _dist_gap(self, all_labels=None):
+        gap = self.poisson_model._dist_gap()
+        if gap is None and all_labels is not None:
+            gap = "the sharded rounds with all_labels (each round's accuracy)"
+        if gap is None and getattr(self, "_ckpt", None) is not None:
+            gap = "a checkpointed sharded fit"
+        return gap
+
     def _fit(self, train_ind, train_labels, all_labels=None):
         n = self.graph.num_nodes
         dev = self.graph.device
@@ -861,6 +973,16 @@ class poisson_mbo(ssl):
         Db = as_t(self.mu * dt * source)
         if isinstance(self.weights, int):
             self.weights = np.ones((k,))
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            u, w, err = _exec.poisson_mbo_fit_sharded(
+                self._dist, W, self.mu * dt * source,
+                utils.labels_to_onehot(labels, k), self.weights,
+                self.class_priors, dt, self.Ns, self.T)
+            self.weights = w.astype(float)
+            self.class_priors_error = err
+            return u
         # the bf16 band (K2 bf16) or the gather with its "auto" table
         acc = _accel.maybe_build(W, cache_obj=self, attr="_accel_mbo",
                                  device=dev, mode="bf16")
@@ -1363,6 +1485,8 @@ class dynamic_label_propagation(ssl):
     the fit prints so and returns zeros, as the JAX package does.  The
     parameters are the JAX package's, in its order, with ``device`` last.
     With ``all_labels`` the fit prints each round's accuracy."""
+
+    _sharded_supported = False
 
     def __init__(self, W=None, class_priors=None, alpha=0.05, lam=0.1, T=2,
                  device=None):

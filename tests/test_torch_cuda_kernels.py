@@ -1563,3 +1563,85 @@ def test_cuda_vae_replay_matches_the_cpu(cuda_device):
     (Zg, lg), (Zc, lc) = out["cuda"], out["cpu"]
     np.testing.assert_allclose(Zg, Zc, rtol=0, atol=1e-4 * np.abs(Zc).max())
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
+
+
+# -- the distribution layer (P15a) ---------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 4])
+def test_cuda_k3_on_halo_extended_partition_blocks(cuda_device, P):
+    """K1 builds each block of the partitioned band (its twin's band to
+    1e-6 of max|band|: one rounding of the same f32 sums), and K3 runs over
+    the block's halo-extended X (its neighbours' boundary rows wrapped as
+    the ring does), against its twin and, with the residual edges, the
+    rows of the plain product (TOL: f32 sums in other orders)."""
+    from graphlearning_tpu_torch.parallel.band_shard import (
+        build_band_partition)
+
+    W = _knn_csr(3000, 10, seed=5)
+    perm = np.asarray(reverse_cuthill_mckee(W, symmetric_mode=True))
+    Wp = W[perm][:, perm].tocsr().tolil()
+    Wp[0, 2999] = Wp[2999, 0] = 0.5         # beyond a halo of B / 2
+    Wp = Wp.tocsr()
+    part = build_band_partition(Wp, P, R=128, WT=64, max_halo_frac=0.5,
+                                device=cuda_device)
+    twin = build_band_partition(Wp, P, R=128, WT=64, max_halo_frac=0.5,
+                                device="cpu", band_dtype=torch.float32)
+    assert len(part.res_rows) == 2
+    gen = torch.Generator(device="cuda").manual_seed(P)
+    X = torch.randn((part.n_pad, 2), generator=gen, device=cuda_device)
+    X[3000:] = 0.0
+    B, H = part.B, part.H
+    out = torch.zeros_like(X)
+    for p in range(P):
+        _close(part.bands[p].cpu(), twin.bands[p], torch.float32)
+        rows = (torch.arange(B + 2 * H, device=cuda_device) + p * B - H) \
+            % part.n_pad
+        plan = part.tiles_plan(p, cuda_device)
+        before = bs.band_tiles_spmm.launches
+        o = bs.band_tiles_spmm(part.bands[p], plan, X[rows])
+        assert bs.band_tiles_spmm.launches == before + 1
+        _close(o, bs._tiles_spmm_plain(part.bands[p], plan, X[rows]),
+               torch.float32)
+        out[p * B:(p + 1) * B] = o
+    out = out.cpu().double().numpy()
+    Xh = X.cpu().double().numpy()
+    np.add.at(out, part.res_rows, part.res_vals[:, None] * Xh[part.res_cols])
+    ref = Wp @ Xh[:3000]
+    np.testing.assert_allclose(out[:3000], ref, rtol=0,
+                               atol=TOL[torch.float32] * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+def test_cuda_world_size_one_nccl_laplace_fit(cuda_device, tmp_path,
+                                              monkeypatch):
+    """A Laplace fit on the partitioned band (K1, then K3 over the halo
+    that wraps to the rank itself) in a one-rank NCCL group: K3 once per
+    product (the CG steps and 2), the plain single-device fit's
+    predictions on >= 0.99 of the nodes, its iterations within 1 %."""
+    import torch.distributed as dist
+
+    import graphlearning_tpu_torch as gl
+
+    W = _knn_csr(16384, 10, seed=7)
+    y = (W._glt_points[:, 0] > 0.5).astype(int)
+    ti = gl.trainsets.generate(y, rate=5, seed=0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        bs.reset_launches()
+        m = gl.ssl.laplace(W, device=cuda_device).distribute(
+            gl.GLTConfig(sharded_kernel="banded"))
+        pred = m.fit_predict(ti, y[ti])
+        torch.cuda.synchronize()
+        assert m._dist.mesh.size == 1 and m._dist.route == "banded"
+        assert bs.materialize_band_tiles.launches == 1
+        assert bs.band_tiles_spmm.launches == m.iters + 2
+    finally:
+        dist.destroy_process_group()
+    monkeypatch.setenv("GLT_NO_ACCEL", "1")
+    ref = gl.ssl.laplace(W, device=cuda_device)
+    ref_pred = ref.fit_predict(ti, y[ti])
+    assert np.mean(pred == ref_pred) >= 0.99
+    assert abs(m.iters - ref.iters) <= 0.01 * ref.iters
