@@ -124,16 +124,23 @@ Phases (any failure exits non-zero before the result line):
    the moons graph, ``hostpath.laplace_host`` against a Laplace fit; a
    band Laplace fit inside ``observability.trace`` (K2 launched, the
    trace written) and timed by ``Timer`` and by CUDA events;
-4h. the distribution layer (P15a) on a one-rank NCCL group: the moons
-   graph's Laplace, Poisson CG and GD, random-walk and PoissonMBO fits
-   through ``distribute(GLTConfig(sharded_kernel="banded"))``, each twice
-   (the first builds the operator: RCM, the partition, K1), with its
-   route, iterations and K3 launches (one a product), held to the JAX
+4h. the distribution layer (P15a, P15b) on a one-rank NCCL group: the
+   moons graph's Laplace, Poisson CG and GD, random-walk and PoissonMBO
+   fits through ``distribute(GLTConfig(sharded_kernel="banded"))``, each
+   twice (the first builds the operator: RCM, the partition, K1), with
+   its route, iterations and K3 launches (one a product), held to the JAX
    package's float32 accuracy less a point, to the plain fit (0.99; GD's
    steps within 1 %) and to its K3 count; Laplace on the "gspmd" (ELL)
-   route; then the graph's P=4 partition in one process, K1 and K3 (d=2,
-   over each block's halo-extended X, wrapped as the ring does) against
-   their twins and the blocks plus the residual against ``W @ X``;
+   route; then graph NN, p-Laplace, AMLE, p-eikonal, VolumeMBO (at
+   temperature 0, and 0.1 with seed 0's noise), the eigenbasis models, the centered kernel, sparse LP,
+   ``clustering.spectral``, ``clustering.incres``, the sharded Dijkstra
+   and ``spectral_covariance`` the same way, each beside its plain
+   one-device fit and held to its K3, K7 and K9 launches
+   (``p15b_launches``); then the graph's P=4 partition in one process:
+   K1, K3 (d=2), K7 (argmin, reciprocal, Hopf-Lax) and K9 (C in {2, 10})
+   over each block's halo-extended input, wrapped as the ring does,
+   against their twins, and the blocks plus the residual against ``W @
+   X`` and the one-device K7 and K9 rounds on the ELL;
 5. the rectangular route: the same graph under ``GLT_NO_BAND=1``
    (Laplace and Poisson on the unstored band, K6; ``graph.dijkstra`` on
    the plain path), then ``AccelSpMM(W, materialize=True)`` (K4 band; the
@@ -3666,6 +3673,248 @@ def dist_k3_launches(name, m):
     return m.poisson_model.iters + 1 + m.T * m.Ns
 
 
+# Phase 4h (P15b): every other family through ``distribute`` on the banded
+# route in the same one-rank NCCL group, then K7 and K9 over the P=4
+# partition's halos.  Each fit is held to its JAX float32 accuracy
+# (REFERENCE_ACCURACY, MBO_REFERENCE; the eigenbasis models, the centered
+# kernel and INCRES to P10B_REFERENCE's moons targets less P10B_MARGIN;
+# spectral clustering to eigsh's accuracy, EIG_REFERENCE), to its plain
+# one-device fit (DIST_AGREEMENT, graph NN DIST_NN_AGREEMENT, the
+# eigenbasis models and INCRES P10B_AGREEMENT's bounds: unconverged
+# solves, the walk's f32 sums on the band), and its K3, K7 and K9
+# launches to
+# ``p15b_launches``.  Sparse LP, one edge slice at world size 1, sums as
+# the one-device fit does: bit-equal.
+DIST_P15B_FITS = {
+    "graph_nn": lambda gl, W, priors: FITS["graph_nn"](gl, W),
+    "plaplace": lambda gl, W, priors: FITS["plaplace"](gl, W),
+    "amle": lambda gl, W, priors: FITS["amle"](gl, W),
+    "peikonal": lambda gl, W, priors: FITS["peikonal"](gl, W),
+    "volume_mbo": lambda gl, W, priors: MBO_FITS["volume_mbo"](
+        gl, W, priors, None),
+    # the Gumbel noise of seed 0, drawn alike on every rank and one device
+    "volume_mbo_t0.1": lambda gl, W, priors: MBO_FITS["volume_mbo_t0.1"](
+        gl, W, priors, None),
+    **{name: (lambda gl, W, priors, make=make: make(gl, W, priors))
+       for name, make in P10B_FITS.items()},
+    "sparse_lp": lambda gl, W, priors: gl.ssl.sparse_label_propagation(W),
+}
+DIST_NN_AGREEMENT = 0.999
+DIST_COV_K = 20           # spectral_covariance of a distributed Laplace
+DIST_COV_TOL = 2e-5       # its eigenvalues against the one-device solve's
+HALO_SUM_TOL = 1e-6       # K9's sums over a halo block against its twin
+
+
+def p15b_target(name):
+    """``(target, margin)`` of a P15b fit's accuracy (%)."""
+    if name in REFERENCE_ACCURACY:
+        return REFERENCE_ACCURACY[name], ACCURACY_MARGIN
+    if name in MBO_REFERENCE:
+        return MBO_REFERENCE[name], MBO_MARGIN.get(name, ACCURACY_MARGIN)
+    ref = P10B_REFERENCE["moons"]
+    return (ref.get(f"{name}_eigsh", ref.get(name)),
+            P10B_MARGIN["moons"].get(name, ACCURACY_MARGIN))
+
+
+def lobpcg_total(m, K, steps):
+    """K3's launches of one sharded LOBPCG solve of model ``m``
+    (``lobpcg_launches`` on the power of its mesh's dtype, 8 in float32),
+    0 when the operator kept the pairs (``steps`` 0)."""
+    from graphlearning_tpu_torch.solvers import eig
+
+    p = eig._default_power(m._dist._dtype())
+    return sum(lobpcg_launches(K, steps, p).values()) if steps else 0
+
+
+def guarded(gl, n, k):
+    """The vectors a sharded solve of ``k`` pairs runs (the guard ones
+    too, ``parallel.execute._guard``)."""
+    from graphlearning_tpu_torch.parallel import execute
+
+    return k + execute._guard(n, k)
+
+
+def p15b_launches(gl, name, m, n):
+    """``{kernel: launches}`` of one P15b fit on the banded route, from the
+    code: K7 one a Bellman-Ford round (graph NN, the Lipschitz fits' and
+    VolumeMBO's Voronoi starts), K9 one a Lipschitz Jacobi round (C = 2,
+    one column block), K3 one a product of d <= 128 (VolumeMBO's dual
+    convolution two an iteration; PoissonMBO's 800 heat steps; LOBPCG as
+    ``lobpcg_total``, the modularity shift's 101 power
+    steps before it; the centered kernel's 101 power steps and a product
+    a fixed-point call of ``_while``; INCRES's grow calls).  p-eikonal
+    and sparse LP launch none (the halo gather, the edge list)."""
+    zero = {"band_tiles_minplus": 0, "band_tiles_lip": 0,
+            "band_tiles_spmm": 0}
+    if name == "graph_nn":
+        return dict(zero, band_tiles_minplus=m.iters)
+    if name in ("plaplace", "amle"):
+        return dict(zero, band_tiles_minplus=m.info["voronoi_iters"],
+                    band_tiles_lip=m.iters)
+    if name.startswith("volume_mbo"):
+        return dict(zero, band_tiles_minplus=m.voronoi_info["iters"],
+                    band_tiles_spmm=2 * m.iters)
+    if name == "poisson_spectral":
+        return dict(zero, band_tiles_spmm=lobpcg_total(
+            m, guarded(gl, n, m.spectral_cutoff + 1), m.iters))
+    if name == "poisson_mbo_spectral":
+        pm = m.poisson_model
+        return dict(zero, band_tiles_spmm=m.T * m.Ns + lobpcg_total(
+            pm, guarded(gl, n, pm.spectral_cutoff + 1), pm.iters))
+    if name == "multiclass_mbo":
+        return dict(zero, band_tiles_spmm=lobpcg_total(
+            m, guarded(gl, n, m.num_eig), m.iters))
+    if name == "modularity_mbo":
+        return dict(zero, band_tiles_spmm=(101 + lobpcg_total(
+            m, guarded(gl, n, 5 * 2), m.iters)) if m.iters else 0)
+    if name == "centered_kernel":
+        return dict(zero, band_tiles_spmm=m.power_it + 1
+                    + while_calls(m.iters))
+    if name == "spectral":
+        return dict(zero, band_tiles_spmm=lobpcg_total(
+            m, guarded(gl, n, m.num_clusters + m.extra_dim), m.iters))
+    if name == "incres":
+        return dict(zero, band_tiles_spmm=sum(while_calls(s)
+                                              for s in m.steps))
+    return zero
+
+
+def p15b_fits(torch, gl, bs, W, labels, ti):
+    """The P15b families on a one-rank NCCL group (already joined), on the
+    banded route, each against its plain one-device fit; then the
+    sharded Dijkstra distances and ``spectral_covariance`` of a
+    distributed Laplace model.  Returns the launches of K3, K7 and K9 in
+    these fits."""
+    priors = gl.utils.class_priors(labels)
+    n = W.shape[0]
+    plain = {}
+    with env("GLT_NO_ACCEL", "1"):
+        for name, make in DIST_P15B_FITS.items():
+            m = make(gl, W, priors)
+            pred, accuracy, secs = dist_fit(torch, gl, name, m, labels, ti)
+            say(f"  plain/{name}: {secs:.3f} s, accuracy {accuracy:.4f} %")
+            plain[name] = (pred, m)
+        for name, make in (("spectral", lambda: gl.clustering.spectral(W, 2)),
+                           ("incres", lambda: gl.clustering.incres(
+                               W, 2, seed=0))):
+            m = make()
+            t = time.perf_counter()
+            pred = m.fit_predict()
+            torch.cuda.synchronize()
+            say(f"  plain/{name}: {time.perf_counter() - t:.3f} s, accuracy "
+                f"{gl.clustering.clustering_accuracy(pred, labels):.4f} %")
+            plain[name] = (pred, m)
+        G = gl.graph(W)
+        plain_d = G.dijkstra(ti, bdy_val=0, return_cp=True)
+        plain_cov = gl.active_learning.spectral_covariance(
+            gl.ssl.laplace(W), k=DIST_COV_K)
+    cfg = gl.GLTConfig(sharded_kernel="banded")
+    counted = ("band_tiles_minplus", "band_tiles_lip", "band_tiles_spmm")
+    total = dict.fromkeys(counted, 0)
+
+    def run(label, name, fit, m):
+        before = bs.launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred = fit()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = {k: bs.launches()[k] - before[k] for k in counted}
+        want = p15b_launches(gl, name, m, n)
+        route = m._dist.route
+        say(f"  {label}: {secs:.3f} s, route {route}, "
+            f"{getattr(m, 'iters', None)} iterations, K3 "
+            f"{got['band_tiles_spmm']}, K7 "
+            f"{got['band_tiles_minplus']}, K9 {got['band_tiles_lip']}")
+        if name != "sparse_lp" and route != "banded":
+            raise SmokeFailure(f"{label} took the {route} route")
+        if got != want:
+            raise SmokeFailure(f"{label}: launches {got}, not {want}")
+        for k in counted:
+            total[k] += got[k]
+        return pred
+
+    for name, make in DIST_P15B_FITS.items():
+        label = f"banded/{name}"
+        m = make(gl, W, priors).distribute(cfg)
+        pred = run(label, name, lambda: m.fit_predict(ti, labels[ti]), m)
+        accuracy = gl.ssl.ssl_accuracy(pred, labels, ti)
+        if name == "sparse_lp":
+            diff = float(np.abs(m.prob - plain[name][1].prob).max())
+            say(f"  {label}: accuracy {accuracy:.4f} %, max |u - plain u| "
+                f"{diff:.3e}")
+            if diff != 0.0:
+                raise SmokeFailure(f"{label}: not bit-equal to the plain "
+                                   "fit at world size 1")
+            continue
+        target, margin = p15b_target(name)
+        check_target(label, accuracy, target, margin)
+        limit = (DIST_NN_AGREEMENT if name == "graph_nn"
+                 else P10B_AGREEMENT["moons"].get(name, DIST_AGREEMENT))
+        check_agreement(label, pred, plain[name][0], limit)
+    for name, make in (("spectral", lambda: gl.clustering.spectral(W, 2)),
+                       ("incres", lambda: gl.clustering.incres(W, 2,
+                                                               seed=0))):
+        label = f"banded/{name}"
+        m = make().distribute(cfg)
+        pred = run(label, name, m.fit_predict, m)
+        accuracy = gl.clustering.clustering_accuracy(pred, labels)
+        if name == "spectral":
+            check_target(label, accuracy,
+                         EIG_REFERENCE["moons"]["eigsh_accuracy"])
+            limit = EIG_AGREEMENT["moons"]
+        else:
+            # the one-device fit's draws: agreement as the band's (4d)
+            say(f"  {label}: {sum(m.steps)} grow steps in {len(m.steps)} "
+                f"rounds (plain {sum(plain[name][1].steps)})")
+            target, margin = p15b_target("incres")
+            check_target(label, accuracy, target, margin)
+            limit = P10B_AGREEMENT["moons"]["incres"]
+        agree = gl.clustering.clustering_accuracy(pred,
+                                                  plain[name][0]) / 100.0
+        say(f"  {label} agrees with the plain path on {agree:.4f} (up to a "
+            "permutation)")
+        if agree < limit:
+            raise SmokeFailure(f"{label}: agreement {agree:.4f} < {limit}")
+
+    from graphlearning_tpu_torch.parallel import execute
+
+    dist = execute.Distributor(cfg)
+    before = bs.launches()["band_tiles_minplus"]
+    d, cp, rounds = execute.dijkstra_fit_sharded(dist, W, ti, 0, 1,
+                                                 return_cp=True)
+    got = bs.launches()["band_tiles_minplus"] - before
+    total["band_tiles_minplus"] += got
+    say(f"  banded/dijkstra: {rounds} rounds, K7 {got}")
+    if got != rounds:
+        raise SmokeFailure(f"banded/dijkstra: K7 {got} != {rounds} rounds")
+    diff = check_distances("banded/dijkstra", (d, cp), plain_d, G)
+    say(f"  banded/dijkstra: distances within 1e-5 relative of the "
+        f"one-device fit, {diff} closest points differ (as close)")
+
+    m = gl.ssl.laplace(W).distribute(cfg)
+    before = bs.launches()["band_tiles_spmm"]
+    t = time.perf_counter()
+    C0, V = gl.active_learning.spectral_covariance(m, k=DIST_COV_K)
+    secs = time.perf_counter() - t
+    op = m._dist.operator(W)[0]
+    steps = op._eig_memo[("normalized", DIST_COV_K, 0.0, 0)][2]
+    got = bs.launches()["band_tiles_spmm"] - before
+    total["band_tiles_spmm"] += got
+    want = lobpcg_total(m, guarded(gl, n, DIST_COV_K), steps)
+    err = float(np.abs(np.diag(C0) ** -1 - np.diag(plain_cov[0]) ** -1)
+                .max())
+    say(f"  banded/spectral_covariance(k={DIST_COV_K}): {secs:.3f} s, "
+        f"{steps} LOBPCG steps, K3 {got}, eigenvalues within {err:.3e} of "
+        "the one-device solve")
+    if got != want:
+        raise SmokeFailure(f"spectral_covariance: K3 {got}, not {want}")
+    if err > DIST_COV_TOL:
+        raise SmokeFailure(f"spectral_covariance: eigenvalues {err:.3e} "
+                           f"off the one-device solve's")
+    return total
+
+
 def dist_fit(torch, gl, label, m, labels, ti):
     """One timed ``fit_predict`` of phase 4h: ``(pred, accuracy, s)``."""
     torch.cuda.synchronize()
@@ -3678,8 +3927,9 @@ def dist_fit(torch, gl, label, m, labels, ti):
 
 
 def dist_fits(torch, gl, bs, W, labels, ti):
-    """The banded and the ELL route on a one-rank NCCL group: returns the
-    launches of K1 and K3 in the banded fits."""
+    """The banded and the ELL route on a one-rank NCCL group, then the
+    P15b families (:func:`p15b_fits`): returns the launches of K1 and K3
+    in the P15a banded fits, and of K3, K7 and K9 in the P15b fits."""
     import tempfile
 
     import torch.distributed as dist
@@ -3759,17 +4009,19 @@ def dist_fits(torch, gl, bs, W, labels, ti):
                                        "route")
                 check_agreement(label, pred, plain["laplace"][0],
                                 DIST_AGREEMENT)
+            say("== phase 4h: the P15b families, banded, one rank")
+            p15b = p15b_fits(torch, gl, bs, W, labels, ti)
         finally:
             dist.destroy_process_group()
-    return launches
+    return launches, p15b
 
 
-def partition_entries(torch, bs, W, launches):
+def partition_entries(torch, bs, W, launches, p15b):
     """The P=4 partition of the RCM-ordered moons graph in one process:
     K1 and K3 (d=2, over each block's halo-extended X, wrapped as the
     ring does) against their twins, the blocks' products with the
     residual edges against the plain product; the kernels' entries on the
-    block with the most tiles."""
+    block with the most tiles; then K7 and K9 (:func:`halo_entries`)."""
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
@@ -3834,19 +4086,148 @@ def partition_entries(torch, bs, W, launches):
     k3 = spmm_entry(torch, bs, "band_tiles_spmm", "sharded halo d=2",
                     part.bands[big], part.tiles_plan(big, "cuda"), Xloc,
                     lambda: torch.sparse.mm(csr, Xloc))
-    k3["launches"] = launches["band_tiles_spmm"]
-    return [k1, k3]
+    # the products of phase 4h's fits, P15a's and P15b's
+    k3["launches"] = launches["band_tiles_spmm"] + p15b["band_tiles_spmm"]
+    return [k1, k3] + halo_entries(torch, bs, part, Wp, big, csr, p15b)
+
+
+def halo_entries(torch, bs, part, Wp, big, csr, p15b):
+    """K7 (the argmin, reciprocal and Hopf-Lax rounds) and K9 (C = 2 and
+    10) on each block of the partition over its halo-extended d, f and U
+    (wrapped as the ring does), against their twins: min and argmin
+    equal, K9's sums within HALO_SUM_TOL of max|ref| and its min and max
+    equal; the blocks' rounds with the residual edges against the
+    one-device round on the ELL; the entries on the block with the most
+    tiles, their launches those of the P15b fits (``p15b``)."""
+    from graphlearning_tpu_torch.core.sparse import SparseGraph
+
+    n, B, H, n_pad = part.n, part.B, part.H, part.n_pad
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    d = torch.rand(n_pad, generator=gen, device="cuda") * 3.0
+    f = torch.rand(n_pad, generator=gen, device="cuda") + 0.5
+    U = torch.randn((n_pad, 10), generator=gen, device="cuda")
+    for t in (d, f, U):
+        t[n:] = 0.0
+    spill = bs.residual_to_device(
+        (np.zeros(0, np.int64), np.zeros((0, 1), np.int64),
+         np.zeros((0, 1)), part.res_rows, part.res_cols, part.res_vals),
+        "cuda", torch.float32)
+    cols, vals, deg = SparseGraph.ell_from_scipy(Wp)
+    cols = torch.as_tensor(cols.astype(np.int64), device="cuda")
+    vals = torch.as_tensor(vals, device="cuda").float()
+    mask = torch.arange(cols.shape[1], device="cuda")[None, :] < \
+        torch.as_tensor(deg, device="cuda")[:, None]
+    plans, chunks, rows_of = [], [], []
+    for p in range(DIST_P):
+        plans.append(part.tiles_plan(p, "cuda"))
+        chunks.append(bs.tiles_live_chunks(part.bands[p], plans[p]))
+        rows_of.append((torch.arange(B + 2 * H, device="cuda") + p * B - H)
+                       % n_pad)
+    for hopf, recip in ((False, False), (False, True), (True, False)):
+        best = torch.full((n_pad,), bs.MINPLUS_BIG, device="cuda")
+        arg = torch.full((n_pad,), -1, dtype=torch.int32, device="cuda")
+        for p in range(DIST_P):
+            r = rows_of[p]
+            m, a = bs.band_tiles_minplus(part.bands[p], plans[p], d[r], f[r],
+                                         hopf_lax=hopf, track_arg=True,
+                                         recip=recip, chunks=chunks[p])
+            rm, ra = bs._tiles_minplus_plain(part.bands[p], plans[p], d[r],
+                                             f[r], hopf, True, recip)
+            if not (torch.equal(m, rm) and torch.equal(a, ra)):
+                raise SmokeFailure(f"K7 block {p} (hopf_lax={hopf}, "
+                                   f"recip={recip}) differs from its twin")
+            best[p * B:(p + 1) * B] = m
+            arg[p * B:(p + 1) * B] = torch.where(
+                a >= 0, ((a.long() + p * B - H) % n_pad).int(), -1)
+        m_r, a_r = bs.residual_minplus(d, f, spill, hopf_lax=hopf,
+                                       track_arg=True, recip=recip)
+        better = m_r < best
+        best = torch.where(better, m_r, best)[:n]
+        arg = torch.where(better, a_r, arg)[:n]
+        w = torch.where(vals > 0, 1.0 / torch.where(vals == 0, 1.0, vals),
+                        0.0) if recip else vals
+        dn, fn = d[cols], f[cols]
+        if hopf:
+            fw = w * fn
+            cand = 0.5 * (fw + torch.sqrt(fw * fw + 4.0 * dn * dn))
+        else:
+            cand = dn + w * fn
+        cand = torch.where(mask & (w > 0), cand, bs.MINPLUS_BIG)
+        ref, slot = torch.min(cand, dim=1)
+        ref_arg = torch.gather(cols, 1, slot[:, None])[:, 0].int()
+        if not (torch.equal(best, ref) and torch.equal(arg, ref_arg)):
+            raise SmokeFailure(f"K7's blocks and residual (hopf_lax={hopf}, "
+                               f"recip={recip}) differ from the ELL round")
+        say(f"  K7 over the {DIST_P} blocks' halos (hopf_lax={hopf}, "
+            f"recip={recip}): min and argmin equal to the twins and, with "
+            "the residual, to the one-device ELL round")
+    for C in (2, 10):
+        Uc = U[:, :C].contiguous()
+        sums = torch.zeros((n_pad, C), device="cuda")
+        mins, maxs = torch.zeros_like(sums), torch.zeros_like(sums)
+        for p in range(DIST_P):
+            Ur = Uc[rows_of[p]].contiguous()
+            out = bs.band_tiles_lip(part.bands[p], plans[p], Ur, chunks[p])
+            ref = bs._tiles_lip_plain(part.bands[p], plans[p], Ur)
+            compare(f"K9 block {p} C={C} sums", out[0], ref[0],
+                    HALO_SUM_TOL)
+            if not (torch.equal(out[1], ref[1])
+                    and torch.equal(out[2], ref[2])):
+                raise SmokeFailure(f"K9 block {p} C={C}: min or max "
+                                   "differs from its twin")
+            sl = slice(p * B, (p + 1) * B)
+            sums[sl], mins[sl], maxs[sl] = out
+        s_r, mn_r, mx_r = bs.residual_lip(Uc, spill, n_pad)
+        un = Uc[cols]
+        m3 = mask[:, :, None]
+        compare(f"K9's blocks and residual C={C} sums against W @ U",
+                (sums + s_r)[:n].cpu(),
+                torch.as_tensor(Wp @ Uc.double().cpu().numpy()[:n]),
+                TOL["float32"])
+        if not (torch.equal(torch.minimum(mins, mn_r)[:n], torch.amin(
+                torch.where(m3, un, bs.LIP_BIG), dim=1))
+                and torch.equal(torch.maximum(maxs, mx_r)[:n], torch.amax(
+                    torch.where(m3, un, -bs.LIP_BIG), dim=1))):
+            raise SmokeFailure(f"K9's blocks and residual C={C}: min or max "
+                               "differs from the ELL round")
+        say(f"  K9 over the blocks' halos C={C}: min and max equal to the "
+            "twins and the ELL round")
+
+    band, plan, r = part.bands[big], plans[big], rows_of[big]
+    lchunks, list_ms = list_build_ms(torch, bs, band, plan,
+                                     f"partition block {big}")
+    sl = slice(big * B, (big + 1) * B)
+    lc, bv = part.lcols[sl], part.band_vals[sl]
+    keep = bv != 0
+    coo = (torch.as_tensor(np.nonzero(keep)[0].astype(np.int64),
+                           device="cuda"),
+           torch.as_tensor(lc[keep].astype(np.int64), device="cuda"),
+           torch.as_tensor(bv[keep], device="cuda").float())
+    d_ext, f_ext = d[r].contiguous(), f[r].contiguous()
+    k7 = k7_entry(torch, bs, "partition halo argmin", band, plan, lchunks,
+                  d_ext, f_ext, False, False, True, coo=coo,
+                  list_ms=list_ms)
+    k7["launches"] = p15b["band_tiles_minplus"]
+    out = [k7]
+    for C in (2, 10):
+        k9 = k9_entry(torch, bs, f"partition halo C={C}", band, plan,
+                      lchunks, U[r][:, :C].contiguous(), csr=csr,
+                      list_ms=list_ms)
+        k9["launches"] = p15b["band_tiles_lip"]
+        out.append(k9)
+    return out
 
 
 def dist_phase(torch, gl, bs, W, labels, ti):
-    """Phase 4h: the sharded fits (P15a) on a one-rank NCCL group, then
-    the P=4 partition's kernels.  Returns the K1 and K3 entries."""
+    """Phase 4h: the sharded fits (P15a, P15b) on a one-rank NCCL group,
+    then the P=4 partition's kernels.  Returns the K1, K3, K7 and K9
+    entries."""
     t0 = time.perf_counter()
     say("== phase 4h: sharded fits on a one-rank NCCL group (the moons, "
         "n=65536)")
-    launches = dist_fits(torch, gl, bs, W, labels, ti)
+    launches, p15b = dist_fits(torch, gl, bs, W, labels, ti)
     say(f"== phase 4h: the P={DIST_P} partition's kernels, one process")
-    entries = partition_entries(torch, bs, W, launches)
+    entries = partition_entries(torch, bs, W, launches, p15b)
     say(f"== phase 4h: {time.perf_counter() - t0:.1f} s")
     return entries
 

@@ -122,12 +122,19 @@ def spectral_covariance(model_or_graph, k=20, tau=0.11,
     on the band or the gather where ``ops.accel.maybe_build`` takes one):
     ``var_opt(*spectral_covariance(model))``.  Takes an SSL model, a
     ``graph`` or a weight matrix (its graph on ``device``).  Returns numpy.
-    A distributed model is not ported (P15b)."""
+    A distributed model (``model.distribute(mesh)``) solves on its mesh
+    (``parallel.execute.eigen_decomp_sharded``), so the whole learner,
+    acquisitions and refits, runs there."""
     from graphlearning_tpu_torch.core.graphclass import graph as _graph
 
-    if getattr(model_or_graph, "_dist", None) is not None:
-        raise NotImplementedError("spectral_covariance of a distributed "
-                                  "model is not ported yet (P15b)")
+    dist = getattr(model_or_graph, "_dist", None)
+    if dist is not None:
+        from graphlearning_tpu_torch.parallel import execute as _exec
+
+        vals, vecs = _exec.eigen_decomp_sharded(
+            _exec.Distributor(dist), model_or_graph.graph.weight_matrix,
+            normalization=normalization, k=k)
+        return np.diag(1.0 / (np.asarray(vals) + tau)), np.asarray(vecs)
     G = model_or_graph
     if hasattr(G, "graph"):              # an SSL model
         G = G.graph

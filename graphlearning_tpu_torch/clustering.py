@@ -9,7 +9,9 @@ on the device (:meth:`graph.eigen_decomp_device`, on the band or the
 gather where ``ops.accel.maybe_build`` takes one) and clusters their rows
 with the device k-means (:mod:`solvers.kmeans`); only the int32 labels
 come back to the host.  INCRES's diffusion runs on the bf16 band or the
-gather likewise (:mod:`solvers.incres`).
+gather likewise (:mod:`solvers.incres`).  ``distribute(mesh)`` runs
+spectral clustering's eigensolve and INCRES's rounds on a mesh of ranks
+(:mod:`parallel.execute`), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -34,13 +36,31 @@ class clustering:
         self.cluster_labels = None
         self.num_clusters = num_clusters
         self.fitted = False
+        self._dist = None
+
+    _sharded_supported = False     # spectral and incres have a mesh path
 
     def distribute(self, mesh="auto", strict=False):
-        """Sharded clustering comes with the second half of the
-        distribution layer (P15b)."""
-        raise NotImplementedError(
-            "clustering.distribute: sharded clustering is not ported yet "
-            "(P15b)")
+        """Run this model's fit on a mesh of ranks, as
+        :meth:`ssl.ssl.distribute`: spectral clustering's eigensolve
+        (LOBPCG over the ranks) and INCRES's rounds.  Another clusterer
+        warns (``strict=True`` raises) and fits on one device; None undoes
+        it.  Returns self."""
+        if mesh is None:
+            self._dist = None
+            return self
+        if not type(self)._sharded_supported:
+            msg = (f"{type(self).__name__} has no sharded execution path; "
+                   "fits will run single-device despite distribute()")
+            if strict:
+                raise NotImplementedError(msg)
+            import warnings
+
+            warnings.warn(msg, stacklevel=2)
+        from graphlearning_tpu_torch.parallel import execute as _exec
+
+        self._dist = _exec.Distributor(mesh)
+        return self
 
     def predict(self):
         if not self.fitted:
@@ -68,6 +88,8 @@ class spectral(clustering):
     ("NgJordanWeiss"), then k-means with 10 restarts.  ``seed`` seeds
     k-means; ``None`` draws one from numpy's global state."""
 
+    _sharded_supported = True
+
     def __init__(self, W, num_clusters, method="NgJordanWeiss", extra_dim=0,
                  seed=0, device=None):
         super().__init__(W, num_clusters, device=device)
@@ -84,8 +106,19 @@ class spectral(clustering):
         if self.method not in norm_of:
             sys.exit("Invalid spectral clustering method " + self.method)
         k = self.num_clusters + self.extra_dim
-        _, vec = self.graph.eigen_decomp_device(
-            normalization=norm_of[self.method], k=k)
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            # k-means on the gathered embedding, the same on every rank
+            info = {}
+            _, vec = _exec.eigen_decomp_sharded(
+                self._dist, self.graph.weight_matrix,
+                normalization=norm_of[self.method], k=k, info=info)
+            self.iters = info["iters"]       # LOBPCG's steps (0: kept)
+            vec = torch.as_tensor(vec, device=self._dist.device)
+        else:
+            _, vec = self.graph.eigen_decomp_device(
+                normalization=norm_of[self.method], k=k)
         if self.method == "NgJordanWeiss":
             norms = torch.sqrt(torch.sum(vec * vec, dim=1))
             vec = vec / torch.clamp(norms[:, None], min=1e-30)
@@ -157,6 +190,8 @@ class incres(clustering):
     drawn by numpy, the walk on the plain path) and prints each round's
     accuracy."""
 
+    _sharded_supported = True
+
     def __init__(self, W, num_clusters, speed=5, T=200, seed=None,
                  device=None):
         super().__init__(W, num_clusters, device=device)
@@ -183,6 +218,23 @@ class incres(clustering):
         u = rs.randint(0, k, size=n)
         info = {}
 
+        if all_labels is not None and self._dist is not None:
+            raise NotImplementedError(
+                "incres.fit on a mesh: all_labels (the reference's host "
+                "loop) is not ported (the JAX package fits it on one "
+                "device; P15c)")
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            mesh_dev = self._dist.device
+            draw = _incres.uniform(
+                torch.Generator(device=mesh_dev).manual_seed(dev_seed),
+                self._dist._dtype())
+            labels = _exec.incres_fit_sharded(
+                self._dist, G.weight_matrix, u, draw, k=k, T=self.T, Dm=Dm,
+                info=info)
+            self.steps = info["steps"]
+            return torch.as_tensor(labels)
         if all_labels is None:
             draw = _incres.uniform(
                 torch.Generator(device=dev).manual_seed(dev_seed),

@@ -56,13 +56,21 @@ def spmm(g: SparseGraph, X):
     return out[:, 0] if was_1d else out
 
 
-def neighbor_take(g: SparseGraph, x):
-    """``x[g.cols]``: per-slot neighbor values, (n,) -> (n, k).  A ``g``
-    with ``neighbor_take_`` takes them itself."""
+def neighbor_take(g: SparseGraph, x, slot=None):
+    """``x[g.cols]``: per-slot neighbor values, (n,) -> (n, k); with
+    ``slot`` (n,), each row's value at that slot alone, (n,) -> (n,).  A
+    ``g`` with ``neighbor_take_`` takes them itself (``slot`` passed on
+    when given)."""
     custom = getattr(g, "neighbor_take_", None)
     if custom is not None:
-        return custom(x)
-    return x[g.cols]
+        return custom(x) if slot is None else custom(x, slot)
+    return x[_slot_cols(g.cols, slot)]
+
+
+def _slot_cols(cols, slot=None):
+    """``cols`` (n, k), or with ``slot`` (n,) each row's column there."""
+    return cols if slot is None else torch.gather(cols, 1,
+                                                  slot[:, None])[:, 0]
 
 
 def transpose(g: SparseGraph) -> BucketedELL:

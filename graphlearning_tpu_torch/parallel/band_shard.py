@@ -1,8 +1,7 @@
-"""The partitioned tiled band: K1 and K3 over a mesh with a ring halo.
+"""The partitioned tiled band: K1, K3, K7 and K9 over a mesh with a ring
+halo.
 
-Counterpart of ``graphlearning_tpu/parallel/band_shard.py:53-656`` (the
-distance and Lipschitz reductions, K7 and K9 over the halo, come with
-P15b).
+Counterpart of ``graphlearning_tpu/parallel/band_shard.py:53-656``.
 
 * **Partition** (:func:`build_band_partition`): the rows split into P
   contiguous blocks of ``B`` rows (a multiple of ``lcm(R, WT)``), each
@@ -14,16 +13,24 @@ P15b).
   that owns the block.  Edges beyond the halo form the residual COO.
 * **Halo exchange** (:meth:`parallel.mesh.Mesh.halo`): each rank sends its
   first H rows to rank p-1 and its last H to rank p+1, wrapping around
-  the ring; at world size 1 the wrap is a local slice.  On RCM-ordered
-  kNN graphs one hop covers every edge.
-* **Compute**: **K3** (:func:`ops.band_spmm.band_tiles_spmm`) streams the
-  rank's own tiles over the halo-extended X, ``(B + 2H, d)`` in, ``(B,
-  d)`` out.  d is not padded to the TPU's 128 lanes.
+  the ring; at world size 1 the wrap is a local slice.  The halo is
+  measured without the wrap, so rank 0's left halo and rank P-1's right
+  halo hold no edge.  On RCM-ordered kNN graphs one hop covers every edge.
+* **Compute**, each over the rank's halo-extended input
+  (:meth:`ShardedOp._halo_map`): **K3** (:func:`ops.band_spmm.
+  band_tiles_spmm`) for the products, **K7** (``band_tiles_minplus``, with
+  the argmin) for a min-plus relaxation round and **K9**
+  (``band_tiles_lip``, C <= 32 a launch) for the three Lipschitz
+  reductions, K7 and K9 on the band's live-chunk list, built once with
+  the operator; the gather ``x[cols]`` takes the extended rows.  The
+  residual edges go through all-gathered inputs.  d is not padded to the
+  TPU's 128 lanes.
 
 :class:`ShardedOp` quacks like the rank's rows of a :class:`SparseGraph`,
-so the single-device solvers run their products on the partitioned band
-through the ``spmm_`` hook of ``ops.graphops``.  :class:`ShardedBandPlan`
-is the standalone handle of one graph on one mesh.
+so the single-device solvers run on the partitioned band through the
+``spmm_`` and ``neighbor_take_`` hooks of ``ops.graphops``.
+:class:`ShardedBandPlan` is the standalone handle of one graph on one
+mesh.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ def _roundup(x: int, m: int) -> int:
 
 _BAND_DTYPES = {"f64": torch.float64, "f32": torch.float32,
                 "bf16": torch.bfloat16}
+_LIP_CMAX = 32          # K9's widest U on CUDA
 
 
 class BandPartition:
@@ -188,6 +196,14 @@ def build_band_partition(W, Pn: int, R: int = 512, WT: int = 512,
             raise RuntimeError("plan_tiles left in-halo edges out of the "
                                "band")
         plans.append((tb, ts, bf))
+    # the halo is measured without the ring's wrap, so the wrapped rows
+    # (block 0's left halo, block P-1's right one) feed no cell: K7's
+    # argmin never points into them
+    kept = valid & ~res
+    if (np.any(kept[:B] & (lcols[:B] < H))
+            or np.any(kept[-B:] & (lcols[-B:] >= B + H))):
+        raise RuntimeError("an edge of the first or last block lies in "
+                           "its wrapped halo")
 
     part = BandPartition(
         plans=plans, cols=ell_cols, vals=ell_vals, deg=deg, lcols=lcols,
@@ -206,17 +222,20 @@ class ShardedOp:
     """This rank's rows of a graph partitioned into tiled-band blocks: a
     duck-typed :class:`SparseGraph` (``cols``, ``vals``, ``deg``, ``n``,
     ``k``, ``shape``, ``mask``: the rank's rows of the padded ELL, global
-    columns, residual edges kept) whose ``spmm_`` runs K3 over the
-    halo-extended X.  ``deg_`` and ``diag_`` read the ELL rows;
-    ``neighbor_take_``, ``minplus_`` and ``lip_reduce_`` come with P15b.
+    columns, residual edges kept) whose ``spmm_`` runs K3,
+    ``neighbor_take_`` gathers and ``minplus_`` (K7) and ``lip_reduce_``
+    (K9) reduce, each over the halo-extended input.  ``deg_`` and
+    ``diag_`` read the ELL rows.  ``lcols`` are the rank's rows' columns in
+    the extended space, ``chunks`` the band's live-chunk list of K7 and
+    K9, built once here.
 
     ``n_residual`` counts the rank's edges beyond the halo (none on RCM
-    kNN graphs): where any rank has one, every product all-gathers X and
-    each rank adds its own."""
+    kNN graphs): where any rank has one, every call all-gathers its input
+    and each rank adds its own."""
 
     def __init__(self, g: ShardedGraph, band, plan: _bs.TilesPlan, H: int,
                  mode: str, res, has_res: bool, xpad, n_orig: int,
-                 residual_frac: float, G: int):
+                 residual_frac: float, G: int, lcols, res_slots):
         self.g = g
         self.band = band
         self.plan = plan
@@ -229,6 +248,17 @@ class ShardedOp:
         self.residual_frac = residual_frac
         self.n_residual = 0 if res is None else int(res[0].shape[0])
         self.G = G
+        self.lcols = lcols        # (B, k) columns in [0, B + 2H)
+        self._res_slots = res_slots
+        self._spill = None        # the residual as a spill, for K7/K9's
+        if res is not None:       # residual_minplus / residual_lip
+            rr, rc, rv = res
+            dev = rr.device
+            self._spill = (torch.zeros(0, dtype=torch.long, device=dev),
+                           torch.zeros((0, 1), dtype=torch.long, device=dev),
+                           torch.zeros((0, 1), dtype=rv.dtype, device=dev),
+                           rr, rc, rv)
+        self.chunks = _bs.tiles_live_chunks(band, plan)
 
     mesh = property(lambda self: self.g.mesh)
     cols = property(lambda self: self.g.cols)
@@ -249,19 +279,30 @@ class ShardedOp:
     def diag_(self):
         return self.g.diag_()
 
+    @property
+    def _in_dtype(self):
+        """The kernels' input dtype: float64 for an f64 band (the CPU),
+        else float32."""
+        return torch.float64 if self.mode == "f64" else torch.float32
+
+    def _halo_map(self, X):
+        """The halo-extended rows of the row-sharded ``X`` (B, ...), any
+        dtype: ``(B + 2H, ...)``, ``[left halo | X | right halo]``, its
+        padding rows zeroed.  A padding row holds only zero cells of the
+        dense tiles, and a non-finite value there (``inf * 0`` of an
+        unguarded ``D^-1/2`` scaling) would reach real rows through them,
+        where the ELL gather reads only real neighbours."""
+        left, right = self.mesh.halo(X, self.H)
+        ext = torch.cat([left, X, right])
+        if self._xpad is not None:
+            ext = ext.masked_fill(
+                self._xpad.reshape((-1,) + (1,) * (X.dim() - 1)), 0)
+        return ext
+
     def halo_x(self, X):
         """The halo-extended X of K3, ``(B + 2H, d)``, in the band's input
-        dtype, its padding rows zeroed: a padding column holds zero cells
-        of the dense tiles, and a non-finite padding value (``inf * 0``
-        of an unguarded ``D^-1/2`` scaling) would reach real rows through
-        them, where the ELL gather reads only real neighbours."""
-        in_dtype = torch.float64 if self.mode == "f64" else torch.float32
-        Xp = X.to(in_dtype)
-        left, right = self.mesh.halo(Xp, self.H)
-        Xloc = torch.cat([left, Xp, right])
-        if self._xpad is not None:
-            Xloc = Xloc.masked_fill(self._xpad[:, None], 0.0)
-        return Xloc
+        dtype (:meth:`_halo_map`)."""
+        return self._halo_map(X.to(self._in_dtype))
 
     def spmm_(self, X):
         """This rank's rows of ``W @ X``, X its (B, d) rows: K3 over the
@@ -280,17 +321,87 @@ class ShardedOp:
         return out[:, 0] if X.dim() == 1 else out
 
     def neighbor_take_(self, x):
-        raise NotImplementedError(
-            "ShardedOp.neighbor_take_ (the gather through the halo) comes "
-            "with P15b")
+        """``x[cols]`` of this rank's rows, ``(B, k, ...)``: the halo-extended
+        x at ``lcols``, the residual slots from the all-gathered x.  Per
+        call it moves the 2H boundary rows, not all n."""
+        out = self._halo_map(x)[self.lcols]
+        if self.has_res:
+            xg = self.mesh.all_gather(x)
+            if self.res is not None:
+                rr, rc, _ = self.res
+                out[rr, self._res_slots] = xg[rc]
+        return out
+
+    def minplus_prep(self, f):
+        """The speeds ``f`` (B,) of a run of :meth:`minplus_round` calls:
+        halo-extended once, and all-gathered where there are residual
+        edges."""
+        f = f.to(self._in_dtype)
+        return (self._halo_map(f),
+                self.mesh.all_gather(f) if self.has_res else None)
+
+    def minplus_round(self, d, prep, hopf_lax: bool = False,
+                      recip: bool = False):
+        """One min-plus relaxation of this rank's rows over the band (K7
+        with the argmin, on the halo-extended ``d`` and the speeds of
+        :meth:`minplus_prep`) and the residual edges.  Returns ``(best,
+        a_ext, a_res)``: per row the least candidate (``MINPLUS_BIG`` where
+        none), K7's argmin in the extended space ``[0, B + 2H)`` (-1 where
+        none) and, where a residual edge's candidate is strictly smaller,
+        its global column (else -1)."""
+        f_ext, fg = prep
+        d = d.to(self._in_dtype)
+        m, a = _bs.band_tiles_minplus(self.band, self.plan, self._halo_map(d),
+                                      f_ext, hopf_lax=hopf_lax,
+                                      track_arg=True, recip=recip,
+                                      chunks=self.chunks)
+        a_res = torch.full_like(a, -1)
+        if self.has_res:
+            dg = self.mesh.all_gather(d)
+            if self._spill is not None:
+                m_r, a_r = _bs.residual_minplus(dg, fg, self._spill,
+                                                hopf_lax=hopf_lax,
+                                                track_arg=True, recip=recip)
+                m_r, a_r = m_r[:self.n].to(m.dtype), a_r[:self.n]
+                better = m_r < m
+                m = torch.where(better, m_r, m)
+                a_res = torch.where(better, a_r, a_res)
+        return m, a, a_res
 
     def minplus_(self, d, f, hopf_lax: bool = False, recip: bool = False):
-        raise NotImplementedError(
-            "ShardedOp.minplus_ (K7 over the halo) comes with P15b")
+        """One min-plus relaxation round of this rank's rows (K7 over the
+        halo-extended ``d`` and ``f`` plus the residual edges): ``(best,
+        arg)``, the least candidate (``MINPLUS_BIG`` where none) and its
+        global column (-1 where none), as the JAX package's."""
+        m, a, a_res = self.minplus_round(d, self.minplus_prep(f),
+                                         hopf_lax=hopf_lax, recip=recip)
+        glob = (a + (self.mesh.rank * self.n - self.H)) % self.n_global
+        arg = torch.where(a_res >= 0, a_res, torch.where(a >= 0, glob, -1))
+        arg = torch.where(m >= 0.5 * _bs.MINPLUS_BIG, -1, arg)
+        return m.to(d.dtype), arg.to(torch.int32)
 
     def lip_reduce_(self, U):
-        raise NotImplementedError(
-            "ShardedOp.lip_reduce_ (K9 over the halo) comes with P15b")
+        """The three reductions of a Lipschitz round over this rank's rows,
+        ``(wsum_u, nmin, nmax)``, each (B, C) in U's dtype: the weighted
+        neighbor sums and the neighbors' min and max of U's columns
+        (``LIP_BIG`` / ``-LIP_BIG`` where a row has none).  K9 on the
+        halo-extended U, one launch for each block of 32 columns (K9's
+        widest on CUDA), then the residual edges."""
+        Uk = U.to(self._in_dtype)
+        ext = self._halo_map(Uk)
+        parts = [_bs.band_tiles_lip(self.band, self.plan,
+                                    ext[:, c0:c0 + _LIP_CMAX].contiguous(),
+                                    self.chunks)
+                 for c0 in range(0, U.shape[1], _LIP_CMAX)]
+        s, mn, mx = (torch.cat(x, dim=1) for x in zip(*parts))
+        if self.has_res:
+            Ug = self.mesh.all_gather(Uk)
+            if self._spill is not None:
+                s_r, mn_r, mx_r = _bs.residual_lip(Ug, self._spill, self.n)
+                s = s + s_r.to(s.dtype)
+                mn = torch.minimum(mn, mn_r.to(mn.dtype))
+                mx = torch.maximum(mx, mx_r.to(mx.dtype))
+        return s.to(U.dtype), mn.to(U.dtype), mx.to(U.dtype)
 
 
 def make_sharded_op(W, mesh: Mesh, axis: str | None = None, R: int = 512,
@@ -313,9 +424,11 @@ def make_sharded_op(W, mesh: Mesh, axis: str | None = None, R: int = 512,
     p, B, H = mesh.rank, part.B, part.H
     g = ShardedGraph.from_host(part.cols, part.vals, part.deg, mesh,
                                ell_dtype or config.float_dtype(dev))
-    res = None
+    res = res_slots = None
     mine = (part.res_rows >= p * B) & (part.res_rows < (p + 1) * B)
     if mine.any():
+        res_slots = torch.as_tensor(part.res_slots[mine].astype(np.int64),
+                                    device=dev)
         res_dtype = torch.float64 if mode == "f64" else torch.float32
         res = (torch.as_tensor(part.res_rows[mine].astype(np.int64) - p * B,
                                device=dev),
@@ -326,9 +439,11 @@ def make_sharded_op(W, mesh: Mesh, axis: str | None = None, R: int = 512,
     xpad = None
     if (glob >= part.n).any():
         xpad = torch.as_tensor(glob >= part.n, device=dev)
+    lcols = torch.as_tensor(part.lcols[p * B:(p + 1) * B].astype(np.int64),
+                            device=dev)
     return ShardedOp(g, part.bands[p], part.tiles_plan(p, dev), H, mode, res,
                      len(part.res_rows) > 0, xpad, part.n,
-                     part.residual_frac, part.G)
+                     part.residual_frac, part.G, lcols, res_slots)
 
 
 class ShardedBandPlan:

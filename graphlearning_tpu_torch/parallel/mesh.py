@@ -7,7 +7,7 @@ collectives are explicit calls on the :class:`Mesh`: ``all_reduce`` (the
 dot products and norms of the solvers), ``all_gather`` (the ELL route's X
 and the final gather) and the ring exchanges (the band route's halo, the
 ring SpMM).  Graphs are 1-D row-partitioned over the ``"nodes"`` axis;
-a ``batch`` axis (independent trials over a second axis) comes with P15b.
+a ``batch`` axis (independent trials over a second axis) comes with P15c.
 
 With no process group initialized, :func:`make_mesh` gives a world-size-1
 mesh whose collectives are the identity.
@@ -23,7 +23,7 @@ import torch.distributed as dist
 
 from graphlearning_tpu_torch import config
 
-_REDUCE_OPS = {"sum": "SUM", "max": "MAX"}
+_REDUCE_OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
 
 
 class Mesh:
@@ -50,7 +50,7 @@ class Mesh:
                 int(s) != 1 for s in shape[1:]):
             raise NotImplementedError(
                 f"mesh_shape {tuple(shape)}: axes beyond the node axis "
-                "come with P15b")
+                "come with P15c")
         mesh = make_mesh(None if shape is None else int(shape[0]),
                          devices=cfg.devices)
         return cls(mesh.group, mesh.size, mesh.rank, mesh.device,
@@ -69,8 +69,8 @@ class Mesh:
     # -- collectives (the identity without a group) ---------------------------
 
     def all_reduce(self, t, op: str = "sum"):
-        """``t`` summed (``op="sum"``) or maximized (``"max"``) over the
-        ranks; a new tensor."""
+        """``t`` summed (``op="sum"``), maximized (``"max"``) or minimized
+        (``"min"``) over the ranks; a new tensor."""
         if self.group is None:
             return t
         out = t.detach().clone().contiguous()
@@ -145,9 +145,9 @@ def make_mesh(n_nodes_axis: int | None = None, batch_axis: int = 1,
               devices=None) -> Mesh:
     """The node mesh over the initialized process group (world size 1
     without one): ``n_nodes_axis`` must be the world size.  A
-    ``batch_axis`` above 1 comes with P15b."""
+    ``batch_axis`` above 1 comes with P15c."""
     if batch_axis != 1:
-        raise NotImplementedError("a batch axis of the mesh comes with P15b")
+        raise NotImplementedError("a batch axis of the mesh comes with P15c")
     group = dist.group.WORLD if dist.is_initialized() else None
     size = dist.get_world_size() if group is not None else 1
     rank = dist.get_rank() if group is not None else 0

@@ -16,9 +16,9 @@ Counterpart of ``graphlearning_tpu/parallel/shard.py``.
   its own rows.
 
 A sharded graph quacks like a :class:`SparseGraph` of its local rows:
-``ops.graphops`` dispatches ``spmm``, ``degree_vector`` and ``diagonal``
-to its ``spmm_``, ``deg_`` and ``diag_``, so the single-device solvers
-run on it unchanged; ``neighbor_take_`` raises until P15b.
+``ops.graphops`` dispatches ``spmm``, ``neighbor_take``, ``degree_vector``
+and ``diagonal`` to its ``spmm_``, ``neighbor_take_``, ``deg_`` and
+``diag_``, so the single-device solvers run on it unchanged.
 """
 
 from __future__ import annotations
@@ -127,10 +127,17 @@ class ShardedGraph:
         return torch.sum(torch.where(self.cols == rows, self.vals, zero),
                          dim=1)
 
-    def neighbor_take_(self, x):
-        raise NotImplementedError(
-            "neighbor_take on a sharded graph (the distance and Lipschitz "
-            "families' gathers) comes with P15b")
+    def neighbor_take_(self, x, slot=None):
+        """``x[cols]`` of this rank's rows, (n, k, ...), or with ``slot``
+        (n,) each row's one slot: x's local rows all-gathered, then the
+        local rows' slots (what GSPMD emits for the JAX package's
+        gather)."""
+        return self.mesh.all_gather(x)[_ops._slot_cols(self.cols, slot)]
+
+    def with_vals(self, vals):
+        """The same rows and columns with other slot values."""
+        return ShardedGraph(self.cols, vals, self.deg, self.row0,
+                            self.n_global, self.mesh)
 
 
 def shard_graph(g, mesh: Mesh, dtype=None) -> ShardedGraph:

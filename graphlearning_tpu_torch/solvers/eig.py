@@ -26,6 +26,13 @@ Two departures from the JAX package:
   (``tools/spectral_reference.py``).
 * The accel's start is the plain path's draw, not a draw of its own in
   its permuted space, so the paths differ only by rounding.
+
+On a mesh (``parallel.execute.eigen_decomp_sharded``) ``g`` is a rank's
+rows and ``shard`` describes them: ``reduce`` (sums, maxima over the
+ranks), ``valid`` (the rank's real rows; the operators are masked to
+them, so padding rows stay 0 and out of the top of the spectrum),
+``take`` (a node-order tensor to the rank's rows: the random starts are
+the plain path's draws, over the true ``n`` nodes), ``n`` and ``row0``.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import torch
 from graphlearning_tpu_torch import config
 from graphlearning_tpu_torch.core.sparse import SparseGraph
 from graphlearning_tpu_torch.ops import graphops as _ops
-from graphlearning_tpu_torch.solvers.lobpcg import (lobpcg_standard,
+from graphlearning_tpu_torch.solvers.lobpcg import (_norms, lobpcg_standard,
                                                     per_pair_tol)
 
 
@@ -47,57 +54,77 @@ def _start(n, k, key, dtype, device):
         0 if key is None else key, device), dtype=dtype, device=device)
 
 
-def _lobpcg_tol(tol, X):
-    """The ``tol`` given to :func:`lobpcg_standard` for the start ``X``:
-    JAX's (``tol``, or None for the dtype's epsilon) in float64, per pair
-    (:func:`lobpcg.per_pair_tol`) in float32, where JAX's threshold lets
-    a large graph's solve stop after a step or two."""
+def _lobpcg_tol(tol, X, n=None):
+    """The ``tol`` given to :func:`lobpcg_standard` for the start ``X``
+    (of ``n`` rows in all): JAX's (``tol``, or None for the dtype's
+    epsilon) in float64, per pair (:func:`lobpcg.per_pair_tol`) in
+    float32, where JAX's threshold lets a large graph's solve stop after a
+    step or two."""
     if torch.finfo(X.dtype).bits >= 64:
         return tol if tol else None
-    return per_pair_tol(tol, X)
+    return per_pair_tol(tol, X, n)
+
+
+def _identity(t, op="sum"):
+    return t
+
+
+def _draw(n, k, key, dtype, device, shard=None):
+    """:func:`_start`'s draw over the ``n`` nodes, or its rows of the
+    ``shard``."""
+    X = _start(n, k, key, dtype, device)
+    return X if shard is None else shard.take(X)
 
 
 def _lobpcg_topk(matvec, n, k, tol, key=None, m=200, dtype=None, power=1,
-                 X0=None, device=None, info=None):
+                 X0=None, device=None, info=None, shard=None):
     """Top-k eigenpairs ``(theta, U)`` of a symmetric PSD operator by
     LOBPCG, on ``matvec^power`` when ``power > 1`` (its eigenvectors are
-    the operator's).  The start is ``X0``, else :func:`_start`; the
-    tolerance :func:`_lobpcg_tol`'s.  ``info`` gets the steps taken as
-    "iters"."""
+    the operator's).  The start is ``X0``, else :func:`_start` (the
+    ``shard``'s rows of it); the tolerance :func:`_lobpcg_tol`'s.
+    ``info`` gets the steps taken as "iters"."""
     if X0 is None:
         dev = config.device(device)
-        X0 = _start(n, k, key, dtype or config.float_dtype(dev), dev)
+        X0 = _draw(n, k, key, dtype or config.float_dtype(dev), dev, shard)
 
     def op(Y):
         for _ in range(power):
             Y = matvec(Y)
         return Y
 
-    theta, U, iters = lobpcg_standard(op, X0, m=m,
-                                      tol=_lobpcg_tol(tol, X0))
+    if shard is None:
+        theta, U, iters = lobpcg_standard(op, X0, m=m,
+                                          tol=_lobpcg_tol(tol, X0))
+    else:
+        theta, U, iters = lobpcg_standard(
+            op, X0, m=m, tol=_lobpcg_tol(tol, X0, n), reduce=shard.reduce,
+            row0=shard.row0, n=n)
     if info is not None:
         info["iters"] = iters
     return theta, U
 
 
-def _rayleigh(matvec, U):
+def _rayleigh(matvec, U, reduce=_identity):
     """Per-column Rayleigh quotients ``u^T A u / u^T u``."""
     AU = matvec(U)
-    return torch.sum(U * AU, dim=0) / torch.sum(U * U, dim=0)
+    return (reduce(torch.sum(U * AU, dim=0))
+            / reduce(torch.sum(U * U, dim=0)))
 
 
 def power_iteration(matvec, n, num_iter=100, key=None, dtype=None,
-                    device=None):
+                    device=None, shard=None):
     """Largest eigenvalue estimate ``(lam, v)`` (for spectral shifts);
     the start is drawn from ``key`` (seed 1 by default)."""
     dev = config.device(device)
     dtype = dtype or config.float_dtype(dev)
-    v = _start(n, 1, 1 if key is None else key, dtype, dev)[:, 0]
-    v = v / torch.linalg.vector_norm(v)
+    red = None if shard is None else shard.reduce
+    v = _draw(n, 1, 1 if key is None else key, dtype, dev, shard)[:, 0]
+    v = v / _norms(v, red)
     for _ in range(num_iter):
         w = matvec(v[:, None])[:, 0]
-        v = w / torch.clamp(torch.linalg.vector_norm(w), min=1e-30)
-    return torch.dot(v, matvec(v[:, None])[:, 0]), v
+        v = w / torch.clamp(_norms(w, red), min=1e-30)
+    lam = torch.dot(v, matvec(v[:, None])[:, 0])
+    return (lam if red is None else red(lam)), v
 
 
 def _default_power(dtype):
@@ -107,27 +134,51 @@ def _default_power(dtype):
 
 
 def smallest_eigh(matvec, n, k, shift, tol=0, key=None, m=200, dtype=None,
-                  device=None, info=None):
+                  device=None, info=None, shard=None):
     """Smallest-k eigenpairs of a symmetric operator by LOBPCG on
     ``(shift I - Op)^p`` (``shift`` must bound the spectrum above);
     eigenvalues by Rayleigh quotients on the unpowered operator.  ``info``
     gets LOBPCG's steps ("iters")."""
     dev = config.device(device)
     dtype = dtype or config.float_dtype(dev)
+    keep = _masker(shard)
 
     def A(X):
-        return shift * X - matvec(X)
+        return keep(shift * X - matvec(X))
 
     _, U = _lobpcg_topk(A, n, k, tol, key=key, m=m, dtype=dtype,
-                        power=_default_power(dtype), device=dev, info=info)
-    vals = shift - _rayleigh(A, U)
+                        power=_default_power(dtype), device=dev, info=info,
+                        shard=shard)
+    vals = shift - _rayleigh(A, U, _reducer(shard))
     order = torch.argsort(vals)
     return vals[order], U[:, order]
 
 
+def _masker(shard):
+    """The operators' output on the shard's real rows (padding rows 0)."""
+    if shard is None:
+        return lambda Y: Y
+    v = shard.valid[:, None]
+    return lambda Y: torch.where(v, Y, torch.zeros((), dtype=Y.dtype,
+                                                   device=Y.device))
+
+
+def _reducer(shard):
+    return _identity if shard is None else shard.reduce
+
+
+def _inv_sqrt(deg, shard):
+    """``deg^-1/2``; 0 on the padding rows (degree 0) of a shard."""
+    if shard is None:
+        return 1.0 / torch.sqrt(deg)
+    ok = deg > 0
+    return torch.where(ok, torch.where(ok, deg, torch.ones_like(deg))
+                       ** -0.5, torch.zeros_like(deg))
+
+
 def eigen_decomp(g: SparseGraph, normalization="combinatorial",
                  method="exact", k=10, c=None, gamma=0, tol=0, q=1,
-                 spmm=None, accel=None, info=None):
+                 spmm=None, accel=None, info=None, shard=None, key=None):
     """Low-lying spectrum of the graph Laplacian: increasing eigenvalues,
     eigenvectors as columns, tensors on ``g``'s device.  ``gamma > 0``
     adds the modularity term.  ``spmm`` overrides ``W @ X``; ``accel`` (an
@@ -138,18 +189,30 @@ def eigen_decomp(g: SparseGraph, normalization="combinatorial",
     JAX package's "lowrank" branch never takes the accel (its ``spmm`` is
     set before the test), so here neither does it.  Outside LOBPCG and
     the randomized SVD, which run their products in full f32 precision
-    (:func:`config.exact_matmul`), every product is elementwise."""
+    (:func:`config.exact_matmul`), every product is elementwise.  With
+    ``shard`` (a rank's rows of a mesh; see the module's docstring) the
+    "exact" solves of the normalized, randomwalk and combinatorial
+    Laplacians run, with ``gamma`` too; the vectors are the rank's rows.
+    ``key`` seeds LOBPCG's start (0 when None)."""
     if c is None:
         c = 2 * k
-    n = g.n
+    n = g.n if shard is None else shard.n
     dev = g.device
     deg = _ops.degree_vector(g)
     dtype = g.vals.dtype
     if spmm is None:
         spmm = lambda X: _ops.spmm(g, X)
-    topk = lambda A: _lobpcg_topk(A, n, k, tol, dtype=dtype,
+    red, keep = _reducer(shard), _masker(shard)
+    topk = lambda A: _lobpcg_topk(A, n, k, tol, key=key, dtype=dtype,
                                   power=_default_power(dtype), device=dev,
-                                  info=info)
+                                  info=info, shard=shard)
+    if shard is not None and (method != "exact" or accel is not None
+                              or normalization not in (
+                                  "normalized", "randomwalk",
+                                  "combinatorial")):
+        raise ValueError(f"a sharded eigen_decomp solves the normalized, "
+                         f"randomwalk and combinatorial Laplacians by "
+                         f"LOBPCG, not {normalization!r} by {method!r}")
 
     if gamma != 0:
         # the modularity operator L v + (gamma / m) (deg2 . v) deg1
@@ -159,29 +222,31 @@ def eigen_decomp(g: SparseGraph, normalization="combinatorial",
             p1, p2, lap_norm = 1.0, 1.0, normalization
         deg1 = deg ** p1
         deg2 = deg ** p2
-        mm = torch.sum(deg) / 2
+        mm = red(torch.sum(deg)) / 2
         if lap_norm == "combinatorial":
             lap_mv = lambda X: deg[:, None] * X - spmm(X)
         elif lap_norm == "normalized":
-            sL = 1.0 / torch.sqrt(deg)
+            sL = _inv_sqrt(deg, shard)
             lap_mv = lambda X: X - sL[:, None] * spmm(sL[:, None] * X)
         else:
             lap_mv = lambda X: _ops.laplacian_matvec(g, X, lap_norm, deg=deg)
 
         def Mop(X):
-            return lap_mv(X) + (gamma / mm) * deg1[:, None] * torch.sum(
-                deg2[:, None] * X, dim=0, keepdim=True)
+            return keep(lap_mv(X) + (gamma / mm) * deg1[:, None] * red(
+                torch.sum(deg2[:, None] * X, dim=0, keepdim=True)))
 
-        lmax, _ = power_iteration(Mop, n, num_iter=100, device=dev)
+        lmax, _ = power_iteration(Mop, n, num_iter=100, device=dev,
+                                  shard=shard)
         shift = 1.01 * lmax + 1.0
-        vals, vecs = smallest_eigh(Mop, n, k, shift, tol=tol, device=dev,
-                                   info=info)
+        vals, vecs = smallest_eigh(Mop, n, k, shift, tol=tol, key=key,
+                                   device=dev, info=info, shard=shard)
         if normalization == "randomwalk":
-            vecs = vecs / torch.sqrt(deg)[:, None]
+            vecs = (vecs / torch.sqrt(deg)[:, None] if shard is None
+                    else _inv_sqrt(deg, shard)[:, None] * vecs)
         return vals, vecs
 
     if normalization in ("randomwalk", "normalized"):
-        s = 1.0 / torch.sqrt(deg)
+        s = _inv_sqrt(deg, shard)
         if method == "exact":
             if accel is not None:
                 # the plain path's start, in the accel's permuted space
@@ -192,10 +257,10 @@ def eigen_decomp(g: SparseGraph, normalization="combinatorial",
                 U = accel.from_perm(U_p)
             else:
                 def A(X):          # I + D^-1/2 W D^-1/2: spectrum in [0, 2]
-                    return X + s[:, None] * spmm(s[:, None] * X)
+                    return keep(X + s[:, None] * spmm(s[:, None] * X))
 
                 _, U = topk(A)
-                vals = 2.0 - _rayleigh(A, U)
+                vals = 2.0 - _rayleigh(A, U, red)
             order = torch.argsort(vals)
             vals, vecs = vals[order], U[:, order]
         elif method == "lowrank":
@@ -214,14 +279,15 @@ def eigen_decomp(g: SparseGraph, normalization="combinatorial",
         return vals, vecs
 
     if normalization == "combinatorial":
-        M = 2.0 * torch.max(deg)
+        M = 2.0 * (torch.max(deg) if shard is None
+                   else shard.reduce(torch.max(deg), "max"))
 
         def A(X):          # M I - L = (M - deg) X + W X: PSD
-            return (M - deg)[:, None] * X + spmm(X)
+            return keep((M - deg)[:, None] * X + spmm(X))
 
         if method == "exact":
             _, U = topk(A)
-            theta = _rayleigh(A, U)
+            theta = _rayleigh(A, U, red)
         elif method == "lowrank":
             from graphlearning_tpu_torch.utils import randomized_svd
 

@@ -17,6 +17,11 @@ rounds, not every round: a round at the fixed point changes nothing, so the
 result is the one a per-round test gives, with fewer host syncs.  Rounds
 are still capped at ``max_iter``.  The Jacobi loops of the p-eikonal solver
 test their tolerance every round, as the JAX package does.
+
+The gathers go through ``ops.graphops.neighbor_take``, so
+``_bellman_ford`` and ``_peikonal_jacobi_mc`` run unchanged on a rank's
+rows of a sharded graph (``parallel``); their stop tests then read the
+largest change over the ranks (``reduce``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from graphlearning_tpu_torch.core.sparse import SparseGraph
 from graphlearning_tpu_torch.ops.band_spmm import MINPLUS_BIG
+from graphlearning_tpu_torch.ops.graphops import neighbor_take
 
 _CHECK_EVERY = 8
 _DM_BIG = 1e30
@@ -54,14 +60,17 @@ def _as(g: SparseGraph, a, dtype=None):
         dtype or g.vals.dtype)
 
 
-def _fixed_point(relax, state, max_iter: int):
+def _fixed_point(relax, state, max_iter: int, reduce=None):
     """Apply ``relax(state) -> (state, changed)`` until a round changes
-    nothing or ``max_iter`` rounds ran.  Returns ``(state, rounds)``."""
+    nothing (on any rank, with ``reduce``) or ``max_iter`` rounds ran.
+    Returns ``(state, rounds)``."""
     it = 0
     while it < max_iter:
         for _ in range(min(_CHECK_EVERY, max_iter - it)):
             state, changed = relax(state)
             it += 1
+        if reduce is not None:
+            changed = reduce(changed.to(torch.int32), "max")
         if not bool(changed):
             break
     return state, it
@@ -82,27 +91,26 @@ def _slot_min(dn, fw, mask, big, hopf_lax: bool):
     return torch.min(torch.where(mask, cand, big), dim=1)
 
 
-def _bellman_ford(g: SparseGraph, d0, cp0, f, hopf_lax: bool, max_iter: int):
+def _bellman_ford(g: SparseGraph, d0, cp0, f, hopf_lax: bool, max_iter: int,
+                  reduce=None):
     """Iterate ``d_j <- min(d_j, min_s update(d_nbr, w_js, f_nbr))`` to the
     Dijkstra fixed point, carrying each node's closest boundary point.
     ``update`` is ``d_i + w_ij f_i`` or the Hopf-Lax quadratic
     ``(f w + sqrt(f^2 w^2 + 4 d^2)) / 2``.  Returns ``(d, cp, rounds)``."""
     mask = g.mask()
     big = torch.finfo(d0.dtype).max
-    cols = g.cols.long()
-    rows = torch.arange(g.n, device=g.device)
-    fn = f[cols]
+    fn = neighbor_take(g, f)
     fw = fn * g.vals if hopf_lax else g.vals * fn
 
     def relax(state):
         d, cp = state
-        best, s = _slot_min(d[cols], fw, mask, big, hopf_lax)
+        best, s = _slot_min(neighbor_take(g, d), fw, mask, big, hopf_lax)
         upd = best < d
         d = torch.where(upd, best, d)
-        cp = torch.where(upd, cp[cols[rows, s]], cp)
+        cp = torch.where(upd, neighbor_take(g, cp, s), cp)
         return (d, cp), upd.any()
 
-    (d, cp), rounds = _fixed_point(relax, (d0, cp0), max_iter)
+    (d, cp), rounds = _fixed_point(relax, (d0, cp0), max_iter, reduce)
     return d, cp, rounds
 
 
@@ -222,14 +230,16 @@ def distance_matrix(g: SparseGraph, centered=False, panel_bytes=2**29):
 # -- p-eikonal Jacobi iteration ----------------------------------------------
 
 
-def _jacobi(step, u0, bdy_mask, gvals, tol, max_iter: int):
-    """``u <- where(bdy, gvals, step(u))`` until ``max|du| <= tol`` or
-    ``max_iter`` rounds.  Returns ``(u, rounds)``."""
+def _jacobi(step, u0, bdy_mask, gvals, tol, max_iter: int, reduce=None):
+    """``u <- where(bdy, gvals, step(u))`` until ``max|du| <= tol`` (over
+    the ranks, with ``reduce``) or ``max_iter`` rounds.  Returns ``(u,
+    rounds)``."""
     u = torch.where(bdy_mask, gvals, u0)
     err, it = float("inf"), 0
     while err > tol and it < max_iter:
         u_new = torch.where(bdy_mask, gvals, step(u))
-        err = float(torch.max(torch.abs(u_new - u)))
+        du = torch.max(torch.abs(u_new - u))
+        err = float(du if reduce is None else reduce(du, "max"))
         u = u_new
         it += 1
     return u, it
@@ -277,7 +287,7 @@ def _peikonal_jacobi(g: SparseGraph, u0, bdy_mask, gvals, f, p, tol,
 
 
 def _peikonal_jacobi_mc(g: SparseGraph, u0, bdy_mask, f, tol, *, p: float,
-                        max_iter: int, num_bisection_it: int):
+                        max_iter: int, num_bisection_it: int, reduce=None):
     """(n, C) class-batched p-eikonal Jacobi: C one-vs-rest problems that
     differ only in their boundary set (``bdy_mask`` (n, C), value 0) share
     one neighbor gather per round.  p = 1 at kNN slot widths (k <= 32)
@@ -285,7 +295,6 @@ def _peikonal_jacobi_mc(g: SparseGraph, u0, bdy_mask, f, tol, *, p: float,
     ("1"/"0") overrides the choice."""
     mask3 = g.mask()[:, :, None]
     big = torch.finfo(u0.dtype).max
-    cols = g.cols.long()
     w3 = torch.where(mask3, g.vals[:, :, None], 0.0)
     force = os.environ.get("GLT_PEIKONAL_PREFIX")
     p_is_one = float(p) == 1.0 and (
@@ -294,7 +303,7 @@ def _peikonal_jacobi_mc(g: SparseGraph, u0, bdy_mask, f, tol, *, p: float,
     inc = ((f / torch.clamp(wsum, min=1e-30)) ** (1.0 / p))[:, None]
 
     def step(u):
-        un = u[cols]                                     # (n, k, C)
+        un = neighbor_take(g, u)                         # (n, k, C)
         if p_is_one:
             return _prefix_solve(torch.where(mask3, un, big), w3,
                                  f[:, None, None])
@@ -310,7 +319,7 @@ def _peikonal_jacobi_mc(g: SparseGraph, u0, bdy_mask, f, tol, *, p: float,
         return 0.5 * (a + b)
 
     zero = torch.zeros((), dtype=u0.dtype, device=u0.device)
-    return _jacobi(step, u0, bdy_mask, zero, tol, max_iter)
+    return _jacobi(step, u0, bdy_mask, zero, tol, max_iter, reduce)
 
 
 def _bellman_ford_mc(g: SparseGraph, D0, f, *, recip: bool, max_iter: int):

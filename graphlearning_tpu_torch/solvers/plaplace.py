@@ -22,6 +22,11 @@ band (:func:`_laplace_init`, kernel K2), then block-Gauss-Seidel sweeps
 over the rectangular band (:meth:`AccelSpMM.lip_gs_mc`, built by K4).
 Without it they start from the geodesic Voronoi labels (:func:`_voronoi_init`,
 on the band by K7 when a band is given).
+
+The ``_mc`` Jacobi rounds gather through ``ops.graphops.neighbor_take``
+and take a ``reduce`` for their stop test (the largest change over the
+ranks), so they run unchanged on a rank's rows of a sharded graph
+(``parallel.execute.lip_fit_sharded``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 
 from graphlearning_tpu_torch.core.sparse import BucketedELL, SparseGraph
 from graphlearning_tpu_torch.ops import graphops as _ops
+from graphlearning_tpu_torch.ops.graphops import neighbor_take
 from graphlearning_tpu_torch.solvers.eikonal import (_as, _boundary_handling,
                                                      dijkstra)
 
@@ -41,17 +47,21 @@ def _eps_floor(dtype) -> float:
     return 100 * float(torch.finfo(dtype).eps)
 
 
-def _lip_loop(step, u0, bdy_mask, gvals, tol, max_iter: int):
+def _lip_loop(step, u0, bdy_mask, gvals, tol, max_iter: int, reduce=None):
     """``u <- where(bdy, gvals, step(u))`` with the period-2 stop: until
     ``min(max|u_new - u|, max|u_new - u_prev|) <= tol`` after at least 21
-    rounds, or ``max_iter`` rounds.  Returns ``(u, rounds)``."""
+    rounds, or ``max_iter`` rounds; the maxima over the ranks with
+    ``reduce``.  Returns ``(u, rounds)``."""
     u = torch.where(bdy_mask, gvals, u0)
     u_prev = u
     err, it = float("inf"), 0
     while (err > tol or it <= 20) and it < max_iter:
         u_new = torch.where(bdy_mask, gvals, step(u))
-        err = min(float(torch.max(torch.abs(u_new - u))),
-                  float(torch.max(torch.abs(u_new - u_prev))))
+        du = torch.stack([torch.max(torch.abs(u_new - u)),
+                          torch.max(torch.abs(u_new - u_prev))])
+        if reduce is not None:
+            du = reduce(du, "max")
+        err = float(torch.min(du))
         u_prev, u = u, u_new
         it += 1
     return u, it
@@ -191,43 +201,44 @@ def amle(g: SparseGraph, bdy_set, bdy_val, tol=1e-5, max_num_it=1000,
 
 
 def _lip_iterate_mc(g: SparseGraph, u0, bdy_mask, gvals, alpha, beta, tol,
-                    max_iter: int):
+                    max_iter: int, reduce=None):
     """(n, C) batched :func:`_lip_iterate`; ``bdy_mask`` is (n,).
     Returns ``(u, rounds)``."""
     mask = g.mask()[:, :, None]
     big = torch.finfo(u0.dtype).max
     wsum = torch.sum(torch.where(g.mask(), g.vals, 0.0), dim=1)[:, None]
     w3 = g.vals[:, :, None]
-    cols = g.cols.long()
 
     def step(u):
-        un = u[cols]                                     # (n, k, C)
+        un = neighbor_take(g, u)                         # (n, k, C)
         sumu = torch.sum(torch.where(mask, w3 * un, 0.0), dim=1)
         minu = torch.amin(torch.where(mask, un, big), dim=1)
         maxu = torch.amax(torch.where(mask, un, -big), dim=1)
         return alpha * sumu / wsum + beta * 0.5 * (minu + maxu)
 
-    return _lip_loop(step, u0, bdy_mask[:, None], gvals, tol, max_iter)
+    return _lip_loop(step, u0, bdy_mask[:, None], gvals, tol, max_iter,
+                     reduce)
 
 
 def _lip_iterate_weighted_mc(g: SparseGraph, u0, bdy_mask, gvals, tol,
-                             max_iter: int, num_bisection_it: int = 30):
+                             max_iter: int, num_bisection_it: int = 30,
+                             reduce=None):
     """(n, C) batched :func:`_lip_iterate_weighted`.  Returns
     ``(u, rounds)``."""
     mask = g.mask()[:, :, None]
     big = torch.finfo(u0.dtype).max
     w3 = g.vals[:, :, None]
-    cols = g.cols.long()
 
     def step(u):
-        un = u[cols]
+        un = neighbor_take(g, u)
         a = torch.amin(torch.where(mask, un, big), dim=1)
         b = torch.amax(torch.where(mask, un, -big), dim=1)
         return _bisect_lip(
             a, b, lambda t: torch.where(mask, w3 * (t[:, None, :] - un), 0.0),
             num_bisection_it)
 
-    return _lip_loop(step, u0, bdy_mask[:, None], gvals, tol, max_iter)
+    return _lip_loop(step, u0, bdy_mask[:, None], gvals, tol, max_iter,
+                     reduce)
 
 
 def _lip_iterate_mc_bucketed(b: BucketedELL, u0, bdy_mask, gvals, alpha,
@@ -313,8 +324,15 @@ def _voronoi_init(g: SparseGraph, bdy_set, bdy_vals, accel=None):
     node (on the band by K7 when ``accel`` is given)."""
     _, cp = dijkstra(g, bdy_set, bdy_val=np.zeros(len(bdy_set)),
                      return_cp=True, accel=accel)
-    val_of = np.zeros((g.n,) + bdy_vals.shape[1:])
-    pos_in_bdy = -np.ones(g.n, dtype=int)
+    return voronoi_values(cp, bdy_set, bdy_vals)
+
+
+def voronoi_values(cp, bdy_set, bdy_vals):
+    """Each node's values from its closest boundary node ``cp`` (-1 where
+    none: zeros), ``bdy_vals`` (m, ...) those of ``bdy_set``."""
+    n = len(cp)
+    val_of = np.zeros((n,) + bdy_vals.shape[1:])
+    pos_in_bdy = -np.ones(n, dtype=int)
     pos_in_bdy[np.asarray(bdy_set)] = np.arange(len(bdy_set))
     src = pos_in_bdy[np.maximum(cp, 0)]
     ok = (cp >= 0) & (src >= 0)

@@ -25,6 +25,10 @@ synchronisations (the price ascent alone may take 500 steps in each of
 PoissonMBO loop takes ``valid``, the mask of real rows (mesh padding
 stays out of the class sizes and the score scaling), and ``reduce``, the
 sum (or max) over the ranks; every rank then reads the same condition.
+The VolumeMBO loop there runs whole on every rank, in the operator's
+padded row space, on the all-gathered dual convolution: ``valid`` keeps
+the padding rows out of the class counts and frozen, as the JAX package's
+sharded loop does.
 """
 
 from __future__ import annotations
@@ -54,12 +58,16 @@ def _while(cond, body, state):
         burst = min(2 * burst, _CHECK_EVERY)
 
 
-def _counts(labels, k, dtype):
-    return torch.bincount(labels, minlength=k).to(dtype)
+def _counts(labels, k, dtype, valid=None):
+    """Class counts of ``labels``, the rows outside ``valid`` left out."""
+    if valid is None:
+        return torch.bincount(labels, minlength=k).to(dtype)
+    labels = torch.where(valid, labels, torch.full_like(labels, k))
+    return torch.bincount(labels, minlength=k + 1)[:k].to(dtype)
 
 
 def assign_labels(a, fixed_mask, fixed_labels, lower, upper,
-                  max_price_it: int = 500):
+                  max_price_it: int = 500, valid=None):
     """Volume-constrained assignment of the (n, k) affinities ``a``:
     int64 labels of shape (n,) with ``lower <= counts <= upper``, the
     nodes of ``fixed_mask`` pinned to ``fixed_labels``.  Price ascent
@@ -67,18 +75,20 @@ def assign_labels(a, fixed_mask, fixed_labels, lower, upper,
     feasible labeling), then the repair: each round moves up to
     ``min(over, under, 128)`` movable nodes of the most over-full class to
     the most under-full one, those losing least score first (ties to the
-    lower index, as ``lax.top_k``)."""
+    lower index, as ``lax.top_k``).  Rows outside ``valid`` (mesh padding)
+    are left out of the counts and never moved."""
     n, k = a.shape
     dev, dt = a.device, a.dtype
     scale = torch.max(a) - torch.min(a) + 1e-8
     neg_big = torch.finfo(dt).min
     fixed_labels = fixed_labels.long()
+    count = lambda labels: _counts(labels, k, dt, valid)
 
     def pbody(state):
         p, it, done = state
         labels = torch.where(fixed_mask, fixed_labels,
                              torch.argmax(a + p[None, :], dim=1))
-        counts = _counts(labels, k, dt)
+        counts = count(labels)
         over = torch.clamp(counts - upper, min=0.0)
         under = torch.clamp(lower - counts, min=0.0)
         done = torch.max(over + under) == 0
@@ -98,18 +108,20 @@ def assign_labels(a, fixed_mask, fixed_labels, lower, upper,
     ranks = torch.arange(krep, device=dev)
 
     def bad(labels):
-        counts = _counts(labels, k, dt)
+        counts = count(labels)
         return torch.any(counts > upper) | torch.any(counts < lower)
 
     def rbody(state):
         labels, it = state
-        counts = _counts(labels, k, dt)
+        counts = count(labels)
         co = torch.argmax(counts - upper)          # most over-full
         cu = torch.argmax(lower - counts)          # most under-full
         both = torch.minimum(torch.clamp(counts[co] - upper[co], min=0.0),
                              torch.clamp(lower[cu] - counts[cu], min=0.0))
         t = torch.clamp(both, 1.0, float(krep)).long()
         movable = (labels == co) & ~fixed_mask
+        if valid is not None:
+            movable = movable & valid
         margin = torch.where(movable, a.index_select(1, cu.view(1))[:, 0]
                              - a.index_select(1, co.view(1))[:, 0], neg_big)
         vals, idx = torch.sort(margin, descending=True, stable=True)
@@ -235,19 +247,21 @@ def gumbel(generator, dtype):
 
 
 def mbo_round(dual_conv, state, fixed_mask, fixed_labels, lower, upper,
-              temp, draw, n_true: int, max_price_it: int = 500):
+              temp, draw, n_true: int, max_price_it: int = 500, valid=None):
     """One VolumeMBO iteration on a ``(labels, it, stop)`` state: the dual
     convolution of the labels, with ``temp > 0`` the annealed noise
     ``temp / (it + 1) * draw(shape) / n_true`` added, and the
     volume-constrained assignment.  ``stop`` once no label changed (past
     ten iterations with noise).  ``draw`` is called once per iteration
-    with noise, in order."""
+    with noise, in order.  Rows outside ``valid`` keep their labels."""
     labels, it, _ = state
     a = dual_conv(labels)
     if temp > 0:
         a = a + (temp / (it + 1.0)) * draw(a.shape) / n_true
     new_labels = assign_labels(a, fixed_mask, fixed_labels, lower, upper,
-                               max_price_it=max_price_it)
+                               max_price_it=max_price_it, valid=valid)
+    if valid is not None:
+        new_labels = torch.where(valid, new_labels, labels)
     changed = int(torch.sum(new_labels != labels))
     return new_labels, it + 1, changed == 0 and (temp == 0 or it > 10)
 
@@ -255,7 +269,7 @@ def mbo_round(dual_conv, state, fixed_mask, fixed_labels, lower, upper,
 def mbo_loop(dual_conv, labels0, fixed_mask, fixed_labels, lower, upper,
              temp, draw, n_true: int, max_iters: int,
              max_price_it: int = 500, on_round=None, ckpt=None,
-             generator=None):
+             generator=None, valid=None):
     """The VolumeMBO fixed point: :func:`mbo_round` from ``labels0`` until
     it stops or ``max_iters`` iterations.  ``dual_conv``: (n,) labels ->
     (n, k) affinities.  ``on_round(old labels, state)``, when given, is
@@ -263,8 +277,8 @@ def mbo_loop(dual_conv, labels0, fixed_mask, fixed_labels, lower, upper,
     is saved every ``every`` iterations with the state of ``generator``
     (the one ``draw`` reads), and a run restarted on ``path`` goes on from
     its last save with the same noise
-    (:func:`checkpoint.run_checkpointed_while`).  Returns ``(labels,
-    iters)``."""
+    (:func:`checkpoint.run_checkpointed_while`).  ``valid``: the rows that
+    count and move (:func:`mbo_round`).  Returns ``(labels, iters)``."""
 
     def step(state):
         if state[2]:
@@ -273,7 +287,7 @@ def mbo_loop(dual_conv, labels0, fixed_mask, fixed_labels, lower, upper,
             generator.set_state(state[3])
         new = mbo_round(dual_conv, state[:3], fixed_mask, fixed_labels,
                         lower, upper, temp, draw, n_true=n_true,
-                        max_price_it=max_price_it)
+                        max_price_it=max_price_it, valid=valid)
         if on_round is not None:
             on_round(state[0], new)
         return new if ckpt is None else new + (generator.get_state(),)

@@ -16,10 +16,12 @@ the plain ELL gather (:mod:`ops.graphops`).  ``self.iters`` holds the
 solver's iteration (or sweep) count after a fit.  One-vs-rest models solve
 their C problems together (``_fit_onevsrest``) or one class at a time.
 
-``model.distribute(mesh)`` runs the fits of Laplace, random-walk,
-Poisson (CG and gradient descent) and PoissonMBO on a mesh of ranks
-(:mod:`parallel.execute`); the other families' distributed fits come with
-P15b and raise ``NotImplementedError`` when fitted on a mesh.
+``model.distribute(mesh)`` runs the fits of every family but dynamic
+label propagation on a mesh of ranks (:mod:`parallel.execute`), as the JAX
+package does.  Two fits refuse there, where the JAX package fits on one
+device: PoissonMBO and VolumeMBO with ``all_labels`` (each round's
+accuracy) or a checkpoint.  p-Laplace with ``fast=False`` fits on one
+device, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -151,9 +153,10 @@ class ssl:
         :class:`config.GLTConfig`, a ``Distributor``, ``"auto"`` (the
         default config's mesh over the initialized process group, world
         size 1 without one) or None to undo it.  The fits give the same
-        results as on one device up to the order of float sums.  A model
-        with no sharded path warns (``strict=True`` raises); one whose
-        sharded fit comes with P15b raises when fitted.  Returns self:
+        results as on one device up to the order of float sums (the
+        stochastic ones at equal draws).  A model with no sharded path
+        warns (``strict=True`` raises); a fit the mesh does not take
+        (:meth:`_dist_gap`) raises when fitted.  Returns self:
         ``gl.ssl.poisson(W).distribute(cfg).fit_predict(...)``."""
         if mesh is None:
             self._dist = None
@@ -176,11 +179,9 @@ class ssl:
         return self
 
     def _dist_gap(self, all_labels=None):
-        """What of this fit has no sharded path yet (None: it has one, or
-        the model has none at all)."""
-        if not type(self)._sharded_supported:
-            return None
-        return f"the sharded {type(self).__name__} fit"
+        """What of this fit the mesh does not take (None: it takes it, or
+        the model has no sharded path at all)."""
+        return None
 
     def set_graph(self, W):
         if isinstance(W, _graphmod.graph):
@@ -314,8 +315,8 @@ class ssl:
             gap = self._dist_gap(all_labels)
             if gap is not None:
                 raise NotImplementedError(
-                    f"{type(self).__name__}.fit on a mesh: {gap} comes with "
-                    "P15b")
+                    f"{type(self).__name__}.fit on a mesh: {gap} is not "
+                    "ported (the JAX package fits it on one device; P15c)")
         train_ind = np.asarray(train_ind)
         train_labels = np.asarray(train_labels)
         self.fitted = True
@@ -478,6 +479,16 @@ def _as_numpy(u):
     return u.cpu().numpy() if torch.is_tensor(u) else np.asarray(u)
 
 
+def _rounds_gap(model, all_labels):
+    """What of an MBO fit's rounds the mesh does not take: printing each
+    round's accuracy (``all_labels``), or a checkpoint."""
+    if all_labels is not None:
+        return "the rounds with all_labels (each round's accuracy)"
+    if getattr(model, "_ckpt", None) is not None:
+        return "a checkpointed fit"
+    return None
+
+
 def warmup(model, num_classes=2, num_train=None, seed=0):
     """Run one ``fit_predict`` of ``model`` on its own graph with synthetic
     labels (``num_train`` nodes from ``seed``, ``num_classes`` classes),
@@ -630,9 +641,6 @@ class laplace(ssl):
             u = u - torch.mean(u, dim=0)
         return u
 
-    def _dist_gap(self, all_labels=None):
-        return None
-
     def _fit_batched(self, trainsets, labels):
         """The trials' predicted labels by :meth:`_solve_batched` (the
         reweighted fits take one ``fit_predict`` a trial: each rebuilds
@@ -695,9 +703,6 @@ class randomwalk(ssl):
         self.name = "Random Walk"
         self.accuracy_filename = "_randomwalk"
 
-    def _dist_gap(self, all_labels=None):
-        return None
-
     def _fit(self, train_ind, train_labels, all_labels=None):
         G = self.graph
         dev = G.device
@@ -757,11 +762,6 @@ class poisson(ssl):
             self.requires_eig = True
         self.accuracy_filename = fname
 
-    def _dist_gap(self, all_labels=None):
-        if self.solver == "spectral":
-            return "the sharded spectral solver (the sharded eigensolvers)"
-        return None
-
     def _fit(self, train_ind, train_labels, all_labels=None):
         n = self.graph.num_nodes
         dev = self.graph.device
@@ -782,6 +782,19 @@ class poisson(ssl):
                     warm = None
                 u, self.iters = _exec.poisson_cg_fit_sharded(
                     self._dist, W, source, self.tol, u0=warm)
+            elif self.solver == "spectral":
+                info = {}
+                vals, vecs = _exec.eigen_decomp_sharded(
+                    self._dist, W, normalization="randomwalk",
+                    k=self.spectral_cutoff + 1, info=info)
+                self.iters = info["iters"]
+                b = torch.as_tensor(source, device=dev).to(dtype)
+                V = torch.as_tensor(vecs[:, 1:], device=dev).to(dtype)
+                lam = torch.as_tensor(vals[1:], device=dev).to(dtype)
+                if self.p != 1:
+                    lam = lam ** self.p
+                with config.exact_matmul():
+                    return V @ ((V.T @ b) / lam[:, None])
             else:
                 u, self.iters = _exec.poisson_gd_fit_sharded(
                     self._dist, W, source, train_ind, self.min_iter,
@@ -948,12 +961,7 @@ class poisson_mbo(ssl):
         self.name = "Poisson MBO"
 
     def _dist_gap(self, all_labels=None):
-        gap = self.poisson_model._dist_gap()
-        if gap is None and all_labels is not None:
-            gap = "the sharded rounds with all_labels (each round's accuracy)"
-        if gap is None and getattr(self, "_ckpt", None) is not None:
-            gap = "a checkpointed sharded fit"
-        return gap
+        return _rounds_gap(self, all_labels)
 
     def _fit(self, train_ind, train_labels, all_labels=None):
         n = self.graph.num_nodes
@@ -1050,6 +1058,9 @@ class volume_mbo(ssl):
         self.name = "Volume MBO (T=%.2f, V=%.2f)" % (temperature,
                                                      volume_constraint)
 
+    def _dist_gap(self, all_labels=None):
+        return _rounds_gap(self, all_labels)
+
     def _fit(self, train_ind, train_labels, all_labels=None):
         n = self.graph.num_nodes
         dev = self.graph.device
@@ -1057,12 +1068,23 @@ class volume_mbo(ssl):
         k = len(np.unique(train_labels))
         W, G = self._nodiag_graph()
         g = G.sparse
-        acc = _accel.maybe_build(W, cache_obj=self, attr="_accel_vmbo",
-                                 device=dev, mode="bf16")
         self.voronoi_info = {}
-        _, cp = _eik.dijkstra(g, train_ind, bdy_val=np.zeros(len(train_ind)),
-                              return_cp=True, accel=acc,
-                              info=self.voronoi_info)
+        acc = None
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            # the Voronoi start on the mesh too: K7 over the halo
+            _, cp, rounds = _exec.dijkstra_fit_sharded(
+                self._dist, W, train_ind, np.zeros(len(train_ind)), 1,
+                return_cp=True)
+            self.voronoi_info.update(iters=rounds, path="sharded")
+        else:
+            acc = _accel.maybe_build(W, cache_obj=self, attr="_accel_vmbo",
+                                     device=dev, mode="bf16")
+            _, cp = _eik.dijkstra(g, train_ind,
+                                  bdy_val=np.zeros(len(train_ind)),
+                                  return_cp=True, accel=acc,
+                                  info=self.voronoi_info)
         lab_of = np.full(n, -1, dtype=int)
         lab_of[train_ind] = train_labels
         labels = np.array(lab_of[np.maximum(cp, 0)])
@@ -1074,6 +1096,21 @@ class volume_mbo(ssl):
         fixed_labels = np.zeros(n, dtype=int)
         fixed_labels[train_ind] = train_labels
         vc = self.volume_constraint
+        seed = (int(np.random.randint(2**31)) if self.seed is None
+                else int(self.seed))
+        if self._dist is not None:
+            # every rank draws the one-device fit's noise
+            gen = torch.Generator(device=self._dist.device).manual_seed(seed)
+            draw = _volume.gumbel(gen, self._dist._dtype())
+            labels, self.iters = _exec.volume_mbo_fit_sharded(
+                self._dist, W, labels, fixed, fixed_labels,
+                np.floor(vc * self.class_counts),
+                np.ceil((2 - vc) * self.class_counts), self.temperature,
+                draw, k, self.max_iters)
+            labels[train_ind] = train_labels
+            return utils.labels_to_onehot(labels, k)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        draw = _volume.gumbel(gen, dtype)
         as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
         lower = as_t(np.floor(vc * self.class_counts)).to(dtype)
         upper = as_t(np.ceil((2 - vc) * self.class_counts)).to(dtype)
@@ -1097,10 +1134,6 @@ class volume_mbo(ssl):
                     g, _volume._onehot(labels, k, dtype))
                 return dinv[:, None] * _ops.spmm(g, a)
 
-        seed = (int(np.random.randint(2**31)) if self.seed is None
-                else int(self.seed))
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        draw = _volume.gumbel(gen, dtype)
         temp = self.temperature
         report = None
         if all_labels is not None:
@@ -1153,8 +1186,19 @@ class multiclass_mbo(ssl):
         dev = self.graph.device
         dtype = config.float_dtype(dev)
         k = len(np.unique(train_labels))
-        eigvals, X = self.graph.eigen_decomp_device(
-            normalization="normalized", k=self.num_eig)
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            info = {}
+            eigvals, X = (torch.as_tensor(a, device=dev) for a in
+                          _exec.eigen_decomp_sharded(
+                              self._dist, self.graph.weight_matrix,
+                              normalization="normalized", k=self.num_eig,
+                              info=info))
+            self.iters = info["iters"]       # LOBPCG's steps (0: kept)
+        else:
+            eigvals, X = self.graph.eigen_decomp_device(
+                normalization="normalized", k=self.num_eig)
         X = X.to(dtype)
         V = (1.0 / (1.0 + (dt / Ns) * eigvals)).to(dtype)
 
@@ -1215,9 +1259,19 @@ class modularity_mbo(ssl):
         u0 = np.zeros((n, k))
         u0[train_ind] = train_onehot
 
-        D, V = self.graph.eigen_decomp_device(normalization="combinatorial",
-                                              k=5 * k, gamma=gamma)
-        D = D.cpu().numpy()
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            info = {}
+            D, V = _exec.eigen_decomp_mod_sharded(
+                self._dist, self.graph.weight_matrix, k=5 * k, gamma=gamma,
+                info=info)
+            V = torch.as_tensor(V, device=dev)
+            self.iters = info["iters"]       # LOBPCG's steps (0: kept)
+        else:
+            D, V = self.graph.eigen_decomp_device(
+                normalization="combinatorial", k=5 * k, gamma=gamma)
+            D = D.cpu().numpy()
         deg = self.graph.degree_vector()
         dtlow = 0.15 / ((gamma + 1) * np.max(deg))
         dthigh = np.log(np.linalg.norm(u0) / eps) / max(D[0], 1e-12)
@@ -1281,6 +1335,13 @@ class centered_kernel(ssl):
         K = torch.as_tensor(K, device=dev).to(dtype)
         mask = torch.as_tensor(mask, device=dev)
         tol = max(self.tol, 100 * torch.finfo(dtype).eps)
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            u, self.iters = _exec.centered_kernel_fit_sharded(
+                self._dist, W, K.cpu().numpy(), mask.cpu().numpy(),
+                self.alpha, tol, self.power_it, self.seed)
+            return u
         e0 = _centered.start(n, self.seed, dtype, dev)
         info = {}
         acc = _accel.maybe_build(W, cache_obj=self, attr="_accel_ck",
@@ -1331,14 +1392,27 @@ class graph_nearest_neighbor(ssl):
     def _fit(self, train_ind, train_labels, all_labels=None):
         g = self.graph.sparse
         info = {}
-        if self.onevsrest:
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            W = self.graph.weight_matrix
+            if self.onevsrest:
+                u, self.iters = _exec.dijkstra_fit_sharded(
+                    self._dist, W, train_ind[train_labels], 0, self.f)
+                return u
+            _, cp, self.iters = _exec.dijkstra_fit_sharded(
+                self._dist, W, train_ind, np.zeros(len(train_ind)), self.f,
+                return_cp=True)
+        elif self.onevsrest:
             u = _eik.dijkstra(g, train_ind[train_labels], bdy_val=0,
                               f=self.f, info=info)
             self.iters = info["iters"]
             return u
-        _, cp = _eik.dijkstra(g, train_ind, bdy_val=np.zeros(len(train_ind)),
-                              f=self.f, return_cp=True, info=info)
-        self.iters = info["iters"]
+        else:
+            _, cp = _eik.dijkstra(g, train_ind,
+                                  bdy_val=np.zeros(len(train_ind)), f=self.f,
+                                  return_cp=True, info=info)
+            self.iters = info["iters"]
         lab_of = np.zeros(self.graph.num_nodes, dtype=int)
         lab_of[train_ind] = train_labels
         k = len(np.unique(train_labels))
@@ -1347,6 +1421,28 @@ class graph_nearest_neighbor(ssl):
 
 def _onehot_bdy(train_labels, unique_labels):
     return (train_labels[:, None] == unique_labels[None, :]).astype(float)
+
+
+def _lip_sharded(model, train_ind, bdy_vals, alpha, beta, weighted, tol):
+    """A Lipschitz fit on the mesh (``parallel.execute.lip_fit_sharded``)
+    from the Voronoi start, the closest labeled node's values by the
+    sharded Bellman-Ford (K7 over the halo on the band).  Sets the
+    model's ``iters``, ``path`` and ``info`` (with the start's rounds,
+    "voronoi_iters")."""
+    from graphlearning_tpu_torch.parallel import execute as _exec
+
+    W = model.graph.weight_matrix
+    _, cp, voronoi = _exec.dijkstra_fit_sharded(
+        model._dist, W, train_ind, np.zeros(len(train_ind)), 1,
+        return_cp=True)
+    u, model.iters = _exec.lip_fit_sharded(
+        model._dist, W, train_ind, bdy_vals, alpha=alpha, beta=beta,
+        weighted=weighted, tol=tol, max_num_it=model.max_num_it,
+        u0=_pl.voronoi_values(cp, train_ind, bdy_vals))
+    model.path = "sharded"
+    model.info = {"iters": model.iters, "voronoi_iters": voronoi,
+                  "path": model.path}
+    return u
 
 
 def _lip_accel(model):
@@ -1386,6 +1482,10 @@ class amle(ssl):
                                weighted=self.weighted)
 
     def _fit_onevsrest(self, train_ind, train_labels, unique_labels):
+        if self._dist is not None:
+            return _lip_sharded(self, train_ind,
+                                _onehot_bdy(train_labels, unique_labels),
+                                0.0, 1.0, self.weighted, self.tol)
         acc = _lip_accel(self)
         info = {}
         u = _pl.amle_mc(self.graph.sparse, train_ind,
@@ -1429,6 +1529,18 @@ class peikonal(ssl):
                                    num_bisection_it=self.num_bisection_it)
 
     def _fit_onevsrest(self, train_ind, train_labels, unique_labels):
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            n = self.graph.num_nodes
+            bdy_mask = np.zeros((n, len(unique_labels)), dtype=bool)
+            for c, l in enumerate(unique_labels):
+                bdy_mask[train_ind[train_labels == l], c] = True
+            u, self.iters = _exec.peikonal_fit_sharded(
+                self._dist, self.graph.weight_matrix, bdy_mask,
+                _eik._speed(self.f, n), self.p, self.tol, self.max_num_it,
+                self.num_bisection_it)
+            return u
         info = {}
         u = _eik.peikonal_mc(
             self.graph.sparse,
@@ -1461,6 +1573,14 @@ class plaplace(ssl):
                                    tol=self.tol)
 
     def _fit_onevsrest(self, train_ind, train_labels, unique_labels):
+        if self._dist is not None and self.fast:
+            # the two-sided sandwich (fast=False) fits on one device, as
+            # the JAX package's does
+            alpha = 1.0 / (self.p - 1.0)
+            return _lip_sharded(self, train_ind,
+                                _onehot_bdy(train_labels, unique_labels),
+                                alpha, 1.0 - alpha, False,
+                                self.tol if self.tol < 1e-1 else 1e-5)
         acc = _lip_accel(self) if self.fast else None
         info = {}
         u = _pl.plaplace_mc(self.graph.sparse, train_ind,
@@ -1581,6 +1701,11 @@ class sparse_label_propagation(ssl):
         return cache[key]
 
     def _fit(self, train_ind, train_labels, all_labels=None):
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            return _exec.sparse_lp_fit_sharded(self._dist, self, train_ind,
+                                               train_labels)
         n = self.graph.num_nodes
         dev = self.graph.device
         dtype = config.float_dtype(dev)
@@ -1597,10 +1722,13 @@ class sparse_label_propagation(ssl):
                               self.T)
 
 
-def _sparse_lp_run(erow, ecol, ew, emir, gamma, ti, onehot, n, kc, T):
+def _sparse_lp_run(erow, ecol, ew, emir, gamma, ti, onehot, n, kc, T,
+                   reduce=None, gather=None):
     """The primal-dual TV iteration of :class:`sparse_label_propagation`,
     ``lam_e = 1 / (2 w_e + 1e-10)``; zero-weight pads add nothing to the
-    gradient or the divergence."""
+    gradient or the divergence.  On a mesh the edges are the rank's slice
+    (``emir`` global positions): ``gather`` all-gathers the dual field for
+    the mirrors and ``reduce`` sums the divergence over the ranks."""
     from graphlearning_tpu_torch.core.sparse import segment_reduce
 
     lam = 1.0 / (2.0 * ew + 1e-10)
@@ -1610,10 +1738,14 @@ def _sparse_lp_run(erow, ecol, ew, emir, gamma, ti, onehot, n, kc, T):
                     device=gamma.device)
     for _ in range(T):
         u_prev = u
-        contrib = ew[:, None] * (Y - Y[emir])
-        div = 0.5 * segment_reduce(
+        Yall = Y if gather is None else gather(Y)
+        contrib = ew[:, None] * (Y - Yall[emir])
+        div = segment_reduce(
             torch.zeros((n + 1, kc), dtype=u.dtype, device=u.device), erow,
-            contrib, "sum")[:n]
+            contrib, "sum")
+        if reduce is not None:
+            div = reduce(div)
+        div = 0.5 * div[:n]
         u = u_prev - gamma[:, None] * (2.0 * div)
         u[ti] = onehot
         u_tilde = 2.0 * u - u_prev

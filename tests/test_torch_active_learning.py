@@ -236,7 +236,19 @@ def test_spectral_covariance_matches_jax(moons, jax_start, kind):
 
 
 def test_spectral_covariance_refuses_a_distributed_model(moons):
-    m = tgl.ssl.laplace(moons[0], device="cpu")
-    m._dist = object()
-    with pytest.raises(NotImplementedError, match="P15"):
-        tal.spectral_covariance(m)
+    """(Name kept from when a distributed model refused.)  A distributed
+    model now solves on its mesh (one rank here): its covariance within
+    1e-8 of the one-device model's and of the JAX package's distributed
+    model's on a 4-device mesh."""
+    from graphlearning_tpu.config import GLTConfig as JConfig
+
+    W = moons[0]
+    m = tgl.ssl.laplace(W, device="cpu").distribute(
+        tgl.GLTConfig(devices="cpu"))
+    C, V = tal.spectral_covariance(m, k=8)
+    Ct, Vt = tal.spectral_covariance(tgl.ssl.laplace(W, device="cpu"), k=8)
+    Cj, _ = jal.spectral_covariance(jgl.ssl.laplace(W).distribute(
+        JConfig(mesh_shape=(4,), devices=jax.devices()[:4])), k=8)
+    np.testing.assert_allclose(C, Ct, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(C, np.asarray(Cj), rtol=0, atol=1e-8)
+    assert V.shape == Vt.shape

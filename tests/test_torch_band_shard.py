@@ -109,18 +109,3 @@ def test_blocks_builds_only_the_named_bands(W):
     assert [b is None for b in part.bands] == [True, True, False, True]
     with pytest.raises(ValueError, match="K1 built only"):
         part.band
-
-
-def test_sharded_op_hooks_of_p15b_raise(W):
-    """The gathers and reductions through the halo (K7, K9) come with
-    P15b: without them ``ops.graphops.neighbor_take`` would index global
-    columns on local rows."""
-    import graphlearning_tpu_torch as gl
-
-    mesh = gl.parallel.make_mesh(devices="cpu")
-    op = make_sharded_op(W, mesh, R=64, WT=64, mode="f64")
-    x = torch.zeros(op.n, dtype=torch.float64)
-    for call in (lambda: gl.ops.graphops.neighbor_take(op, x),
-                 lambda: op.minplus_(x, x), lambda: op.lip_reduce_(x[:, None])):
-        with pytest.raises(NotImplementedError, match="P15b"):
-            call()

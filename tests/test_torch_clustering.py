@@ -200,8 +200,8 @@ def test_base_class_exits(moons):
         model.predict()
     with pytest.raises(SystemExit, match="Invalid spectral clustering"):
         tgl.clustering.spectral(W, 2, method="bogus", device="cpu").fit()
-    with pytest.raises(NotImplementedError, match="P15"):
-        model.distribute()
+    assert model.distribute(tgl.GLTConfig(devices="cpu")) is model
+    assert model._dist.P == 1 and model.distribute(None)._dist is None
     with pytest.raises(NotImplementedError, match="_fit"):
         tgl.clustering.clustering(W, 2, device="cpu").fit()
     model.fit()

@@ -1645,3 +1645,94 @@ def test_cuda_world_size_one_nccl_laplace_fit(cuda_device, tmp_path,
     ref_pred = ref.fit_predict(ti, y[ti])
     assert np.mean(pred == ref_pred) >= 0.99
     assert abs(m.iters - ref.iters) <= 0.01 * ref.iters
+
+
+# -- the distribution layer (P15b) ---------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 4])
+def test_cuda_k7_k9_on_halo_extended_partition_blocks(cuda_device, P):
+    """K7 (argmin; plain, reciprocal and Hopf-Lax) and K9 (C = 2 and 40,
+    the latter in two column blocks as ``ShardedOp.lip_reduce_`` launches
+    it) on each block's halo-extended d, f and U (wrapped as the ring
+    does), on the live-chunk list built once per block: K7's min and
+    argmin equal to its twin's, K9's sums within TOL of max|ref| and its
+    min and max equal."""
+    from graphlearning_tpu_torch.parallel.band_shard import (
+        build_band_partition)
+
+    W = _knn_csr(3000, 10, seed=6)
+    perm = np.asarray(reverse_cuthill_mckee(W, symmetric_mode=True))
+    Wp = W[perm][:, perm].tocsr()
+    part = build_band_partition(Wp, P, R=128, WT=64, max_halo_frac=0.5,
+                                device=cuda_device)
+    gen = torch.Generator(device="cuda").manual_seed(P)
+    n_pad, B, H = part.n_pad, part.B, part.H
+    d = torch.rand(n_pad, generator=gen, device=cuda_device) * 3.0
+    f = torch.rand(n_pad, generator=gen, device=cuda_device) + 0.5
+    U = torch.randn((n_pad, 40), generator=gen, device=cuda_device)
+    for t in (d, f, U):
+        t[3000:] = 0.0
+    for p in range(P):
+        band, plan = part.bands[p], part.tiles_plan(p, cuda_device)
+        chunks = bs.tiles_live_chunks(band, plan)
+        rows = (torch.arange(B + 2 * H, device=cuda_device) + p * B - H) \
+            % n_pad
+        for hopf, recip in ((False, False), (False, True), (True, False)):
+            m, a = bs.band_tiles_minplus(band, plan, d[rows], f[rows],
+                                         hopf_lax=hopf, track_arg=True,
+                                         recip=recip, chunks=chunks)
+            rm, ra = bs._tiles_minplus_plain(band, plan, d[rows], f[rows],
+                                             hopf, True, recip)
+            assert torch.equal(m, rm) and torch.equal(a, ra)
+        for C in (2, 40):
+            for c0 in range(0, C, 32):
+                Uc = U[rows][:, c0:min(C, c0 + 32)].contiguous()
+                out = bs.band_tiles_lip(band, plan, Uc, chunks)
+                ref = bs._tiles_lip_plain(band, plan, Uc)
+                _close(out[0], ref[0], torch.float32)
+                assert torch.equal(out[1], ref[1])
+                assert torch.equal(out[2], ref[2])
+
+
+@pytest.mark.cuda
+def test_cuda_world_size_one_nccl_distance_and_lipschitz_fits(
+        cuda_device, tmp_path, monkeypatch):
+    """Graph NN (K7 a Bellman-Ford round) and AMLE (K7 for the Voronoi
+    start, then K9 a Jacobi round) on the partitioned band in a one-rank
+    NCCL group, against the plain single-device fits: graph NN's
+    predictions on >= 0.999 of the nodes, AMLE's on >= 0.99."""
+    import torch.distributed as dist
+
+    import graphlearning_tpu_torch as gl
+
+    W = _knn_csr(16384, 10, seed=8)
+    y = (W._glt_points[:, 0] > 0.5).astype(int)
+    ti = gl.trainsets.generate(y, rate=5, seed=0)
+    fits = {"graph_nn": lambda: gl.ssl.graph_nearest_neighbor(
+                W, device=cuda_device),
+            "amle": lambda: gl.ssl.amle(W, tol=1e-5, device=cuda_device)}
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    preds = {}
+    try:
+        for name, make in fits.items():
+            bs.reset_launches()
+            m = make().distribute(gl.GLTConfig(sharded_kernel="banded"))
+            preds[name] = m.fit_predict(ti, y[ti])
+            torch.cuda.synchronize()
+            assert m._dist.route == "banded"
+            if name == "graph_nn":
+                assert bs.band_tiles_minplus.launches == m.iters
+            else:
+                assert bs.band_tiles_minplus.launches == \
+                    m.info["voronoi_iters"]
+                assert bs.band_tiles_lip.launches == m.iters
+    finally:
+        dist.destroy_process_group()
+    monkeypatch.setenv("GLT_NO_ACCEL", "1")
+    for name, make in fits.items():
+        ref = make().fit_predict(ti, y[ti])
+        limit = 0.999 if name == "graph_nn" else 0.99
+        assert np.mean(preds[name] == ref) >= limit, name

@@ -9,7 +9,7 @@ cases and puts its results on a queue.  The parent waits at most
 ``timeout`` seconds, so a hung collective fails the test instead of
 eating the suite's time.  The JAX comparisons live in the files that
 call :func:`run_ranks` (``test_torch_parallel.py``,
-``test_torch_sharded_models.py``).
+``test_torch_sharded_models.py``, ``test_torch_sharded_families.py``).
 """
 
 import multiprocessing as mp
@@ -48,9 +48,15 @@ def _rank_main(rank, world, init, cases, out):
     out.put((rank, results))
 
 
+def _world(key):
+    """A group's world size: its key, or the key's first item."""
+    return key[0] if isinstance(key, tuple) else key
+
+
 class Ranks:
     """Spawned gloo ranks running their cases: each group's ranks start at
-    once (``groups`` maps a world size to its cases, ``(name, fn,
+    once (``groups`` maps a world size, or a ``(world size, tag)`` pair
+    where one size has several groups, to its cases, ``(name, fn,
     kwargs)``, ``fn`` a module-level function of a JAX-free module), and
     :meth:`results` waits for them.  ``init``: "file" (a ``file://``
     store a group) or None (the cases join a group themselves)."""
@@ -58,45 +64,46 @@ class Ranks:
     def __init__(self, groups, tmp_path, init="file"):
         ctx = mp.get_context("spawn")
         self.groups = groups
-        self.out = {world: ctx.Queue() for world in groups}
+        self.out = {key: ctx.Queue() for key in groups}
         self.procs = {}
-        for world, cases in groups.items():
+        for i, (key, cases) in enumerate(groups.items()):
+            world = _world(key)
             store = None
             if init == "file":
                 store = "file://" + os.path.join(str(tmp_path),
-                                                 f"store{world}")
+                                                 f"store{i}")
             for r in range(world):
                 p = ctx.Process(target=_rank_main,
                                 args=(r, world, store, cases,
-                                      self.out[world]), daemon=True)
+                                      self.out[key]), daemon=True)
                 p.start()
-                self.procs[world, r] = p
+                self.procs[key, r] = p
 
     def results(self, timeout=RANK_TIMEOUT):
-        """``{world: [each rank's {name: result}]}``, within ``timeout``
+        """``{key: [each rank's {name: result}]}``, within ``timeout``
         seconds; fails the test on a rank's error or a hang."""
-        got = {world: {} for world in self.groups}
+        got = {key: {} for key in self.groups}
         try:
-            for world in self.groups:
-                for _ in range(world):
-                    rank, res = self.out[world].get(timeout=timeout)
-                    got[world][rank] = res
+            for key in self.groups:
+                for _ in range(_world(key)):
+                    rank, res = self.out[key].get(timeout=timeout)
+                    got[key][rank] = res
         except queue.Empty:
             pytest.fail(f"no result within {timeout} s: "
-                        f"{ {w: sorted(g) for w, g in got.items()} }")
+                        f"{ {k: sorted(g) for k, g in got.items()} }")
         finally:
             for p in self.procs.values():
                 p.join(timeout=10)
                 if p.is_alive():
                     p.kill()
                     p.join(timeout=10)
-        for (world, rank), p in self.procs.items():
+        for (key, rank), p in self.procs.items():
             assert not p.is_alive()
-            if "__error__" in got[world][rank]:
-                pytest.fail(f"rank {rank} of {world}:\n"
-                            f"{got[world][rank]['__error__']}")
-        return {world: [got[world][r] for r in range(world)]
-                for world in self.groups}
+            if "__error__" in got[key][rank]:
+                pytest.fail(f"rank {rank} of {key}:\n"
+                            f"{got[key][rank]['__error__']}")
+        return {key: [got[key][r] for r in range(_world(key))]
+                for key in self.groups}
 
 
 def run_ranks(groups, tmp_path, timeout=RANK_TIMEOUT, init="file"):
@@ -233,6 +240,164 @@ def case_fits(W, ti, labels, priors, kernel, names=tuple(FITS)):
     return out
 
 
+# -- the second half of the distribution layer (P15b) --------------------------
+
+
+def case_halo(W, d, f, x, cp, U2, U40, R, WT, max_halo_frac):
+    """The halo methods of one partitioned band, gathered: ``neighbor_take_``
+    (float and int32), ``minplus_`` (plain, reciprocal, Hopf-Lax; min and
+    global argmin) and ``lip_reduce_`` at C = 2 and 40 (two K9 column
+    blocks), with the partition's geometry and residual count."""
+    import torch
+
+    import graphlearning_tpu_torch as gl
+    from graphlearning_tpu_torch.parallel import band_shard
+
+    mesh = gl.parallel.make_mesh()
+    plan = band_shard.ShardedBandPlan(W, mesh, R=R, WT=WT, mode="f64",
+                                      max_halo_frac=max_halo_frac)
+    op = plan.op
+    r0 = mesh.rank * plan.B
+    cp_pad = np.concatenate([cp, np.full(plan.n_pad - len(cp), -1)])
+    cp_rows = torch.as_tensor(cp_pad[r0:r0 + plan.B].astype(np.int32))
+    out = {"take": _gather(mesh, op.neighbor_take_(plan.put_rows(x))),
+           "take_int": _gather(mesh, op.neighbor_take_(cp_rows)),
+           "geometry": (plan.B, plan.H, plan.n_pad, op.has_res),
+           "residual": int(mesh.all_reduce(torch.tensor(op.n_residual))),
+           "chunks": op.chunks is op.chunks and op.chunks[1].numel()}
+    dl, fl = plan.put_rows(d), plan.put_rows(f)
+    for hopf, recip in ((False, False), (False, True), (True, False)):
+        m, a = op.minplus_(dl, fl, hopf_lax=hopf, recip=recip)
+        out["minplus", hopf, recip] = (_gather(mesh, m), _gather(mesh, a))
+    for name, U in (("lip2", U2), ("lip40", U40)):
+        s, mn, mx = op.lip_reduce_(plan.put_rows(U))
+        out[name] = tuple(_gather(mesh, t) for t in (s, mn, mx))
+    return out
+
+
+FAMILIES = {
+    "graph_nn": lambda gl, W, priors: gl.ssl.graph_nearest_neighbor(
+        W, device="cpu"),
+    "plaplace": lambda gl, W, priors: gl.ssl.plaplace(W, p=10,
+                                                      device="cpu"),
+    "amle": lambda gl, W, priors: gl.ssl.amle(W, tol=1e-8, device="cpu"),
+    "amle_weighted": lambda gl, W, priors: gl.ssl.amle(W, weighted=True,
+                                                       device="cpu"),
+    "peikonal": lambda gl, W, priors: gl.ssl.peikonal(W, device="cpu"),
+    "volume_mbo": lambda gl, W, priors: gl.ssl.volume_mbo(
+        W, class_priors=priors, temperature=0, device="cpu"),
+    "volume_mbo_noisy": lambda gl, W, priors: gl.ssl.volume_mbo(
+        W, class_priors=priors, temperature=0.1, seed=0, device="cpu"),
+    "sparse_lp": lambda gl, W, priors: gl.ssl.sparse_label_propagation(
+        W, T=30, device="cpu"),
+    "centered_kernel": lambda gl, W, priors: gl.ssl.centered_kernel(
+        W, device="cpu"),
+    # the eigenbasis fits share one normalized solve (k = 3) on the mesh
+    "poisson_spectral": lambda gl, W, priors: gl.ssl.poisson(
+        W, solver="spectral", spectral_cutoff=2, device="cpu"),
+    "poisson_mbo_spectral": lambda gl, W, priors: gl.ssl.poisson_mbo(
+        W, class_priors=priors, solver="spectral", spectral_cutoff=2, T=2,
+        device="cpu"),
+    "multiclass_mbo": lambda gl, W, priors: gl.ssl.multiclass_mbo(
+        W, num_eig=3, seed=0, device="cpu"),
+    "modularity_mbo": lambda gl, W, priors: gl.ssl.modularity_mbo(
+        W, device="cpu"),
+}
+
+
+def case_families(W, ti, labels, priors, kernel, e0, incres_draws,
+                  jax_draws=None, volume_loop=None, names=tuple(FAMILIES),
+                  combinatorial=True):
+    """Every P15b family's sharded fit on the ``kernel`` route (``(u,
+    prediction, iterations, route)``), Dijkstra with its closest points
+    (plain, Hopf-Lax, reciprocal), the centered kernel from the power
+    vector ``e0`` (node order), the eigensolvers, spectral clustering,
+    ``spectral_covariance`` of a distributed Laplace model, INCRES's
+    rounds fed ``incres_draws`` and ``jax_draws`` (``(k, n)`` node-order
+    scores, one a round), and VolumeMBO's loop on ``volume_loop``'s
+    inputs fed its ``draws`` (node-order Gumbel noise, one a round).
+    ``combinatorial``: also the combinatorial Laplacian's solve (LOBPCG's
+    slowest here) and its clustering."""
+    import torch
+
+    import graphlearning_tpu_torch as gl
+    from graphlearning_tpu_torch.parallel import execute as ex
+
+    cfg = gl.GLTConfig(sharded_kernel=kernel, devices="cpu")
+    out = {}
+    for name in names:
+        m = FAMILIES[name](gl, W, priors).distribute(cfg)
+        u = m.fit(ti, labels[ti])
+        out[name] = (u, m.predict(), m.iters, m._dist.route)
+    dist = ex.Distributor(cfg)
+    for hopf, recip in ((False, False), (True, False), (False, True)):
+        out["dijkstra", hopf, recip] = ex.dijkstra_fit_sharded(
+            dist, W, ti[:5], 0.0, 1.0, return_cp=True, hopf_lax=hopf,
+            reciprocal_weights=recip)
+    n, k = W.shape[0], 3
+    K = np.zeros((n, k))
+    K[ti] = np.eye(k)[labels[ti]]
+    K[ti] -= K.sum(0) / len(ti)
+    mask = np.zeros(n, bool)
+    mask[ti] = True
+    Wn = W.copy()
+    Wn.setdiag(0)
+    Wn.eliminate_zeros()
+    out["centered_e0"] = ex.centered_kernel_fit_sharded(
+        dist, Wn, K, mask, 1.05, 1e-10, 100, 0, e0=e0)
+    norms = ("normalized", "randomwalk") + (
+        ("combinatorial",) if combinatorial else ())
+    for norm in norms:
+        out["eig", norm] = ex.eigen_decomp_sharded(dist, W, norm, k=3)
+    out["eig", "modularity"] = ex.eigen_decomp_mod_sharded(dist, W, k=15,
+                                                           gamma=0.5)
+    methods = ("NgJordanWeiss",) + (("combinatorial",) if combinatorial
+                                    else ())
+    for method in methods:
+        out["spectral", method] = gl.clustering.spectral(
+            W, 3, method=method, device="cpu").distribute(cfg).fit_predict()
+    out["covariance"] = gl.active_learning.spectral_covariance(
+        gl.ssl.laplace(W, device="cpu").distribute(cfg), k=3)
+    u0 = np.random.RandomState(0).randint(0, 3, size=n)
+    for key, draws in (("incres", incres_draws), ("incres_jax", jax_draws)):
+        if draws is not None:
+            it = iter(draws)
+            out[key] = ex.incres_fit_sharded(
+                dist, W, u0, lambda shape: torch.as_tensor(next(it)), k=3,
+                T=8, Dm=1)
+    if volume_loop is not None:
+        v = dict(volume_loop)
+        it = iter(v.pop("draws"))
+        out["volume_jax_draws"] = ex.volume_mbo_fit_sharded(
+            dist, draw=lambda shape: torch.as_tensor(next(it)[:shape[0]]),
+            **v)
+    return out
+
+
+def case_runners(W, ti, labels, trainsets, results_dir):
+    """JAX's two runner tests on a distributed model: ``ssl_trials`` of a
+    Poisson model (its CSV under ``results_dir``, rank 0 writing) and an
+    ``active_learner`` over a Laplace model (two queries)."""
+    import graphlearning_tpu_torch as gl
+    from graphlearning_tpu_torch import ssl as tssl
+
+    cfg = gl.GLTConfig(devices="cpu")
+    mesh = gl.parallel.make_mesh()
+    tssl.results_dir = os.path.join(results_dir, f"rank{mesh.rank}")
+    model = gl.ssl.poisson(W, device="cpu").distribute(cfg)
+    trials = model.ssl_trials(trainsets, labels, overwrite=True)
+    model = gl.ssl.laplace(W, device="cpu").distribute(cfg)
+    al = gl.active_learning.active_learner(
+        model, gl.active_learning.unc_sampling(), ti, labels[ti])
+    queries = []
+    for _ in range(2):
+        q = al.select_queries(batch_size=1)
+        al.update(q, labels[q])
+        queries.append(np.asarray(q))
+    return {"trials": trials, "queries": queries,
+            "labeled": np.asarray(al.labeled_ind), "u": np.asarray(al.u)}
+
+
 # -- the mesh without a process group -----------------------------------------
 
 
@@ -251,7 +416,7 @@ def test_world_size_one_mesh_is_local():
     assert torch.equal(left, X[-2:]) and torch.equal(right, X[:2])
     assert mesh.all_reduce(X) is X and mesh.all_gather(X) is X
     assert mesh.ring_shift(X) is X
-    with pytest.raises(NotImplementedError, match="P15b"):
+    with pytest.raises(NotImplementedError, match="P15c"):
         gl.parallel.make_mesh(batch_axis=2, devices="cpu")
     with pytest.raises(ValueError):
         gl.parallel.make_mesh(n_nodes_axis=2, devices="cpu")

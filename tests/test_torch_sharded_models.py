@@ -9,8 +9,9 @@ system stopped at their tolerance; JAX's own sharded tests allow 1e-7 /
 1e-10 with JAX's iteration count, PoissonMBO's one-hot labels equal, and
 every prediction equal.  A directed graph's gradient descent (the
 operator on ``W.T``, the degrees the row sums of W) on the ranks at P = 2.
-In one process: ``distribute(None)``, the P15b refusals and dynamic label
-propagation's warning.
+In one process: ``distribute(None)`` and dynamic label propagation's
+warning.  The other families' sharded fits are held in
+``test_torch_sharded_families.py``.
 
 The ranks run ``tests/test_torch_ranks.py`` (no JAX there), one spawn for
 both world sizes.
@@ -185,30 +186,6 @@ def test_distribute_none_and_world_size_one(clusters):
     assert pm.poisson_model._dist is pm._dist
     pm.distribute(None)
     assert pm.poisson_model._dist is None
-
-
-@pytest.mark.parametrize("make", [
-    lambda W: tgl.ssl.volume_mbo(W, class_priors=[0.3, 0.3, 0.4],
-                                 device="cpu"),
-    lambda W: tgl.ssl.plaplace(W, device="cpu"),
-    lambda W: tgl.ssl.amle(W, device="cpu"),
-    lambda W: tgl.ssl.peikonal(W, device="cpu"),
-    lambda W: tgl.ssl.graph_nearest_neighbor(W, device="cpu"),
-    lambda W: tgl.ssl.centered_kernel(W, device="cpu"),
-    lambda W: tgl.ssl.multiclass_mbo(W, device="cpu"),
-    lambda W: tgl.ssl.modularity_mbo(W, device="cpu"),
-    lambda W: tgl.ssl.sparse_label_propagation(W, device="cpu"),
-    lambda W: tgl.ssl.poisson(W, solver="spectral", device="cpu"),
-    lambda W: tgl.ssl.poisson_mbo(W, solver="spectral", device="cpu"),
-], ids=["volume_mbo", "plaplace", "amle", "peikonal", "graph_nn",
-        "centered_kernel", "multiclass_mbo", "modularity_mbo",
-        "sparse_lp", "poisson_spectral", "poisson_mbo_spectral"])
-def test_p15b_families_refuse_at_fit(clusters, make):
-    """No family quietly fits on one device after ``distribute``."""
-    W, labels, ti, _ = clusters
-    m = make(W).distribute(tgl.GLTConfig(devices="cpu"))
-    with pytest.raises(NotImplementedError, match="P15b"):
-        m.fit(ti, labels[ti])
 
 
 def test_dynamic_label_propagation_warns(clusters):

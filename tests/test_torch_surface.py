@@ -30,7 +30,7 @@ from graphlearning_tpu_torch.ops import graphops as tops
 from graphlearning_tpu_torch.ops.accel import AccelSpMM
 from tests.conftest import random_knn_csr
 
-P15B = "comes with P15b (the second half of the distribution layer)"
+P15C = "comes with P15c (the last slice of the distribution layer)"
 # The JAX package's module of Pallas kernels is ops/band_spmm.py in the
 # port, with its own wrappers (held to the JAX kernels by
 # tests/test_torch_band_spmm.py and the PERF.md table), so it is not
@@ -38,7 +38,7 @@ P15B = "comes with P15b (the second half of the distribution layer)"
 RENAMED = {"ops.pallas_spmm": "ops.band_spmm"}
 ALLOWED = {
     "aot": "whole fits compiled ahead of time by XLA; a port pack "
-           "(the host plan saved) " + P15B,
+           "(the host plan saved) " + P15C,
     "native.hostpath.use_host": "the remote-TPU dispatch gate: the port "
                                 "runs on no TPU (native/hostpath.py)",
     "native.hostpath.use_host_lip": "the remote-TPU dispatch gate, as "
@@ -53,14 +53,12 @@ ALLOWED = {
     "parallel.band_shard.band_tiles_spmm_xla": "the CPU mesh's XLA form of "
                                                "K3: the port's CPU path is "
                                                "K3's twin",
-    "parallel.band_shard.band_tiles_minplus_xla": "K7 over the halo " + P15B,
-    "parallel.band_shard.band_tiles_lip_xla": "K9 over the halo " + P15B,
-    **{f"parallel.execute.{name}": P15B for name in (
-        "volume_mbo_fit_sharded", "lip_fit_sharded",
-        "centered_kernel_fit_sharded", "peikonal_fit_sharded",
-        "dijkstra_fit_sharded", "sparse_lp_fit_sharded",
-        "incres_fit_sharded", "eigen_decomp_sharded",
-        "eigen_decomp_mod_sharded")},
+    "parallel.band_shard.band_tiles_minplus_xla": "the CPU mesh's XLA form "
+                                                  "of K7: the port's CPU "
+                                                  "path is K7's twin",
+    "parallel.band_shard.band_tiles_lip_xla": "the CPU mesh's XLA form of "
+                                              "K9: the port's CPU path is "
+                                              "K9's twin",
 }
 
 
@@ -147,7 +145,7 @@ def test_gltconfig_fields_and_defaults():
     mesh = tgl.GLTConfig(devices="cpu").make_mesh()
     assert (mesh.size, mesh.axis_names, str(mesh.device)) == (
         1, ("nodes",), "cpu")
-    with pytest.raises(NotImplementedError, match="P15b"):
+    with pytest.raises(NotImplementedError, match="P15c"):
         tgl.GLTConfig(mesh_shape=(1, 2), mesh_axes=("nodes", "batch"),
                       devices="cpu").make_mesh()
 
