@@ -141,6 +141,19 @@ Phases (any failure exits non-zero before the result line):
    over each block's halo-extended input, wrapped as the ring does,
    against their twins, and the blocks plus the residual against ``W @
    X`` and the one-device K7 and K9 rounds on the ELL;
+4i. the last of the distribution layer: the fit packs (``aot``) of the
+   ten-cluster input (n=70000, the gather): Poisson, Laplace and spectral
+   clustering saved, loaded and fitted in-process, Poisson's also in two
+   fresh processes (each one's seconds from its start to its first
+   prediction, with the pack and with the model path), each held to its
+   model path, another graph and another kind refused; the bench's sharded mode
+   (``GLT_BENCH_MODE=sharded``) on each route at the JAX bench's defaults
+   (n=65536, d=64, chains of 20 products timed for a second after a warm
+   one) on NCCL ranks, one card each, its chain held to the scipy f64
+   chain and, banded at P=1, K1 once and K3 once a product; PoissonMBO, VolumeMBO and INCRES with ``all_labels`` on a
+   one-rank NCCL group (banded) beside their one-device fits: as many
+   rounds printed, the predictions agreeing, K3 and K7 held to their
+   formulas;
 5. the rectangular route: the same graph under ``GLT_NO_BAND=1``
    (Laplace and Poisson on the unstored band, K6; ``graph.dijkstra`` on
    the plain path), then ``AccelSpMM(W, materialize=True)`` (K4 band; the
@@ -162,7 +175,7 @@ Phases (any failure exits non-zero before the result line):
 Each kernel entry has ``ms`` (the median of single calls, each between two
 CUDA events, the host's time in the call included), ``chain_ms`` (20
 calls back to back between two events, over 20: the device's time where
-it exceeds the host's, else the host's) and, but for the band builds,
+it exceeds the host's, else the host's) and, but for K4's band build,
 ``graph_ms`` (20 calls captured in a CUDA graph and replayed between two
 events, over 20: the device's time alone), and the same three for its
 library call.  ``bound_ms`` counts what the function needs of this run's
@@ -612,8 +625,8 @@ def graph_ms(torch, fn, reps=REPS, library=False):
 
 
 def timings(torch, run, plain, library=None, graph=True):
-    """The kernel's ``ms``, ``chain_ms`` and (with ``graph``; the band
-    builds' outputs are too large to hold 20 of) ``graph_ms``, its twin's
+    """The kernel's ``ms``, ``chain_ms`` and (with ``graph``; K4's
+    rectangular band is too large to hold 20 of) ``graph_ms``, its twin's
     ``plain_ms``, and the same three of the library call (None without
     one)."""
     lib = {"library_ms": None, "library_chain_ms": None,
@@ -677,7 +690,7 @@ def k1_entry(torch, bs, label, inputs, out_dtype):
     b_ms, b_by = bound(nbytes, 0, dname)
     return report({
         "name": "materialize_band_tiles", "variant": label,
-        "max_abs_err": err, **timings(torch, run, plain, graph=False),
+        "max_abs_err": err, **timings(torch, run, plain),
         "bound_ms": b_ms, "bound_by": b_by,
         "shapes": {"ell": list(cols.shape), "tiles": int(tb.numel()),
                    "R": R, "WT": WT, "out": list(out.shape),
@@ -1240,9 +1253,9 @@ def check_accuracy(name, accuracy):
         raise SmokeFailure(f"{name} accuracy {accuracy:.4f} % < {floor:.4f} %")
 
 
-def check_agreement(label, pred, ref, limit):
+def check_agreement(label, pred, ref, limit, against="the plain path"):
     agree = float(np.mean(pred == ref))
-    say(f"  {label} agrees with the plain path on {agree:.4f}")
+    say(f"  {label} agrees with {against} on {agree:.4f}")
     if agree < limit:
         raise SmokeFailure(f"{label}: agreement {agree:.4f} < {limit}")
 
@@ -3728,10 +3741,10 @@ def lobpcg_total(m, K, steps):
 
 def guarded(gl, n, k):
     """The vectors a sharded solve of ``k`` pairs runs (the guard ones
-    too, ``parallel.execute._guard``)."""
-    from graphlearning_tpu_torch.parallel import execute
+    too, ``solvers.eig.guard_count``)."""
+    from graphlearning_tpu_torch.solvers import eig
 
-    return k + execute._guard(n, k)
+    return k + eig.guard_count(n, k)
 
 
 def p15b_launches(gl, name, m, n):
@@ -4232,6 +4245,320 @@ def dist_phase(torch, gl, bs, W, labels, ti):
     return entries
 
 
+# Phase 4i (P15c): the fit packs, the bench's sharded mode and the verbose
+# MBO and INCRES fits on a mesh.
+#
+# The packs (``aot``) on the Poisson bench's ten-cluster input (n=70000,
+# 20-d, one label a class), which ``maybe_build`` sends to the gather: each
+# held to its model path (Poisson and Laplace agreeing on AOT_AGREEMENT,
+# spectral clustering's labels at a clustering accuracy above AOT_SPECTRAL
+# against the model path's), in-process and, for AOT_FRESH_KINDS, in a
+# fresh process; another graph refused.  A fresh process's seconds from its start to its first
+# prediction, with the pack and with the model path (the two processes
+# started together), are printed, not gated.
+AOT_N = 70000
+AOT_AGREEMENT = 0.99
+AOT_SPECTRAL = 95.0
+# The sharded bench at the JAX bench's defaults (n=65536, k=10, d=64, 20
+# chained products) on NCCL ranks, one card each: every route's chain
+# within the exact grade of the scipy f64 chain, and at P=1 on the banded
+# route K1 once and K3 once a product of every chain (the warm chain
+# too), on the others no band kernel.
+SHARDED_CHAIN_TOL = 1e-4
+# PoissonMBO (T=20), VolumeMBO (temperature 0) and INCRES (seed 0, T =
+# ALL_LABELS_INCRES_T rounds of the reference's host loop) with
+# ``all_labels`` on the moons, banded, on a one-rank NCCL group, beside
+# their one-device ``all_labels`` fits: as many rounds printed, the
+# predictions agreeing on ALL_LABELS_AGREEMENT (INCRES by clustering
+# accuracy), the launches by ``dist_k3_launches`` and ``p15b_launches``.
+ALL_LABELS_AGREEMENT = 0.99
+ALL_LABELS_INCRES_T = 50
+
+# A fresh process's first prediction: ``python -c AOT_CHILD kind route
+# dir`` loads W and the labels from ``dir``, fits by the pack or the
+# model path, saves the prediction and prints its seconds from start.
+AOT_CHILD = r"""
+import sys, time
+t0 = time.perf_counter()
+import numpy as np
+import scipy.sparse as sp
+import torch
+import graphlearning_tpu_torch as gl
+kind, route, root = sys.argv[1:4]
+W = sp.load_npz(root + "/W.npz")
+z = np.load(root + "/labels.npz")
+labels, ti = z["labels"], z["ti"]
+if kind == "spectral":
+    fit = (gl.aot.load_spectral_pack(W, root + "/spectral.pack")
+           if route == "pack" else gl.clustering.spectral(W, 10).fit_predict)
+    pred = fit()
+elif route == "pack":
+    load = getattr(gl.aot, "load_%s_pack" % kind)
+    pred = load(W, root + "/%s.pack" % kind)(ti, labels[ti])
+else:
+    pred = getattr(gl.ssl, kind)(W).fit_predict(ti, labels[ti])
+torch.cuda.synchronize()
+secs = time.perf_counter() - t0
+np.save(root + "/%s_%s.npy" % (kind, route), np.asarray(pred))
+print(secs)
+"""
+AOT_KINDS = ("poisson", "laplace", "spectral")
+# The kinds whose pack a fresh process loads beside the model path: its
+# seconds are imports and the card's start, the same for every kind.
+AOT_FRESH_KINDS = ("poisson",)
+
+
+def aot_check(gl, label, against, kind, pred, ref):
+    """A pack's prediction against another (``AOT_AGREEMENT``, or for
+    spectral clustering a clustering accuracy above ``AOT_SPECTRAL``)."""
+    if kind == "spectral":
+        acc = gl.clustering.clustering_accuracy(pred, ref)
+        say(f"  {label}: clustering accuracy {acc:.4f} % against {against}")
+        if acc <= AOT_SPECTRAL:
+            raise SmokeFailure(f"{label}: {acc:.4f} % <= {AOT_SPECTRAL} %")
+        return
+    check_agreement(label, pred, ref, AOT_AGREEMENT, against)
+
+
+def aot_fresh(root, kind):
+    """The first predictions of two fresh processes (``AOT_CHILD``) started
+    together, one by the pack and one by the model path, so that they meet
+    the same load: ``{route: prediction}``, each process's seconds from
+    its start to its first prediction printed."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    procs = {route: subprocess.Popen(
+        [sys.executable, "-c", AOT_CHILD, kind, route, root],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for route in ("pack", "model")}
+    preds = {}
+    for route, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise SmokeFailure(f"fresh {route} {kind}: exit "
+                               f"{proc.returncode}\n{out[-2000:]}"
+                               f"{err[-4000:]}")
+        secs = float(out.strip().splitlines()[-1])
+        say(f"  fresh process, {route} {kind}: {secs:.3f} s from start to "
+            "the first prediction")
+        preds[route] = np.load(os.path.join(root, f"{kind}_{route}.npy"))
+    return preds
+
+
+def aot_phase(torch, gl):
+    """The three packs of the ten-cluster input: saved, loaded and fitted
+    in-process and (``AOT_FRESH_KINDS``) in fresh processes, each against
+    its model path; another geometry and another kind refused."""
+    import tempfile
+
+    import scipy.sparse as sp
+
+    from graphlearning_tpu_torch import bench
+    from graphlearning_tpu_torch.ops import accel
+
+    W, labels, ti = bench.ten_cluster_case(AOT_N, 10,
+                                           torch.device("cuda"))
+    ref = {}
+    for kind in ("poisson", "laplace"):
+        m = getattr(gl.ssl, kind)(W)
+        ref[kind] = timed(torch, f"model path {kind}",
+                          lambda: m.fit_predict(ti, labels[ti]))
+        path = accel.path_name(m._accel_cache)
+        say(f"  model path {kind}: {path}, accuracy "
+            f"{gl.ssl.ssl_accuracy(ref[kind], labels, ti):.4f} %")
+        if "gather" not in path:
+            raise SmokeFailure(f"model path {kind} took {path}")
+    sc = gl.clustering.spectral(W, 10)
+    ref["spectral"] = timed(torch, "model path spectral", sc.fit_predict)
+    if "gather" not in accel.path_name(sc.graph._accel_eig):
+        raise SmokeFailure("model path spectral did not take the gather")
+    pts, _ = bench.ten_cluster_points(AOT_N)
+    W_half = gl.weightmatrix.knn(pts[:AOT_N // 2], 10)
+    with tempfile.TemporaryDirectory() as root:
+        packs = {kind: os.path.join(root, f"{kind}.pack")
+                 for kind in AOT_KINDS}
+        timed(torch, "save_poisson_pack",
+              lambda: gl.aot.save_poisson_pack(W, 10, packs["poisson"]))
+        timed(torch, "save_laplace_pack",
+              lambda: gl.aot.save_laplace_pack(W, 10, packs["laplace"]))
+        timed(torch, "save_spectral_pack",
+              lambda: gl.aot.save_spectral_pack(W, 10, packs["spectral"]))
+        sp.save_npz(os.path.join(root, "W.npz"), W)
+        np.savez(os.path.join(root, "labels.npz"), labels=labels, ti=ti)
+        in_proc = {}
+        for kind in AOT_KINDS:
+            load = getattr(gl.aot, f"load_{kind}_pack")
+            fit = timed(torch, f"load_{kind}_pack (warm)",
+                        lambda: load(W, packs[kind]))
+            in_proc[kind] = timed(
+                torch, f"pack {kind} fit",
+                (lambda: fit()) if kind == "spectral"
+                else (lambda: fit(ti, labels[ti])))
+            aot_check(gl, f"pack {kind}", "the model path", kind,
+                      in_proc[kind], ref[kind])
+            try:
+                load(W_half, packs[kind])
+            except ValueError as e:
+                if "geometry mismatch" not in str(e):
+                    raise
+                say(f"  pack {kind} refuses another graph: "
+                    f"{str(e)[:60]}...")
+            else:
+                raise SmokeFailure(f"pack {kind} took another graph")
+            other = packs["laplace" if kind != "laplace" else "poisson"]
+            try:
+                load(W, other)
+            except ValueError as e:
+                if f"not a {kind} pack" not in str(e):
+                    raise
+            else:
+                raise SmokeFailure(f"load_{kind}_pack took another kind")
+        for kind in AOT_FRESH_KINDS:
+            fresh = aot_fresh(root, kind)
+            aot_check(gl, f"fresh pack {kind}", "the fresh model path",
+                      kind, fresh["pack"], fresh["model"])
+            aot_check(gl, f"fresh pack {kind}", "the in-process pack", kind,
+                      fresh["pack"], in_proc[kind])
+
+
+def sharded_bench_phase(torch):
+    """The bench's sharded mode on each route (``bench.sharded_bench``,
+    NCCL ranks spawned, one card each), its line printed and held."""
+    from graphlearning_tpu_torch import bench
+
+    torch.cuda.empty_cache()
+    for kernel in bench.SHARDED_KERNELS:
+        cfg = bench.settings(mode="sharded", sharded_kernel=kernel)
+        line = timed(torch, f"sharded bench, {kernel}",
+                     lambda: bench.sharded_bench(cfg, torch.device("cuda")))
+        say("  " + json.dumps(line))
+        c = line["config"]
+        if (c["n"], c["k"], c["d"], c["iters"]) != (65536, 10, 64, 20):
+            raise SmokeFailure(f"sharded bench {kernel}: not the JAX "
+                               f"bench's defaults: {c}")
+        for P, err in c["rel_err_chain"].items():
+            if not err <= SHARDED_CHAIN_TOL:
+                raise SmokeFailure(f"sharded bench {kernel}, P={P}: chain "
+                                   f"error {err:.3e} > {SHARDED_CHAIN_TOL}")
+        # K3 once a product of every chain, the warm one too
+        want = ({"materialize_band_tiles": 1,
+                 "band_tiles_spmm": c["iters"] * len(c["chain_ms"]["1"])}
+                if kernel == "banded" else {})
+        if c["launches"]["1"] != want:
+            raise SmokeFailure(f"sharded bench {kernel}, P=1: launches "
+                               f"{c['launches']['1']}, not {want}")
+        say(f"  sharded bench {kernel}, P=1: launches {want or 'none'}")
+
+
+def all_labels_fit(torch, gl, name, m, labels, ti):
+    """``(prediction, printed lines, seconds)`` of a fit with
+    ``all_labels``."""
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        if name == "incres":
+            pred = m.fit_predict(all_labels=labels)
+        else:
+            pred = m.fit_predict(ti, labels[ti], all_labels=labels)
+    torch.cuda.synchronize()
+    return np.asarray(pred), buf.getvalue().splitlines(), (
+        time.perf_counter() - t)
+
+
+def all_labels_phase(torch, gl, bs, W, labels, ti):
+    """PoissonMBO, VolumeMBO and INCRES with ``all_labels`` on a one-rank
+    NCCL group, banded, on a fresh copy of the moons graph, beside their
+    one-device fits."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    W = W.copy()
+    priors = gl.utils.class_priors(labels)
+    makes = {
+        "poisson_mbo": lambda: MBO_FITS["poisson_mbo"](gl, W, priors, None),
+        "volume_mbo": lambda: MBO_FITS["volume_mbo"](gl, W, priors, None),
+        "incres": lambda: gl.clustering.incres(W, 2, T=ALL_LABELS_INCRES_T,
+                                               seed=0)}
+    one = {}
+    for name, make in makes.items():
+        pred, lines, secs = all_labels_fit(torch, gl, name, make(), labels,
+                                           ti)
+        say(f"  one device/{name}: {secs:.3f} s, {len(lines)} rounds "
+            f"printed, the last: {lines[-1]!r}")
+        one[name] = (pred, lines)
+    kernels = ("materialize_band_tiles", "band_tiles_spmm",
+               "band_tiles_minplus", "band_tiles_lip")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            cfg = gl.GLTConfig(sharded_kernel="banded")
+            start = bs.launches()
+            for name, make in makes.items():
+                before = bs.launches()
+                m = make().distribute(cfg)
+                pred, lines, secs = all_labels_fit(torch, gl, name, m,
+                                                   labels, ti)
+                got = {k: bs.launches()[k] - before[k] for k in kernels}
+                say(f"  banded/{name}: {secs:.3f} s, route "
+                    f"{m._dist.route}, {len(lines)} rounds printed, the "
+                    f"last: {lines[-1]!r}; launches {got}")
+                if m._dist.route != "banded":
+                    raise SmokeFailure(f"{name} took {m._dist.route}")
+                if len(lines) != len(one[name][1]):
+                    raise SmokeFailure(f"banded/{name}: {len(lines)} rounds "
+                                       f"printed, one device "
+                                       f"{len(one[name][1])}")
+                if name == "incres":
+                    acc = gl.clustering.clustering_accuracy(pred,
+                                                            one[name][0])
+                    say(f"  banded/incres agrees with one device by "
+                        f"clustering accuracy {acc:.4f} %")
+                    if acc < 100 * ALL_LABELS_AGREEMENT:
+                        raise SmokeFailure(f"banded/incres: {acc:.4f} %")
+                    want = {"band_tiles_spmm": sum(
+                        while_calls(s) for s in m.steps)}
+                elif name == "poisson_mbo":
+                    check_agreement(f"banded/{name}", pred, one[name][0],
+                                    ALL_LABELS_AGREEMENT, "one device")
+                    want = {"band_tiles_spmm": dist_k3_launches(name, m)}
+                else:
+                    check_agreement(f"banded/{name}", pred, one[name][0],
+                                    ALL_LABELS_AGREEMENT, "one device")
+                    want = p15b_launches(gl, name, m, W.shape[0])
+                for k, v in want.items():
+                    if got[k] != v:
+                        raise SmokeFailure(f"banded/{name}: {got[k]} {k} "
+                                           f"launches, not {v}")
+            k1 = bs.launches()["materialize_band_tiles"] - start[
+                "materialize_band_tiles"]
+            if k1 != 1:
+                raise SmokeFailure(f"the three fits launched K1 {k1} times, "
+                                   "not once (one operator)")
+        finally:
+            dist.destroy_process_group()
+
+
+def p15c_phase(torch, gl, bs, W, labels, ti):
+    """Phase 4i: the packs, the sharded bench, the verbose fits on a
+    mesh."""
+    t0 = time.perf_counter()
+    say("== phase 4i: fit packs on the ten-cluster input (n=70000, the "
+        "gather)")
+    aot_phase(torch, gl)
+    say(f"== phase 4i: the sharded bench (n=65536, d=64, 20 products), "
+        f"{torch.cuda.device_count()} card(s)")
+    sharded_bench_phase(torch)
+    say("== phase 4i: PoissonMBO, VolumeMBO and INCRES with all_labels, "
+        "banded, one rank (the moons)")
+    all_labels_phase(torch, gl, bs, W, labels, ti)
+    say(f"== phase 4i: {time.perf_counter() - t0:.1f} s")
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -4310,6 +4637,7 @@ def main():
     al_phase(torch, gl, bs, W, labels, ti)
     embed_phase(torch, gl, bs, W, labels, ti)
     shard_entries = dist_phase(torch, gl, bs, W, labels, ti)
+    p15c_phase(torch, gl, bs, W, labels, ti)
     rect_entries, rect_launches = rect_phase(torch, gl, accel, bs, W, labels,
                                              ti, plain_pred)
     launches.update(rect_launches)

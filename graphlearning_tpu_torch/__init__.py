@@ -52,11 +52,15 @@ default (see :mod:`config`).  Ported so far:
   ``native`` (built from the port's own ``native/oracles.cpp`` with g++)
   and ``native.hostpath.laplace_host``, and ``observability`` (``trace``
   over ``torch.profiler``, ``Timer``, ``benchmark``, ``Counters``);
-* the first half of the distribution layer: ``GLTConfig``, ``parallel``
-  (the mesh over ``torch.distributed``, row-sharded graphs, the
-  partitioned band on K1 and K3 with a ring halo, the ``Distributor``)
-  and ``model.distribute(...)`` of the Laplace, random-walk, Poisson (CG
-  and gradient descent) and PoissonMBO fits.
+* the distribution layer: ``GLTConfig``, ``parallel`` (the mesh over
+  ``torch.distributed`` with its node and batch axes, row-sharded
+  graphs, the partitioned band on K1, K3, K7 and K9 with a ring halo, the
+  ``Distributor``) and ``model.distribute(...)`` of every SSL family but
+  dynamic label propagation, of spectral clustering and of INCRES, and
+  the bench's sharded mode (``GLT_BENCH_MODE=sharded``);
+* fit packs (``aot``): the Poisson, Laplace and spectral-clustering fits
+  of a graph on the segmented gather, saved once and loaded in a fresh
+  process.
 
     import graphlearning_tpu_torch as gl
     W = gl.weightmatrix.knn(X, 10)
@@ -72,6 +76,7 @@ from graphlearning_tpu_torch import ops, solvers, utils, weightmatrix
 from graphlearning_tpu_torch import clustering, datasets, ssl, trainsets
 from graphlearning_tpu_torch import active_learning, checkpoint
 from graphlearning_tpu_torch import ars, native, observability, parallel
+from graphlearning_tpu_torch import aot
 from graphlearning_tpu_torch.ssl import warmup
 
 __version__ = "0.1.0"
@@ -97,4 +102,5 @@ __all__ = [
     "native",
     "observability",
     "parallel",
+    "aot",
 ]

@@ -1,7 +1,7 @@
-"""The port's bench: SpMM edges/s on one GPU, and the Poisson fit.
+"""The port's bench: SpMM edges/s on one GPU, the Poisson fit, and the
+sharded SpMM's scaling over ranks.
 
-Counterpart of the JAX package's ``bench.py`` (its single-card modes; the
-sharded mode waits for the distribution layer).  It prints one JSON line
+Counterpart of the JAX package's ``bench.py``.  It prints one JSON line
 with the JAX bench's keys and returns it as a dict.
 
     python -m graphlearning_tpu_torch.bench
@@ -9,7 +9,10 @@ with the JAX bench's keys and returns it as a dict.
 Settings from the environment, or from keyword arguments of :func:`main`
 (the tests pass ``device="cpu"`` and small sizes):
 
-* ``GLT_BENCH_MODE``: ``spmm`` (default) or ``poisson``;
+* ``GLT_BENCH_MODE``: ``spmm`` (default), ``poisson`` or ``sharded``
+  (:func:`sharded_bench`: ``GLT_BENCH_SHARDED_KERNEL`` ``gspmd``,
+  ``ring`` or ``banded``; on the CPU up to ``GLT_BENCH_DEVICES`` gloo
+  ranks);
 * ``GLT_BENCH_N``, ``GLT_BENCH_K``, ``GLT_BENCH_D``, ``GLT_BENCH_ITERS``:
   the graph's nodes and neighbors, X's columns, the chained products;
 * ``GLT_BENCH_GEOM``: ``2d`` (uniform points, the band's geometry) or
@@ -68,18 +71,21 @@ def settings(**overrides) -> dict:
     """The bench's settings: keyword overrides, else ``GLT_BENCH_*``."""
     env = os.environ.get
     mode = overrides.get("mode", env("GLT_BENCH_MODE", "spmm"))
-    poisson = mode == "poisson"
+    poisson, sharded = mode == "poisson", mode == "sharded"
     cfg = {
         "mode": mode,
-        "n": int(env("GLT_BENCH_N", 70000 if poisson else 1 << 18)),
-        "k": int(env("GLT_BENCH_K", 10 if poisson else 16)),
-        "d": int(env("GLT_BENCH_D", 128)),
-        "iters": int(env("GLT_BENCH_ITERS", 50)),
+        "n": int(env("GLT_BENCH_N", 70000 if poisson else
+                     1 << 16 if sharded else 1 << 18)),
+        "k": int(env("GLT_BENCH_K", 10 if poisson or sharded else 16)),
+        "d": int(env("GLT_BENCH_D", 64 if sharded else 128)),
+        "iters": int(env("GLT_BENCH_ITERS", 20 if sharded else 50)),
         "geom": env("GLT_BENCH_GEOM", "2d"),
         "dim": int(env("GLT_BENCH_DIM", 30)),
         "prec": env("GLT_BENCH_PREC"),
         "band_kernels": env("GLT_BENCH_PALLAS", "1") != "0",
         "stored_band": env("GLT_BENCH_BAND", "1") != "0",
+        "sharded_kernel": env("GLT_BENCH_SHARDED_KERNEL", "gspmd"),
+        "devices": int(env("GLT_BENCH_DEVICES", 8)),
     }
     unknown = set(overrides) - set(cfg)
     if unknown:
@@ -95,9 +101,11 @@ def main(device=None, **overrides) -> dict:
     dev = config.device(device)
     if cfg["mode"] == "poisson":
         result = poisson_bench(cfg, dev)
+    elif cfg["mode"] == "sharded":
+        result = sharded_bench(cfg, dev)
     elif cfg["mode"] != "spmm":
-        raise ValueError(f"GLT_BENCH_MODE={cfg['mode']!r}: the port runs "
-                         "'spmm' and 'poisson' ('sharded' is not ported)")
+        raise ValueError(f"GLT_BENCH_MODE={cfg['mode']!r}: 'spmm', "
+                         "'poisson' or 'sharded'")
     elif cfg["geom"] == "highdim":
         result = highdim_bench(cfg, dev)
     elif cfg["geom"] == "2d":
@@ -476,6 +484,208 @@ def poisson_bench(cfg, dev) -> dict:
                    "backend": dev.type, "device": _device_name(dev),
                    "iters": int(model.iters),
                    "path": _accel.path_name(model._accel_cache)},
+    }
+
+
+# -- sharded: the SpMM over 1, 2, 4, ... ranks ------------------------------------
+
+SHARDED_KERNELS = ("gspmd", "ring", "banded")
+RANK_COUNTS = (1, 2, 4, 8, 16, 32)
+SHARDED_TIMEOUT = 900.0         # seconds the ranks of one bench may take
+# Seconds of timed chains a rank count: a chain of the JAX bench's 20
+# products takes 7-22 ms on one H100, too short a window alone.
+SHARDED_WINDOW_S = 1.0
+
+
+def _sharded_operator(kernel, W, X_np, mesh, dev):
+    """``(fn, X, back)`` of one rank: ``fn`` its rows of ``W @ X`` on the
+    ``kernel`` route, ``X`` its rows of ``X_np`` and ``back(Y)`` the
+    gathered chain in node order.  "banded": the partitioned band of W's
+    RCM order (K1 for the rank's block; K3 over the ring halo), R = WT =
+    512 at f32 on CUDA, 128 at f64 on the CPU."""
+    from graphlearning_tpu_torch import parallel
+    from graphlearning_tpu_torch.parallel.band_shard import ShardedBandPlan
+
+    n = W.shape[0]
+    if kernel == "banded":
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+        perm = np.asarray(reverse_cuthill_mckee(W, symmetric_mode=True))
+        Wb = W[perm, :][:, perm].tocsr()
+        cuda = dev.type == "cuda"
+        R = 512 if cuda else 128
+        plan = ShardedBandPlan(Wb, mesh, R=R, WT=R,
+                               mode="f32" if cuda else "f64")
+
+        def back(Y):
+            out = np.empty_like(Y[:n])
+            out[perm] = Y[:n]
+            return out
+
+        return plan.spmm, plan.put_rows(X_np[perm]), back
+    g = parallel.shard_graph(W, mesh, dtype=config.float_dtype(dev))
+    spmm = (parallel.sharded_spmm_ring if kernel == "ring"
+            else parallel.sharded_spmm)
+    return (lambda X: spmm(g, X, mesh), parallel.put_features(X_np, mesh),
+            lambda Y: Y[:n])
+
+
+def _timed_chains(fn, X, iters: int, mesh, dev, window: float):
+    """``(seconds of each chain, the last chain)``: chains of ``iters``
+    products ``fn`` from ``X``, the first one warm, then until the timed
+    ones add up to ``window`` seconds.  Each chain starts after an
+    all-reduce and ends at a device synchronize; the ranks run as many
+    chains as the slowest one needs."""
+    seconds = []
+    while True:
+        mesh.all_reduce(torch.zeros((), device=dev))
+        _sync(dev)
+        t0 = time.perf_counter()
+        Y = X
+        for _ in range(iters):
+            Y = fn(Y)
+        _sync(dev)
+        seconds.append(time.perf_counter() - t0)
+        more = len(seconds) < 2 or sum(seconds[1:]) < window
+        if not mesh.all_reduce(torch.tensor(float(more), device=dev),
+                               op="max").item():
+            return seconds, Y
+
+
+def _sharded_rank(rank, world, store, cfg, counts, out_dir):
+    """One rank of :func:`sharded_bench`: joins the process group (NCCL
+    on its card, gloo on the CPU), then for each rank count P the first P
+    ranks run chains of ``iters`` products on a P-rank node mesh
+    (:func:`_timed_chains`).  Rank 0 saves each P's chain seconds, last
+    gathered chain and band kernel launches to ``out_dir``."""
+    import torch.distributed as dist
+
+    from graphlearning_tpu_torch.parallel.mesh import Mesh
+
+    cuda = cfg["backend"] == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+        dev = torch.device("cuda", rank)
+    else:
+        torch.set_num_threads(1)
+        dev = torch.device("cpu")
+    config.set_device(dev)
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=store,
+                            rank=rank, world_size=world)
+    try:
+        rs = np.random.RandomState(0)
+        W = bench_graph_2d(cfg["n"], cfg["k"], rs)
+        X_np = rs.randn(cfg["n"], cfg["d"]).astype(np.float32)
+        out = {}
+        for P in counts:
+            group = (None if P == 1 else dist.group.WORLD if P == world
+                     else dist.new_group(ranks=list(range(P))))
+            if rank < P:
+                mesh = Mesh(group, P, rank, dev, ("nodes", "batch"),
+                            sizes=(P, 1))
+                before = _bs.launches()
+                fn, X, back = _sharded_operator(cfg["sharded_kernel"], W,
+                                                X_np, mesh, dev)
+                seconds, Y = _timed_chains(fn, X, cfg["iters"], mesh, dev,
+                                           SHARDED_WINDOW_S)
+                Y = mesh.all_gather(Y)
+                after = _bs.launches()
+                if rank == 0:
+                    out[P] = {"seconds": seconds,
+                              "chain": back(Y.double().cpu().numpy()),
+                              "launches": {k: after[k] - before[k]
+                                           for k in after
+                                           if after[k] != before[k]}}
+            dist.barrier()
+        if rank == 0:
+            torch.save(out, os.path.join(out_dir, "rank0.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_bench(cfg, dev, chains=None) -> dict:
+    """Edges/s of ``iters`` chained sharded SpMMs at 1, 2, 4, ... ranks and
+    the scaling efficiency, on the JAX bench's graph (uniform 2-D points,
+    kNN, symmetrized, row-stochastic) with d columns: the mean of the
+    chains timed after a warm one (``chains_timed`` of them, at least
+    ``SHARDED_WINDOW_S`` seconds together; ``chain_ms`` lists every
+    chain, the warm one first).  The ranks are
+    processes (``torch.multiprocessing``, spawned): on CUDA one card each
+    on NCCL, up to ``torch.cuda.device_count()``; on the CPU gloo ranks up
+    to ``cfg["devices"]``, which share the host's cores, so the efficiency
+    is the throughput retained at the most ranks (``virtual_mesh``), as on
+    the JAX package's virtual CPU mesh.  Each P's chain is held to the
+    scipy f64 chain (``rel_err_chain``); ``launches`` counts rank 0's band
+    kernels at each P.  ``chains``, a dict, gets each P's gathered chain
+    in node order.  A P that fails fails the bench."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    kernel = cfg["sharded_kernel"]
+    if kernel not in SHARDED_KERNELS:
+        raise ValueError(f"GLT_BENCH_SHARDED_KERNEL={kernel!r}: one of "
+                         f"{SHARDED_KERNELS}")
+    n, k, d, iters = cfg["n"], cfg["k"], cfg["d"], cfg["iters"]
+    virtual = dev.type != "cuda"
+    avail = cfg["devices"] if virtual else torch.cuda.device_count()
+    counts = [p for p in RANK_COUNTS if p <= avail]
+    rs = np.random.RandomState(0)
+    W = bench_graph_2d(n, k, rs)
+    X_np = rs.randn(n, d).astype(np.float32)
+    Y_ref, _ = _reference_chain(W, X_np, iters)
+    work = tempfile.mkdtemp(prefix="glt_sharded_")
+    try:
+        ctx = tmp.start_processes(
+            _sharded_rank, nprocs=counts[-1], join=False,
+            start_method="spawn",
+            args=(counts[-1], "file://" + os.path.join(work, "store"),
+                  dict(cfg, backend=dev.type), counts, work))
+        deadline = time.monotonic() + SHARDED_TIMEOUT
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise RuntimeError(f"sharded bench: the ranks ran over "
+                                   f"{SHARDED_TIMEOUT:.0f} s")
+        runs = torch.load(os.path.join(work, "rank0.pt"), weights_only=False)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    nnz = W.nnz
+    timed = {p: runs[p]["seconds"][1:] for p in counts}
+    table = {p: nnz * iters * len(timed[p]) / sum(timed[p]) for p in counts}
+    if chains is not None:
+        chains.update({p: runs[p]["chain"] for p in counts})
+    base, pmax = table[counts[0]], counts[-1]
+    if virtual:
+        eff = table[pmax] / base if pmax > 1 else 1.0
+        unit = f"% throughput retained sharded {pmax}-way (virtual mesh)"
+    else:
+        eff = table[pmax] / (pmax * base) if pmax > 1 else 1.0
+        unit = f"% of linear at {pmax} devices"
+    return {
+        "metric": "sharded_spmm_scaling_efficiency",
+        "value": round(eff * 100, 1),
+        "unit": unit,
+        "vs_baseline": round(eff / 0.80, 3),
+        "config": {
+            "n": n, "k": k, "d": d, "iters": iters, "nnz": int(nnz),
+            "d_effective": d, "kernel": kernel, "virtual_mesh": virtual,
+            "backend": dev.type, "device": _device_name(dev),
+            "edges_per_sec": {str(p): round(v, 1) for p, v in table.items()},
+            "throughput_ratio": {str(p): round(table[p] / base, 2)
+                                 for p in counts},
+            "rel_err_chain": {str(p): float(
+                np.abs(runs[p]["chain"] - Y_ref).max()
+                / np.abs(Y_ref).max()) for p in counts},
+            "launches": {str(p): runs[p]["launches"] for p in counts},
+            "window_s": SHARDED_WINDOW_S,
+            "chains_timed": {str(p): len(timed[p]) for p in counts},
+            "chain_ms": {str(p): [round(t * 1e3, 4)
+                                  for t in runs[p]["seconds"]]
+                         for p in counts},
+        },
     }
 
 

@@ -81,6 +81,13 @@ class clustering:
         raise NotImplementedError("Must override _fit")
 
 
+def _unit_rows(vec):
+    """``vec``'s rows scaled to unit length: NgJordanWeiss's embedding of
+    the eigenvectors (a zero row stays 0)."""
+    norms = torch.sqrt(torch.sum(vec * vec, dim=1))
+    return vec / torch.clamp(norms[:, None], min=1e-30)
+
+
 class spectral(clustering):
     """Spectral clustering: the first ``num_clusters + extra_dim``
     eigenvectors of the combinatorial Laplacian ("combinatorial"), the
@@ -120,8 +127,7 @@ class spectral(clustering):
             _, vec = self.graph.eigen_decomp_device(
                 normalization=norm_of[self.method], k=k)
         if self.method == "NgJordanWeiss":
-            norms = torch.sqrt(torch.sum(vec * vec, dim=1))
-            vec = vec / torch.clamp(norms[:, None], min=1e-30)
+            vec = _unit_rows(vec)
         seed = (int(np.random.randint(2**31)) if self.seed is None
                 else int(self.seed))
         return kmeans(vec, self.num_clusters, n_init=10, seed=seed)
@@ -187,8 +193,8 @@ class incres(clustering):
     a seed drawn from numpy's global state), so they are not the JAX
     package's draws.  ``self.steps`` holds each round's grow steps.  With
     ``all_labels`` the fit runs the reference's host loop (the seeds
-    drawn by numpy, the walk on the plain path) and prints each round's
-    accuracy."""
+    drawn by numpy, the walk on the plain path or, distributed, on the
+    mesh's operator) and prints each round's accuracy."""
 
     _sharded_supported = True
 
@@ -218,12 +224,7 @@ class incres(clustering):
         u = rs.randint(0, k, size=n)
         info = {}
 
-        if all_labels is not None and self._dist is not None:
-            raise NotImplementedError(
-                "incres.fit on a mesh: all_labels (the reference's host "
-                "loop) is not ported (the JAX package fits it on one "
-                "device; P15c)")
-        if self._dist is not None:
+        if self._dist is not None and all_labels is None:
             from graphlearning_tpu_torch.parallel import execute as _exec
 
             mesh_dev = self._dist.device
@@ -259,7 +260,18 @@ class incres(clustering):
             self.steps = info["steps"]
             return labels
 
-        # the reference's host loop: numpy plants the seeds each round
+        # the reference's host loop: numpy plants the seeds each round; the
+        # walk on the plain path, or on the mesh's operator
+        if self._dist is not None:
+            from graphlearning_tpu_torch.parallel import execute as _exec
+
+            grow = _exec.incres_grow_sharded(self._dist, G.weight_matrix)
+        else:
+            def grow(F):
+                F = torch.as_tensor(F, device=dev).to(deg.dtype)
+                F, it = _incres.grow(
+                    lambda F: _ops.spmm(g, F / deg[:, None]), F, n)
+                return torch.argmax(F, dim=1).cpu().numpy(), int(it)
         m = 1
         self.steps = []
         for i in range(self.T):
@@ -269,11 +281,8 @@ class incres(clustering):
                 if len(ind) == 0:
                     ind = np.arange(n)
                 F[rs.choice(ind, m), r] = 1
-            F = torch.as_tensor(F, device=dev).to(deg.dtype)
-            F, it = _incres.grow(lambda F: _ops.spmm(g, F / deg[:, None]),
-                                 F, n)
-            self.steps.append(int(it))
-            u = torch.argmax(F, dim=1).cpu().numpy()
+            u, it = grow(F)
+            self.steps.append(it)
             m = m + Dm
             acc = clustering_accuracy(u, all_labels)
             print("Iteration %d: Accuracy = %.2f%%, #seeds = %d"

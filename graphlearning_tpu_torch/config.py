@@ -98,9 +98,12 @@ class GLTConfig:
     fields and defaults (``graphlearning_tpu/config.py:55-104``).
 
     * ``mesh_shape``, ``mesh_axes``, ``node_axis``, ``devices``: the mesh
-      (:func:`parallel.mesh.make_mesh`): one rank of the process group on
-      each node-axis position.  ``devices`` is this rank's device, or a
-      sequence indexed by the rank; None takes the default device
+      (:meth:`parallel.mesh.Mesh.from_config`): the ranks of the process
+      group in row-major order over ``mesh_shape`` (None: all of them
+      along the first axis), e.g. ``(Pn, Pb)`` over ``("nodes",
+      "batch")``; the graphs are sharded over ``node_axis`` and
+      replicated over the other axis.  ``devices`` is this rank's device,
+      or a sequence indexed by the rank; None takes the default device
       (:func:`device`), on CUDA the card of the rank's ``LOCAL_RANK``.
     * ``sharded_kernel``: "auto", "banded" or "gspmd"
       (:meth:`parallel.execute.Distributor.operator`).

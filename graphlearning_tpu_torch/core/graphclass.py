@@ -307,7 +307,7 @@ class graph:
                 acc = _accel.maybe_build(self.weight_matrix, cache_obj=self,
                                          attr="_accel_eig",
                                          device=self.device, mode="f32")
-            b = min(2 + k // 10, max(self.num_nodes // 4 - k, 0))
+            b = _eig.guard_count(self.num_nodes, k)
             info = {"path": _accel.path_name(acc)}
             vals, vecs = _eig.eigen_decomp(
                 self.g, normalization=normalization, method=method,

@@ -46,6 +46,33 @@ _FAST_TABLE_BYTES = 100e6
 _GATHER_CELLS = 1 << 25
 
 
+def degree_segments(deg):
+    """``(order, segs)``: the rows sorted by degree (stable) and each
+    segment's ``(start, end, kcap)`` in sorted rows, cut at the boundaries
+    of ``_BOUNDS`` (a hub over them adds a segment at its degree, rounded
+    up to a multiple of 8).  Host arithmetic on the degrees alone: a
+    graph's geometry on the gather."""
+    deg = np.asarray(deg)
+    n = len(deg)
+    order = np.argsort(deg, kind="stable")
+    deg_s = deg[order]
+    bounds = _BOUNDS
+    if n and int(deg_s[-1]) > bounds[-1]:
+        bounds = bounds + (-(-int(deg_s[-1]) // 8) * 8,)
+    segs, start = [], 0
+    for kcap in bounds:
+        end = int(np.searchsorted(deg_s, kcap, side="right"))
+        if end <= start:
+            continue
+        segs.append((start, end, kcap))
+        start = end
+        if end == n:
+            break
+    if start != n:
+        raise ValueError("a degree exceeds the largest segment boundary")
+    return order, segs
+
+
 class GatherSpMM:
     """Degree-sorted segmented gather SpMM for one graph, on ``device``
     (resolved by :func:`config.device`).
@@ -69,23 +96,13 @@ class GatherSpMM:
         self.nnz = int(W.nnz)
         self.prec = prec
         deg = np.diff(W.indptr)
-        order = np.argsort(deg, kind="stable")
+        order, self.segs = degree_segments(deg)
         self.order = order
         self.inv = np.argsort(order)
-        deg_s = deg[order]
-        bounds = _BOUNDS
-        if n and int(deg_s[-1]) > bounds[-1]:
-            # a hub over the table: one more segment at its degree,
-            # rounded up to a multiple of 8
-            bounds = bounds + (-(-int(deg_s[-1]) // 8) * 8,)
         val_dtype = np.float64 if config.float_dtype(dev) == torch.float64 \
             else np.float32
-        self.segs, self.cols, self.vals = [], [], []
-        start = 0
-        for kcap in bounds:
-            end = int(np.searchsorted(deg_s, kcap, side="right"))
-            if end <= start:
-                continue
+        self.cols, self.vals = [], []
+        for start, end, kcap in self.segs:
             rows = order[start:end]
             a = W.indptr[rows].astype(np.int64)
             dseg = deg[rows].astype(np.int64)
@@ -98,12 +115,6 @@ class GatherSpMM:
             vals = np.where(valid, W.data[flat], 0.0).astype(val_dtype)
             self.cols.append(torch.as_tensor(cols, device=dev))
             self.vals.append(torch.as_tensor(vals, device=dev))
-            self.segs.append((start, end, kcap))
-            start = end
-            if end == n:
-                break
-        if start != n:
-            raise ValueError("a degree exceeds the largest segment boundary")
         self._order_dev = torch.as_tensor(order, device=dev)
         self._inv_dev = torch.as_tensor(self.inv, device=dev)
 

@@ -458,10 +458,12 @@ def poisson_gd_fit_sharded(dist: Distributor, W, source, train_ind,
 
 
 def poisson_mbo_fit_sharded(dist: Distributor, W, source_scaled, u0, w0,
-                            priors, dt, Ns, T):
+                            priors, dt, Ns, T, on_round=None):
     """PoissonMBO's T rounds on the mesh (``solvers.volume.poisson_mbo_loop``
     with the real rows' mask and the mesh's reduction): padding rows stay
-    0 and out of the class sizes.  Returns ``(u, w, err)``."""
+    0 and out of the class sizes.  ``on_round(i, labels)``, when given, is
+    called after round ``i`` with its labels (n,) in node order, gathered
+    from the ranks.  Returns ``(u, w, err)``."""
     from graphlearning_tpu_torch.solvers import volume as _volume
 
     g, n = dist.operator(W)
@@ -478,9 +480,13 @@ def poisson_mbo_fit_sharded(dist: Distributor, W, source_scaled, u0, w0,
             u = u - dt * (deg[:, None] * u - _ops.spmm(g, u)) + Db
         return u
 
+    report = None
+    if on_round is not None:
+        def report(i, state):
+            on_round(i, np.argmax(dist.gather(state[0], n, op=g), axis=1))
     u, w, err = _volume.poisson_mbo_loop(heat_steps, u0, as_t(w0),
                                          as_t(priors), int(T), valid=valid,
-                                         reduce=dist.reduce)
+                                         reduce=dist.reduce, on_round=report)
     return dist.gather(u, n, op=g), w.cpu().numpy(), float(err)
 
 
@@ -677,7 +683,7 @@ def lip_fit_sharded(dist: Distributor, W, bdy_set, bdy_vals, *, alpha=None,
 
 def volume_mbo_fit_sharded(dist: Distributor, W, labels0, fixed_mask,
                            fixed_labels, lower, upper, temp, draw, k,
-                           max_iters):
+                           max_iters, on_round=None):
     """VolumeMBO's fixed point on the mesh: the dual convolution
     ``D^-1 W D^-1 W`` of the one-hot labels on the rank's rows, then
     all-gathered, and the noise and the volume-constrained assignment
@@ -685,7 +691,9 @@ def volume_mbo_fit_sharded(dist: Distributor, W, labels0, fixed_mask,
     padded row space, the padding rows frozen and out of the counts.
     ``draw((n, k))`` gives the Gumbel noise in node order, the same on
     every rank (the one-device fit's draw), placed in the row space.
-    Returns ``(labels, iters)`` in node order."""
+    ``on_round(it, changed, labels)``, when given, is called after each
+    iteration with its index, the labels it changed and its labels (n,)
+    in node order.  Returns ``(labels, iters)`` in node order."""
     from graphlearning_tpu_torch.solvers import volume as _volume
 
     g, n = dist.operator(W)
@@ -705,13 +713,18 @@ def volume_mbo_fit_sharded(dist: Distributor, W, labels0, fixed_mask,
 
     as_t = lambda a: torch.as_tensor(np.asarray(a),
                                      device=dist.device).to(dtype)
+    report = None
+    if on_round is not None:
+        def report(old, state):
+            on_round(state[1] - 1, int(torch.sum(state[0] != old)),
+                     dist.node_order(state[0], n, op=g))
     labels, iters = _volume.mbo_loop(
         dual_conv, dist.put_all(np.asarray(labels0, np.int64), op=g),
         dist.put_all(np.asarray(fixed_mask, bool), fill=False, op=g),
         dist.put_all(np.asarray(fixed_labels, np.int64), op=g),
         as_t(lower), as_t(upper), temp,
         lambda shape: dist.all_rows(draw((n,) + tuple(shape[1:])), g, n),
-        n_true=n, max_iters=int(max_iters), valid=valid)
+        n_true=n, max_iters=int(max_iters), on_round=report, valid=valid)
     return dist.node_order(labels, n, op=g), iters
 
 
@@ -808,13 +821,31 @@ def incres_fit_sharded(dist: Distributor, W, u0, draw, *, k, T, Dm,
     return dist.node_order(labels, n, op=g)
 
 
+def incres_grow_sharded(dist: Distributor, W):
+    """The walk of INCRES's host loop (the reference's, which ``all_labels``
+    runs) on the mesh: ``grow(F)`` places the seeds ``F`` (n, k), a host
+    array in node order, as the ranks' rows, walks ``F <- W D^-1 F`` until
+    every real row is reached (the stop the least value over the ranks, at
+    most n steps; padding rows decoupled) and returns ``(labels, steps)``,
+    the gathered diffusion's argmax in node order."""
+    from graphlearning_tpu_torch.solvers import incres as _incres
+
+    g, n = dist.operator(W)
+    dtype = dist._dtype()
+    deg = _ops.degree_vector(g).to(dtype)
+    deg = torch.where(deg > 0, deg, torch.ones_like(deg))[:, None]
+    valid = dist.valid_mask(n, g.n * dist.P, op=g)
+
+    def grow(F):
+        Ft, steps = _incres.grow(lambda X: _ops.spmm(g, X / deg),
+                                 dist.put_rows(F, dtype=dtype, op=g), n,
+                                 valid=valid, reduce=dist.reduce)
+        return np.argmax(dist.gather(Ft, n, op=g), axis=1), int(steps)
+
+    return grow
+
+
 # -- the sharded eigensolvers ---------------------------------------------------
-
-
-def _guard(n: int, k: int) -> int:
-    """The guard vectors solved beyond the k kept (as
-    ``graph.eigen_decomp_device``: LOBPCG's last pairs converge worst)."""
-    return min(2 + k // 10, max(n // 4 - k, 0))
 
 
 def _eig_solved(dist: Distributor, W, normalization, k, gamma, seed, info):
@@ -833,8 +864,8 @@ def _eig_solved(dist: Distributor, W, normalization, k, gamma, seed, info):
     if key not in memo:
         solve = {}
         vals, vecs = _eig.eigen_decomp(
-            g, normalization=normalization, k=int(k) + _guard(n, int(k)),
-            gamma=gamma, shard=dist.row_space(g, n), key=seed, info=solve)
+            g, normalization=normalization,
+            k=int(k) + _eig.guard_count(n, int(k)), gamma=gamma, shard=dist.row_space(g, n), key=seed, info=solve)
         steps = solve["iters"]
         memo[key] = (vals[:k].cpu().numpy(),
                      dist.gather(vecs[:, :k], n, op=g), steps)

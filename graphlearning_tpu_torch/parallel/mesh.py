@@ -6,8 +6,13 @@ collectives; here each rank is a process with one device, and the
 collectives are explicit calls on the :class:`Mesh`: ``all_reduce`` (the
 dot products and norms of the solvers), ``all_gather`` (the ELL route's X
 and the final gather) and the ring exchanges (the band route's halo, the
-ring SpMM).  Graphs are 1-D row-partitioned over the ``"nodes"`` axis;
-a ``batch`` axis (independent trials over a second axis) comes with P15c.
+ring SpMM).  Graphs are 1-D row-partitioned over the ``"nodes"`` axis.
+A second axis (``"batch"``) replicates: the world of ``Pn * Pb`` ranks is
+a grid of shape ``(Pn, Pb)``, rank r at ``(r // Pb, r % Pb)`` as JAX's
+``np.asarray(devices).reshape(Pn, Pb)``, and each batch index holds its
+own node group (``torch.distributed.new_group``), over which the
+collectives run.  Each of the ``Pb`` replicas computes the same fit, as
+the JAX package's ``node_sharding`` replicates over ``"batch"``.
 
 With no process group initialized, :func:`make_mesh` gives a world-size-1
 mesh whose collectives are the identity.
@@ -18,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -27,12 +33,15 @@ _REDUCE_OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
 
 
 class Mesh:
-    """This rank's view of a 1-D node mesh: the process group (None at
-    world size 1 without one), ``size`` ranks, this ``rank``, the axis
-    names with the node axis first, and this rank's ``device``."""
+    """This rank's view of a mesh: the process group of its node axis
+    (None at a node-axis size of 1), ``size`` ranks along the node axis,
+    this rank's index there (``rank``), the axis names with their sizes
+    (``shape``) and this rank's ``device``.  ``peers`` lists the global
+    ranks of the node group in node order (None: the ranks themselves)."""
 
     def __init__(self, group, size: int, rank: int, device,
-                 axis_names=("nodes",), node_axis: str = "nodes"):
+                 axis_names=("nodes",), node_axis: str = "nodes",
+                 sizes=None, peers=None):
         if node_axis not in axis_names:
             raise ValueError(f"node axis {node_axis!r} not in mesh axes "
                              f"{tuple(axis_names)}")
@@ -42,29 +51,27 @@ class Mesh:
         self.device = torch.device(device)
         self.axis_names = tuple(axis_names)
         self.node_axis = node_axis
+        if sizes is None:
+            sizes = [self.size if a == node_axis else 1
+                     for a in self.axis_names]
+        self._sizes = tuple(int(s) for s in sizes)
+        self.peers = None if peers is None else [int(p) for p in peers]
 
     @classmethod
     def from_config(cls, cfg) -> "Mesh":
-        shape = cfg.mesh_shape
-        if shape is not None and len(shape) > 1 and any(
-                int(s) != 1 for s in shape[1:]):
-            raise NotImplementedError(
-                f"mesh_shape {tuple(shape)}: axes beyond the node axis "
-                "come with P15c")
-        mesh = make_mesh(None if shape is None else int(shape[0]),
-                         devices=cfg.devices)
-        return cls(mesh.group, mesh.size, mesh.rank, mesh.device,
-                   axis_names=cfg.mesh_axes, node_axis=cfg.node_axis)
+        """The mesh of a :class:`config.GLTConfig`: ``mesh_shape`` over
+        ``mesh_axes`` (None: the world along the first axis)."""
+        return _grid_mesh(cfg.mesh_shape, cfg.mesh_axes, cfg.node_axis,
+                          cfg.devices)
 
     @property
     def shape(self) -> dict:
         """Ranks along each axis, as ``jax.sharding.Mesh.shape``."""
-        return {a: (self.size if a == self.node_axis else 1)
-                for a in self.axis_names}
+        return dict(zip(self.axis_names, self._sizes))
 
     def __repr__(self):
-        return (f"Mesh(size={self.size}, rank={self.rank}, "
-                f"device={self.device}, axes={self.axis_names})")
+        return (f"Mesh(shape={self.shape}, rank={self.rank}, "
+                f"device={self.device})")
 
     # -- collectives (the identity without a group) ---------------------------
 
@@ -90,10 +97,12 @@ class Mesh:
 
     def _exchange(self, sends, recvs):
         """Post ``(tensor, peer, tag)`` sends and receives in one batch
-        and wait for them all."""
-        ops = [dist.P2POp(dist.isend, t, peer, self.group, tag)
+        and wait for them all; ``peer`` is a node-axis index, posted to
+        its global rank."""
+        glob = (lambda p: p) if self.peers is None else self.peers.__getitem__
+        ops = [dist.P2POp(dist.isend, t, glob(peer), self.group, tag)
                for t, peer, tag in sends]
-        ops += [dist.P2POp(dist.irecv, t, peer, self.group, tag)
+        ops += [dist.P2POp(dist.irecv, t, glob(peer), self.group, tag)
                 for t, peer, tag in recvs]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -141,21 +150,81 @@ def _rank_device(devices, rank: int) -> torch.device:
     return dev
 
 
+# The node groups of each grid, made once a world: new_group is a
+# collective that every rank enters in the same order.  The world's group
+# object is kept beside its groups so that its id is not reused.
+_NODE_GROUPS: dict = {}
+
+
+def _node_groups(world, shape, node_dim):
+    """``(rows, groups)``: the ranks of the grid ``shape`` grouped along
+    axis ``node_dim`` (each row the global ranks of one node group, in
+    node order) and each row's process group, made once a world."""
+    grid = np.arange(int(np.prod(shape))).reshape(shape)
+    rows = np.moveaxis(grid, node_dim, -1).reshape(-1, shape[node_dim])
+    key = (id(world), tuple(shape), node_dim)
+    if key not in _NODE_GROUPS:
+        groups = [dist.new_group(ranks=[int(r) for r in row])
+                  for row in rows]
+        _NODE_GROUPS[key] = (world, groups)
+    return rows, _NODE_GROUPS[key][1]
+
+
+def _grid_mesh(shape, axis_names, node_axis, devices) -> Mesh:
+    """This rank's :class:`Mesh` on the grid ``shape`` (None: the world
+    along the first axis) over the initialized process group (world size 1
+    without one): ranks in row-major order, as JAX's ``reshape`` of the
+    device list, the node group the ranks that differ only along
+    ``node_axis``."""
+    axis_names = tuple(axis_names)
+    world_group = dist.group.WORLD if dist.is_initialized() else None
+    world = dist.get_world_size() if world_group is not None else 1
+    grank = dist.get_rank() if world_group is not None else 0
+    if shape is None:
+        shape = (world,) + (1,) * (len(axis_names) - 1)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh_shape {shape} does not match mesh_axes "
+                         f"{axis_names}")
+    if node_axis not in axis_names:
+        raise ValueError(f"node axis {node_axis!r} not in mesh axes "
+                         f"{axis_names}")
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh shape {shape} has {int(np.prod(shape))} "
+                         f"ranks but the process group has {world}")
+    node_dim = axis_names.index(node_axis)
+    size = shape[node_dim]
+    device = _rank_device(devices, grank)
+    if size == world:                  # one node group: the world itself
+        return Mesh(world_group, size, grank, device, axis_names,
+                    node_axis, sizes=shape)
+    if size == 1:                      # a replica alone: no collectives
+        return Mesh(None, 1, 0, device, axis_names, node_axis, sizes=shape)
+    rows, groups = _node_groups(world_group, shape, node_dim)
+    row = int(np.nonzero(rows == grank)[0][0])
+    rank = int(np.nonzero(rows[row] == grank)[0][0])
+    return Mesh(groups[row], size, rank, device, axis_names, node_axis,
+                sizes=shape, peers=rows[row])
+
+
 def make_mesh(n_nodes_axis: int | None = None, batch_axis: int = 1,
               devices=None) -> Mesh:
-    """The node mesh over the initialized process group (world size 1
-    without one): ``n_nodes_axis`` must be the world size.  A
-    ``batch_axis`` above 1 comes with P15c."""
-    if batch_axis != 1:
-        raise NotImplementedError("a batch axis of the mesh comes with P15c")
-    group = dist.group.WORLD if dist.is_initialized() else None
-    size = dist.get_world_size() if group is not None else 1
-    rank = dist.get_rank() if group is not None else 0
-    if n_nodes_axis is not None and int(n_nodes_axis) != size:
-        raise ValueError(f"n_nodes_axis={n_nodes_axis} but the process "
-                         f"group has {size} ranks")
-    return Mesh(group, size, rank, _rank_device(devices, rank),
-                axis_names=("nodes", "batch"))
+    """The ``(n_nodes_axis, batch_axis)`` mesh with axes ("nodes",
+    "batch") over the initialized process group (world size 1 without
+    one): ``n_nodes_axis`` (None: the world size over ``batch_axis``)
+    times ``batch_axis`` must be the world size.  Rank r sits at ``(r //
+    batch_axis, r % batch_axis)``; the ranks of one batch index form the
+    node group its fits run on."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    batch_axis = int(batch_axis)
+    if n_nodes_axis is None:
+        n_nodes_axis = world // batch_axis
+    if int(n_nodes_axis) * batch_axis != world:
+        raise ValueError(f"n_nodes_axis={n_nodes_axis} x batch_axis="
+                         f"{batch_axis} but the process group has {world} "
+                         "ranks")
+    return _grid_mesh((int(n_nodes_axis), batch_axis), ("nodes", "batch"),
+                      "nodes", devices)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -54,6 +54,12 @@ def _start(n, k, key, dtype, device):
         0 if key is None else key, device), dtype=dtype, device=device)
 
 
+def guard_count(n: int, k: int) -> int:
+    """The guard vectors solved beyond the ``k`` pairs kept (LOBPCG's last
+    pairs converge worst), for a graph of ``n`` nodes."""
+    return min(2 + k // 10, max(n // 4 - k, 0))
+
+
 def _lobpcg_tol(tol, X, n=None):
     """The ``tol`` given to :func:`lobpcg_standard` for the start ``X``
     (of ``n`` rows in all): JAX's (``tol``, or None for the dtype's
@@ -178,7 +184,8 @@ def _inv_sqrt(deg, shard):
 
 def eigen_decomp(g: SparseGraph, normalization="combinatorial",
                  method="exact", k=10, c=None, gamma=0, tol=0, q=1,
-                 spmm=None, accel=None, info=None, shard=None, key=None):
+                 spmm=None, accel=None, info=None, shard=None, key=None,
+                 X0=None):
     """Low-lying spectrum of the graph Laplacian: increasing eigenvalues,
     eigenvectors as columns, tensors on ``g``'s device.  ``gamma > 0``
     adds the modularity term.  ``spmm`` overrides ``W @ X``; ``accel`` (an
@@ -193,7 +200,8 @@ def eigen_decomp(g: SparseGraph, normalization="combinatorial",
     ``shard`` (a rank's rows of a mesh; see the module's docstring) the
     "exact" solves of the normalized, randomwalk and combinatorial
     Laplacians run, with ``gamma`` too; the vectors are the rank's rows.
-    ``key`` seeds LOBPCG's start (0 when None)."""
+    ``key`` seeds LOBPCG's start (0 when None); ``X0`` (n, k), in node
+    order, replaces the draw in an ``accel``'s solve."""
     if c is None:
         c = 2 * k
     n = g.n if shard is None else shard.n
@@ -250,10 +258,12 @@ def eigen_decomp(g: SparseGraph, normalization="combinatorial",
         if method == "exact":
             if accel is not None:
                 # the plain path's start, in the accel's permuted space
-                X0 = accel.to_perm(_start(n, k, None, dtype, dev))
+                if X0 is None:
+                    X0 = _start(n, k, None, dtype, dev)
                 vals, U_p = accel.eig_normalized(
                     accel.to_perm(s.to(dtype)), k,
-                    power=_default_power(dtype), X0=X0, tol=tol, info=info)
+                    power=_default_power(dtype), X0=accel.to_perm(X0),
+                    tol=tol, info=info)
                 U = accel.from_perm(U_p)
             else:
                 def A(X):          # I + D^-1/2 W D^-1/2: spectrum in [0, 2]

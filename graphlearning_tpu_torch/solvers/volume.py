@@ -208,14 +208,15 @@ def poisson_mbo_round(heat_steps, state, priors, valid=None, reduce=None):
 
 
 def poisson_mbo_loop(heat_steps, u0, w0, priors, T: int, ckpt=None,
-                     valid=None, reduce=None):
+                     valid=None, reduce=None, on_round=None):
     """T PoissonMBO rounds (:func:`poisson_mbo_round`) from ``(u0, w0)``;
     the projection weights thread through the rounds.  With ``ckpt =
     (path, every)`` the state is saved every ``every`` rounds and a run
     restarted on ``path`` goes on from its last save
     (:func:`checkpoint.run_checkpointed`).  ``valid`` and ``reduce``: a
-    sharded loop's (:func:`poisson_mbo_round`).  Returns ``(u, w,
-    err)``."""
+    sharded loop's (:func:`poisson_mbo_round`).  ``on_round(i, state)``,
+    when given, is called after round ``i`` (not with ``ckpt``).  Returns
+    ``(u, w, err)``."""
     state = (u0, w0, torch.ones((), dtype=u0.dtype, device=u0.device))
 
     def step(state):
@@ -226,8 +227,10 @@ def poisson_mbo_loop(heat_steps, u0, w0, priors, T: int, ckpt=None,
         path, every = ckpt
         return _checkpoint.run_checkpointed(step, state, int(T), path,
                                             every=every)[0]
-    for _ in range(int(T)):
+    for i in range(int(T)):
         state = step(state)
+        if on_round is not None:
+            on_round(i, state)
     return state
 
 

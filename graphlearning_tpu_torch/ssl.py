@@ -18,10 +18,11 @@ their C problems together (``_fit_onevsrest``) or one class at a time.
 
 ``model.distribute(mesh)`` runs the fits of every family but dynamic
 label propagation on a mesh of ranks (:mod:`parallel.execute`), as the JAX
-package does.  Two fits refuse there, where the JAX package fits on one
-device: PoissonMBO and VolumeMBO with ``all_labels`` (each round's
-accuracy) or a checkpoint.  p-Laplace with ``fast=False`` fits on one
-device, as the JAX package's.
+package does; PoissonMBO and VolumeMBO with ``all_labels`` run their
+rounds there too, each rank printing each round's accuracy.  A
+checkpointed PoissonMBO or VolumeMBO fit refuses on a mesh: the JAX
+package's sharded fit drops the checkpoint without a word.  p-Laplace
+with ``fast=False`` fits on one device, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -89,6 +90,39 @@ def _laplace_constrained(g, tau, mask, bdy, tol, normalization="combinatorial",
                                         tol=tol, max_iter=max_iter, u0=u0,
                                         reduce=reduce)
     return u, iters
+
+
+def _laplace_accel(acc, g, tau, mask, bdy, tol, normalization, order,
+                   u0=None):
+    """:func:`_laplace_constrained` on an accel (the band or the gather):
+    ``g``'s degrees and ``diag(L)``, ``tau``, ``mask``, ``bdy`` and ``u0``
+    in node order, the solve in the accel's permuted space, whose padding
+    rows are identity rows (diag 1, tau 0, unlabeled, zero rhs).  Returns
+    ``(u, iters)``, ``u`` in node order."""
+    deg_p = acc.to_perm(_ops.degree_vector(g))
+    diag_p = acc.to_perm(_ops.laplacian_diag(g, normalization), fill=1.0)
+    u, iters = acc.laplace_constrained(
+        deg_p, diag_p, acc.to_perm(tau),
+        acc.to_perm(mask.to(torch.int32)) > 0, acc.to_perm(bdy), tol,
+        normalization=normalization, order=order,
+        u0_p=None if u0 is None else acc.to_perm(u0))
+    return acc.from_perm(u), iters
+
+
+def _poisson_accel(acc, s, b, tol, x0=None):
+    """Poisson learning's CG on an accel: ``(I - D^-1/2 W D^-1/2) v = s
+    b`` with ``s = D^-1/2`` (n,), ``b`` (n, C) and the scaled start ``x0``
+    in node order, the ``D^{1/2} 1`` kernel projected out.  Padding rows
+    have ``s = 0``: identity rows with zero rhs.  Returns ``(s v,
+    iters)`` in node order."""
+    s_p = acc.to_perm(s)
+    v, iters = acc.cg_scaled(s_p, s_p[:, None] * acc.to_perm(b), tol=tol,
+                             x0=None if x0 is None else acc.to_perm(x0))
+    deg_p = torch.where(
+        s_p > 0, 1.0 / torch.where(s_p == 0, torch.ones_like(s_p), s_p) ** 2,
+        torch.zeros_like(s_p))
+    v = _project_out_nlap_kernel(v, deg_p)
+    return acc.from_perm(s_p[:, None] * v), iters
 
 
 results_dir = os.path.abspath(os.path.join(os.getcwd(), "results"))
@@ -315,8 +349,7 @@ class ssl:
             gap = self._dist_gap(all_labels)
             if gap is not None:
                 raise NotImplementedError(
-                    f"{type(self).__name__}.fit on a mesh: {gap} is not "
-                    "ported (the JAX package fits it on one device; P15c)")
+                    f"{type(self).__name__}.fit on a mesh: {gap}")
         train_ind = np.asarray(train_ind)
         train_labels = np.asarray(train_labels)
         self.fitted = True
@@ -480,13 +513,39 @@ def _as_numpy(u):
 
 
 def _rounds_gap(model, all_labels):
-    """What of an MBO fit's rounds the mesh does not take: printing each
-    round's accuracy (``all_labels``), or a checkpoint."""
-    if all_labels is not None:
-        return "the rounds with all_labels (each round's accuracy)"
+    """What of an MBO fit's rounds the mesh refuses: a checkpoint, which
+    the JAX package's sharded fit drops without a word (its sharded
+    rounds return before they read it)."""
     if getattr(model, "_ckpt", None) is not None:
-        return "a checkpointed fit"
+        return ("a checkpoint is refused (the JAX package drops it on a "
+                "mesh; the port will not drop it silently)")
     return None
+
+
+def _poisson_mbo_report(all_labels, train_ind):
+    """PoissonMBO's ``on_round(i, labels)`` with ``all_labels``: each
+    round's accuracy, in the reference's words; None without them."""
+    if all_labels is None:
+        return None
+
+    def report(i, labels):
+        print("%d, Accuracy = %.2f"
+              % (i, ssl_accuracy(labels, all_labels, train_ind)))
+
+    return report
+
+
+def _volume_mbo_report(all_labels, train_ind):
+    """VolumeMBO's ``on_round(it, changed, labels)`` with ``all_labels``:
+    each iteration's changed labels and accuracy; None without them."""
+    if all_labels is None:
+        return None
+
+    def report(it, changed, labels):
+        print("%d, changed=%d, Accuracy = %.2f"
+              % (it, changed, ssl_accuracy(labels, all_labels, train_ind)))
+
+    return report
 
 
 def warmup(model, num_classes=2, num_train=None, seed=0):
@@ -622,17 +681,9 @@ class laplace(ssl):
             cache_obj=self if self.reweighting == "none" else None,
             device=dev)
         if acc is not None:
-            # permuted space; padding rows are identity rows (diag 1,
-            # tau 0, unlabeled, zero rhs)
-            deg_p = acc.to_perm(_ops.degree_vector(G.sparse))
-            diag_p = acc.to_perm(
-                _ops.laplacian_diag(G.sparse, self.normalization), fill=1.0)
-            u, self.iters = acc.laplace_constrained(
-                deg_p, diag_p, acc.to_perm(tau_t),
-                acc.to_perm(mask_t.to(torch.int32)) > 0, acc.to_perm(bdy_t),
-                self.tol, normalization=self.normalization, order=self.order,
-                u0_p=None if u0 is None else acc.to_perm(u0))
-            u = acc.from_perm(u)
+            u, self.iters = _laplace_accel(
+                acc, G.sparse, tau_t, mask_t, bdy_t, self.tol,
+                self.normalization, self.order, u0=u0)
         else:
             u, self.iters = _laplace_constrained(
                 G.sparse, tau_t, mask_t, bdy_t, self.tol,
@@ -821,17 +872,8 @@ class poisson(ssl):
                 x0 = x0 * torch.sqrt(deg)[:, None]
             acc = _accel.maybe_build(W, cache_obj=self, device=dev)
             if acc is not None:
-                # padding rows have s = 0: identity rows with zero rhs
-                s_p = acc.to_perm(s)
-                v, self.iters = acc.cg_scaled(
-                    s_p, s_p[:, None] * acc.to_perm(b), tol=self.tol,
-                    x0=None if x0 is None else acc.to_perm(x0))
-                deg_p = torch.where(
-                    s_p > 0, 1.0 / torch.where(s_p == 0, torch.ones_like(s_p),
-                                               s_p) ** 2,
-                    torch.zeros_like(s_p))
-                v = _project_out_nlap_kernel(v, deg_p)
-                return acc.from_perm(s_p[:, None] * v)
+                u, self.iters = _poisson_accel(acc, s, b, self.tol, x0=x0)
+                return u
             v, self.iters = _cg_scaled_solve(g, s, s[:, None] * b, 1.0, 1.0,
                                              self.tol, x0=x0)
             return s[:, None] * _project_out_nlap_kernel(v, deg)
@@ -981,13 +1023,14 @@ class poisson_mbo(ssl):
         Db = as_t(self.mu * dt * source)
         if isinstance(self.weights, int):
             self.weights = np.ones((k,))
+        report = _poisson_mbo_report(all_labels, train_ind)
         if self._dist is not None:
             from graphlearning_tpu_torch.parallel import execute as _exec
 
             u, w, err = _exec.poisson_mbo_fit_sharded(
                 self._dist, W, self.mu * dt * source,
                 utils.labels_to_onehot(labels, k), self.weights,
-                self.class_priors, dt, self.Ns, self.T)
+                self.class_priors, dt, self.Ns, self.T, on_round=report)
             self.weights = w.astype(float)
             self.class_priors_error = err
             return u
@@ -1006,20 +1049,17 @@ class poisson_mbo(ssl):
                     u = u - dt * (deg[:, None] * u - _ops.spmm(g, u)) + Db
                 return u
 
-        if all_labels is None:
-            u, w, err = _volume.poisson_mbo_loop(
-                heat_steps, u, as_t(self.weights), as_t(self.class_priors),
-                self.T, ckpt=getattr(self, "_ckpt", None))
-            self.weights = w.cpu().numpy().astype(float)
-            self.class_priors_error = float(err)
-            return u
-        # verbose path: each round's accuracy
-        for i in range(self.T):
-            self.prob = heat_steps(u).cpu().numpy()
-            labels = self.volume_label_projection()
-            u = as_t(utils.labels_to_onehot(labels, k))
-            print("%d, Accuracy = %.2f"
-                  % (i, ssl_accuracy(labels, all_labels, train_ind)))
+        on_round = None
+        if report is not None:
+            def on_round(i, state):
+                report(i, torch.argmax(state[0], dim=1).cpu().numpy())
+        # with all_labels the checkpoint goes unused, as the JAX package's
+        ckpt = None if report is not None else getattr(self, "_ckpt", None)
+        u, w, err = _volume.poisson_mbo_loop(
+            heat_steps, u, as_t(self.weights), as_t(self.class_priors),
+            self.T, ckpt=ckpt, on_round=on_round)
+        self.weights = w.cpu().numpy().astype(float)
+        self.class_priors_error = float(err)
         return u
 
 
@@ -1106,7 +1146,8 @@ class volume_mbo(ssl):
                 self._dist, W, labels, fixed, fixed_labels,
                 np.floor(vc * self.class_counts),
                 np.ceil((2 - vc) * self.class_counts), self.temperature,
-                draw, k, self.max_iters)
+                draw, k, self.max_iters,
+                on_round=_volume_mbo_report(all_labels, train_ind))
             labels[train_ind] = train_labels
             return utils.labels_to_onehot(labels, k)
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1135,17 +1176,15 @@ class volume_mbo(ssl):
                 return dinv[:, None] * _ops.spmm(g, a)
 
         temp = self.temperature
-        report = None
-        if all_labels is not None:
-            def report(old, state):
-                # verbose path: each iteration's accuracy
-                print("%d, changed=%d, Accuracy = %.2f" % (
-                    state[1] - 1, int(torch.sum(state[0] != old)),
-                    ssl_accuracy(state[0].cpu().numpy(), all_labels,
-                                 train_ind)))
+        report = _volume_mbo_report(all_labels, train_ind)
+        on_round = None
+        if report is not None:
+            def on_round(old, state):
+                report(state[1] - 1, int(torch.sum(state[0] != old)),
+                       state[0].cpu().numpy())
         labels, self.iters = _volume.mbo_loop(
             dual_conv, as_t(labels), fixed, fixed_labels, lower, upper, temp,
-            draw, n_true=n, max_iters=self.max_iters, on_round=report,
+            draw, n_true=n, max_iters=self.max_iters, on_round=on_round,
             ckpt=getattr(self, "_ckpt", None), generator=gen)
         labels = labels.cpu().numpy()
         labels[train_ind] = train_labels

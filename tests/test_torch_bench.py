@@ -168,8 +168,13 @@ def test_settings_from_the_environment(monkeypatch):
     assert bench.settings(mode="poisson")["n"] == 70000
     with pytest.raises(TypeError):
         bench.settings(width=3)
-    with pytest.raises(ValueError, match="sharded"):
-        bench.main(device="cpu", mode="sharded")
+    # an unknown mode names the three the port runs
+    with pytest.raises(ValueError, match="'sharded'"):
+        bench.main(device="cpu", mode="scaling")
+    sharded = bench.settings(mode="sharded")
+    assert (sharded["n"], sharded["k"], sharded["d"], sharded["iters"],
+            sharded["sharded_kernel"], sharded["devices"]) == (
+        65536, 10, 64, 20, "gspmd", 8)
 
 
 def test_bench_needs_a_device_or_a_gpu():
@@ -192,3 +197,117 @@ def test_bench_gather_and_smoke_import_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# -- the sharded mode ------------------------------------------------------------
+
+SHARDED_SMALL = dict(n=4096, d=8, iters=3)
+
+
+@pytest.fixture(scope="module")
+def jax_sharded_line():
+    """The JAX bench's sharded line at the same sizes (``bench.py`` at the
+    repo root, on the test session's 8 CPU devices), run in-process."""
+    import contextlib
+    import importlib.util
+    import io
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("jax_bench",
+                                                  root / "bench.py")
+    jbench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jbench)
+    buf = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        for key, value in SHARDED_SMALL.items():
+            mp.setenv(f"GLT_BENCH_{key.upper()}", str(value))
+        with contextlib.redirect_stdout(buf):
+            jbench.sharded_bench()
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def sharded_runs():
+    """Each kernel's sharded line at P = 1 and 2 (gloo ranks) and its
+    gathered chains, the three benches' ranks spawned at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(kernel):
+        chains = {}
+        cfg = bench.settings(mode="sharded", sharded_kernel=kernel,
+                             devices=2, **SHARDED_SMALL)
+        return bench.sharded_bench(cfg, torch.device("cpu"),
+                                   chains=chains), chains
+
+    with ThreadPoolExecutor(len(bench.SHARDED_KERNELS)) as pool:
+        runs = pool.map(run, bench.SHARDED_KERNELS)
+        return dict(zip(bench.SHARDED_KERNELS, runs))
+
+
+@pytest.mark.parametrize("kernel", ["gspmd", "ring", "banded"])
+def test_sharded_line_has_the_jax_keys(sharded_runs, jax_sharded_line,
+                                       kernel):
+    line, _ = sharded_runs[kernel]
+    assert set(line) == set(jax_sharded_line)
+    assert set(jax_sharded_line["config"]) <= set(line["config"])
+    cfg = line["config"]
+    assert cfg["nnz"] == jax_sharded_line["config"]["nnz"]
+    assert (cfg["kernel"], cfg["virtual_mesh"], cfg["d_effective"]) == (
+        kernel, True, SHARDED_SMALL["d"])
+    assert list(cfg["edges_per_sec"]) == ["1", "2"]
+    assert all(v > 0 for v in cfg["edges_per_sec"].values())
+    assert line["unit"] == ("% throughput retained sharded 2-way "
+                            "(virtual mesh)")
+    assert line["value"] == round(cfg["edges_per_sec"]["2"]
+                                  / cfg["edges_per_sec"]["1"] * 100, 1)
+
+
+@pytest.mark.parametrize("kernel", ["gspmd", "ring", "banded"])
+def test_sharded_window_times_whole_chains(sharded_runs, kernel):
+    """Each P times chains after a warm one until ``SHARDED_WINDOW_S``
+    seconds have passed; edges/s is the timed chains' mean.  On the CPU
+    the banded route runs the twins, which count no launch (the smoke
+    holds K1 and K3 to their counts on the card)."""
+    line, _ = sharded_runs[kernel]
+    cfg = line["config"]
+    for P in ("1", "2"):
+        ms = cfg["chain_ms"][P]
+        assert cfg["chains_timed"][P] == len(ms) - 1 >= 1
+        assert cfg["window_s"] == bench.SHARDED_WINDOW_S
+        assert sum(ms[1:]) >= bench.SHARDED_WINDOW_S * 1e3 * 0.999
+        rate = cfg["nnz"] * cfg["iters"] / (np.mean(ms[1:]) / 1e3)
+        assert cfg["edges_per_sec"][P] == pytest.approx(rate, rel=1e-3)
+        assert cfg["launches"][P] == {}
+
+
+@pytest.mark.parametrize("kernel", ["gspmd", "ring", "banded"])
+def test_sharded_chain_equals_one_device_chain(sharded_runs, kernel):
+    """Every P's gathered chain is ``W^iters X`` of the one-device scipy
+    f64 chain on the bench's graph, within 1e-12 (f64 sums in another
+    order); the bench's own ``rel_err_chain`` says as much."""
+    line, chains = sharded_runs[kernel]
+    rs = np.random.RandomState(0)
+    W = bench.bench_graph_2d(SHARDED_SMALL["n"], 10, rs)
+    X = rs.randn(SHARDED_SMALL["n"], SHARDED_SMALL["d"]).astype(np.float32)
+    ref = X.astype(np.float64)
+    for _ in range(SHARDED_SMALL["iters"]):
+        ref = W @ ref
+    assert sorted(chains) == [1, 2]
+    for P, Y in chains.items():
+        np.testing.assert_allclose(Y, ref, rtol=0,
+                                   atol=1e-12 * np.abs(ref).max())
+        assert line["config"]["rel_err_chain"][str(P)] <= 1e-12
+
+
+def test_sharded_main_prints_its_line(capsys):
+    """``main`` in the sharded mode at one rank prints the line it
+    returns; an unknown kernel raises."""
+    line = bench.main(device="cpu", mode="sharded", sharded_kernel="ring",
+                      devices=1, **SHARDED_SMALL)
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(printed[-1]) == json.loads(json.dumps(line))
+    assert line["value"] == 100.0 and line["unit"].startswith(
+        "% throughput retained sharded 1-way")
+    with pytest.raises(ValueError, match="GLT_BENCH_SHARDED_KERNEL"):
+        bench.main(device="cpu", mode="sharded", sharded_kernel="pallas",
+                   devices=1, **SHARDED_SMALL)

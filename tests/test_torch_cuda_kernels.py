@@ -1736,3 +1736,35 @@ def test_cuda_world_size_one_nccl_distance_and_lipschitz_fits(
         ref = make().fit_predict(ti, y[ti])
         limit = 0.999 if name == "graph_nn" else 0.99
         assert np.mean(preds[name] == ref) >= limit, name
+
+
+# -- fit packs across devices ------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_packs_load_across_devices(cuda_device, tmp_path):
+    """A pack saved on one device loads on the other: the Poisson and
+    Laplace packs saved here (their segments alone) fit on the card as the
+    CPU load of the same file does (agreement >= 0.99), and the spectral
+    pack saved on the card (its LOBPCG start drawn there) loads on the CPU
+    and the card, the two clusterings agreeing above 95 %."""
+    import graphlearning_tpu_torch as gl
+
+    W = _knn_csr(4000, 10, seed=3)
+    y = (W._glt_points[:, 0] > 0.5).astype(int) + 2 * (
+        W._glt_points[:, 1] > 0.5)
+    ti = gl.trainsets.generate(y, rate=3, seed=0)
+    for kind in ("poisson", "laplace"):
+        path = str(tmp_path / f"{kind}.pack")
+        getattr(gl.aot, f"save_{kind}_pack")(W, 4, path)
+        load = getattr(gl.aot, f"load_{kind}_pack")
+        on_card = load(W, path, device=cuda_device)(ti, y[ti])
+        on_cpu = load(W, path, device="cpu")(ti, y[ti])
+        assert np.mean(on_card == on_cpu) >= 0.99
+    path = str(tmp_path / "spectral.pack")
+    gl.aot.save_spectral_pack(W, 4, path, device=cuda_device)
+    start = torch.load(path, weights_only=True)["start"]
+    assert start.device.type == "cpu" and start.dtype == torch.float32
+    on_card = gl.aot.load_spectral_pack(W, path, device=cuda_device)()
+    on_cpu = gl.aot.load_spectral_pack(W, path, device="cpu")()
+    assert gl.clustering.clustering_accuracy(on_card, on_cpu) > 95.0

@@ -398,12 +398,78 @@ def case_runners(W, ti, labels, trainsets, results_dir):
             "labeled": np.asarray(al.labeled_ind), "u": np.asarray(al.u)}
 
 
+# -- the last of the distribution layer (P15c) ---------------------------------
+
+
+def case_batch_fits(W, ti, labels, shape, axes):
+    """Laplace and Poisson CG (tol 1e-10) on both routes on the mesh of
+    ``shape`` over ``axes`` (``GLTConfig``), each one's ``(u, prediction,
+    route)``, with the mesh's shape, node-axis size and index, and
+    ``make_mesh``'s of the same shape."""
+    import graphlearning_tpu_torch as gl
+
+    out = {}
+    for kernel in ("gspmd", "banded"):
+        cfg = gl.GLTConfig(mesh_shape=shape, mesh_axes=axes,
+                           sharded_kernel=kernel, devices="cpu")
+        for name in ("laplace", "poisson"):
+            m = FITS[name](gl, W, None).distribute(cfg)
+            u = m.fit(ti, labels[ti])
+            out[kernel, name] = (u, m.predict(), m._dist.route)
+    mesh = m._dist.mesh
+    out["mesh"] = (mesh.shape, mesh.size, mesh.rank)
+    made = gl.parallel.make_mesh(*shape, devices="cpu")
+    out["make_mesh"] = (made.shape, made.size, made.rank)
+    return out
+
+
+ALL_LABELS_FITS = {
+    "poisson_mbo": lambda gl, W, priors: gl.ssl.poisson_mbo(
+        W, class_priors=priors, T=5, device="cpu"),
+    "volume_mbo": lambda gl, W, priors: gl.ssl.volume_mbo(
+        W, class_priors=priors, temperature=0.1, seed=0, device="cpu"),
+    "incres": lambda gl, W, priors: gl.clustering.incres(
+        W, 3, T=6, seed=0, device="cpu"),
+}
+
+
+def fit_all_labels(gl, name, W, ti, labels, priors, cfg=None):
+    """``(prediction, printed rounds)`` of an ``ALL_LABELS_FITS`` fit with
+    ``all_labels``, distributed on ``cfg`` when given."""
+    import contextlib
+    import io
+
+    m = ALL_LABELS_FITS[name](gl, W, priors)
+    if cfg is not None:
+        m.distribute(cfg)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if name == "incres":
+            pred = m.fit_predict(all_labels=labels)
+        else:
+            pred = m.fit_predict(ti, labels[ti], all_labels=labels)
+    return np.asarray(pred), buf.getvalue()
+
+
+def case_all_labels(W, ti, labels, priors, kernel):
+    """PoissonMBO, VolumeMBO (temperature 0.1, seed 0) and INCRES with
+    ``all_labels`` on the ``kernel`` route: each one's prediction and
+    printed rounds."""
+    import graphlearning_tpu_torch as gl
+
+    cfg = gl.GLTConfig(sharded_kernel=kernel, devices="cpu")
+    return {name: fit_all_labels(gl, name, W, ti, labels, priors, cfg)
+            for name in ALL_LABELS_FITS}
+
+
 # -- the mesh without a process group -----------------------------------------
 
 
 def test_world_size_one_mesh_is_local():
     """Without a process group the mesh's collectives are the identity and
-    the halo wraps to the rank itself."""
+    the halo wraps to the rank itself.  A mesh of more ranks than the
+    world, along either axis, raises ``ValueError`` (JAX's ``make_mesh``
+    asserts)."""
     import torch
 
     import graphlearning_tpu_torch as gl
@@ -416,7 +482,7 @@ def test_world_size_one_mesh_is_local():
     assert torch.equal(left, X[-2:]) and torch.equal(right, X[:2])
     assert mesh.all_reduce(X) is X and mesh.all_gather(X) is X
     assert mesh.ring_shift(X) is X
-    with pytest.raises(NotImplementedError, match="P15c"):
+    with pytest.raises(ValueError, match="batch_axis=2"):
         gl.parallel.make_mesh(batch_axis=2, devices="cpu")
     with pytest.raises(ValueError):
         gl.parallel.make_mesh(n_nodes_axis=2, devices="cpu")

@@ -36,8 +36,8 @@ of P), held to the JAX package's sharded fits on its 4-device CPU mesh:
 * JAX's two runner tests: ``ssl_trials`` and ``active_learner`` on a
   distributed model equal to the one-device runs;
 * ``clustering.distribute`` warning on a family without a sharded path,
-  and the refusals left: PoissonMBO and INCRES with ``all_labels`` on a
-  mesh.
+  and the refusal left: a checkpointed PoissonMBO or VolumeMBO fit on a
+  mesh (``all_labels`` on a mesh: ``test_torch_batch_and_rounds.py``).
 
 The ranks run ``tests/test_torch_ranks.py`` (no JAX there): four groups,
 one a world size and route, spawned at once after the JAX fits.
@@ -530,18 +530,32 @@ def test_clustering_distribute_warns_without_a_sharded_path(clusters):
 
 
 def test_refusals_left_name_p15c(clusters):
-    """PoissonMBO and INCRES with ``all_labels`` on a mesh refuse (the JAX
-    package fits them on one device), and a batch axis above 1 comes with
-    P15c."""
+    """The refusals left on a mesh, none of them naming P15c, the slice
+    that ported the rest: a checkpointed PoissonMBO or VolumeMBO fit is
+    refused with its reason (the JAX package's sharded fit drops the
+    checkpoint without a word; the port will not), where the same fits
+    with ``all_labels`` now run (their rounds against the one-device
+    fits' in ``test_torch_batch_and_rounds.py``), and a batch axis larger
+    than the world raises ``ValueError``, as JAX's ``make_mesh``
+    asserts."""
     W, labels, ti, priors = clusters
-    m = tgl.ssl.poisson_mbo(W, class_priors=priors, device="cpu").distribute(
-        tgl.GLTConfig(devices="cpu"))
-    with pytest.raises(NotImplementedError, match="P15c"):
-        m.fit(ti, labels[ti], all_labels=labels)
+    cfg = tgl.GLTConfig(devices="cpu")
+    for make in (lambda: tgl.ssl.poisson_mbo(W, class_priors=priors, T=2,
+                                             device="cpu"),
+                 lambda: tgl.ssl.volume_mbo(W, class_priors=priors,
+                                            temperature=0, device="cpu")):
+        with pytest.raises(NotImplementedError,
+                           match="checkpoint is refused") as err:
+            make().distribute(cfg).fit(ti, labels[ti],
+                                       checkpoint_path=os.devnull)
+        assert "P15c" not in str(err.value)
+    m = tgl.ssl.poisson_mbo(W, class_priors=priors, T=2,
+                            device="cpu").distribute(cfg)
+    assert m.fit_predict(ti, labels[ti], all_labels=labels).shape == (
+        W.shape[0],)
     c = tgl.clustering.incres(W, 3, T=2, seed=0, device="cpu").distribute(
-        tgl.GLTConfig(devices="cpu"))
-    with pytest.raises(NotImplementedError, match="P15c"):
-        c.fit(all_labels=labels)
-    with pytest.raises(NotImplementedError, match="P15c"):
+        cfg)
+    assert c.fit_predict(all_labels=labels).shape == (W.shape[0],)
+    with pytest.raises(ValueError, match="process group has 1"):
         tgl.GLTConfig(mesh_shape=(1, 2), mesh_axes=("nodes", "batch"),
                       devices="cpu").make_mesh()

@@ -30,15 +30,12 @@ from graphlearning_tpu_torch.ops import graphops as tops
 from graphlearning_tpu_torch.ops.accel import AccelSpMM
 from tests.conftest import random_knn_csr
 
-P15C = "comes with P15c (the last slice of the distribution layer)"
 # The JAX package's module of Pallas kernels is ops/band_spmm.py in the
 # port, with its own wrappers (held to the JAX kernels by
 # tests/test_torch_band_spmm.py and the PERF.md table), so it is not
 # compared name by name.
 RENAMED = {"ops.pallas_spmm": "ops.band_spmm"}
 ALLOWED = {
-    "aot": "whole fits compiled ahead of time by XLA; a port pack "
-           "(the host plan saved) " + P15C,
     "native.hostpath.use_host": "the remote-TPU dispatch gate: the port "
                                 "runs on no TPU (native/hostpath.py)",
     "native.hostpath.use_host_lip": "the remote-TPU dispatch gate, as "
@@ -145,7 +142,12 @@ def test_gltconfig_fields_and_defaults():
     mesh = tgl.GLTConfig(devices="cpu").make_mesh()
     assert (mesh.size, mesh.axis_names, str(mesh.device)) == (
         1, ("nodes",), "cpu")
-    with pytest.raises(NotImplementedError, match="P15c"):
+    # a batch axis: a (1, 1) grid here; more ranks than the world raise,
+    # as JAX's reshape of too few devices does
+    mesh = tgl.GLTConfig(mesh_shape=(1, 1), mesh_axes=("nodes", "batch"),
+                         devices="cpu").make_mesh()
+    assert mesh.shape == {"nodes": 1, "batch": 1} and mesh.size == 1
+    with pytest.raises(ValueError, match="process group has 1"):
         tgl.GLTConfig(mesh_shape=(1, 2), mesh_axes=("nodes", "batch"),
                       devices="cpu").make_mesh()
 
