@@ -1,0 +1,5 @@
+"""device_idle_pct.trials: the share of the traced window in which no
+kernel, copy or set ran on the card, from the profiler's timeline
+(lib.trace.summarize)."""
+
+from benchmark.lib.readings import idle_pct as read  # noqa: F401
