@@ -51,7 +51,8 @@ default (see :mod:`config`).  Ported so far:
   and the JAX package's Adam), the exact serial host oracles of
   ``native`` (built from the port's own ``native/oracles.cpp`` with g++)
   and ``native.hostpath.laplace_host``, and ``observability`` (``trace``
-  over ``torch.profiler``, ``Timer``, ``benchmark``, ``Counters``);
+  over ``torch.profiler``, ``Timer``, ``benchmark``, ``Counters``, and
+  ``span``, fed at the fit path's layer boundaries);
 * the distribution layer: ``GLTConfig``, ``parallel`` (the mesh over
   ``torch.distributed`` with its node and batch axes, row-sharded
   graphs, the partitioned band on K1, K3, K7 and K9 with a ring halo, the

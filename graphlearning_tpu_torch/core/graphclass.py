@@ -14,6 +14,7 @@ import scipy.sparse as sp
 import torch
 
 from graphlearning_tpu_torch import config
+from graphlearning_tpu_torch import observability as _obs
 from graphlearning_tpu_torch.core.sparse import BucketedELL, SparseGraph
 from graphlearning_tpu_torch.ops import graphops as _ops
 
@@ -43,8 +44,10 @@ class graph:
                     if hit is not None and hit[1] == (W.shape[0], W.nnz):
                         self.g = hit[0]
             if self.g is None:
-                self.g = SparseGraph.from_scipy(W, k=k, dtype=dtype,
-                                                device=dev)
+                with _obs.span("graph.ell") as span:
+                    self.g = SparseGraph.from_scipy(W, k=k, dtype=dtype,
+                                                    device=dev)
+                    span.set(n=self.g.n, k=self.g.k)
                 if ckey is not None:
                     if not isinstance(getattr(W, "_gltt_sparsegraph", None),
                                       dict):

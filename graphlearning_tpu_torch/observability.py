@@ -10,13 +10,19 @@
   call and, for graph operations, edges per second.
 * :class:`Counters` -- process-global named counters and gauges with a
   printable summary.
+* :class:`span` -- a named interval at a layer boundary of the program:
+  always counted in :data:`counters` (``<name>`` and ``<name>.s``); while
+  a ``torch.profiler`` records, also kept (:func:`spans`) and shown as a
+  range of its own name on the profiler's timeline.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
 from typing import Callable, Optional
 
@@ -152,3 +158,85 @@ class Counters:
 
 #: process-global counter registry
 counters = Counters()
+
+
+#: the counters whose change over its life a recorded root span keeps
+ROOT_COUNTERS = ("cg.steps", "host_reads")
+
+_RECORDS = collections.deque(maxlen=1 << 16)
+_IDS = itertools.count(1)
+_OPEN = threading.local()
+_profiling = torch.autograd._profiler_enabled
+_clock = time.perf_counter_ns
+
+
+class span:
+    """``with span(name, **attrs) as sp: ...`` -- one interval of the
+    program's work.
+
+    Always: adds 1 to ``counters[name]`` and the seconds it lasted to
+    ``counters[name + ".s"]``.  While a torch profiler records
+    (``torch.autograd._profiler_enabled()``), it also opens
+    ``torch.profiler.record_function(name)``, so that it sits on the
+    profiler's timeline, and on leaving keeps a record (:func:`spans`):
+    ``name``, ``id``, ``parent`` (the enclosing recorded span's id, or
+    None), ``root`` (the outermost's id, shared by a whole call),
+    ``start_ns`` and ``end_ns`` on the profiler's clock (Unix time, read
+    around the range), ``attrs``, and for a root the change of each of
+    :data:`ROOT_COUNTERS` over its life (``counts``).  ``sp.set(**attrs)``
+    adds attributes known only inside the block."""
+
+    __slots__ = ("name", "attrs", "_t0", "_rec", "_rf", "_base")
+
+    def __init__(self, name: str, **attrs):
+        self.name = name
+        self.attrs = attrs
+        self._rec = None
+
+    def set(self, **attrs):
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        if _profiling():
+            stack = getattr(_OPEN, "stack", None)
+            if stack is None:
+                stack = _OPEN.stack = []
+            sid = next(_IDS)
+            parent = stack[-1] if stack else None
+            self._rec = {"name": self.name, "id": sid,
+                         "parent": None if parent is None else parent["id"],
+                         "root": sid if parent is None else parent["root"]}
+            if parent is None:
+                self._base = [counters.get(c) for c in ROOT_COUNTERS]
+            stack.append(self._rec)
+            self._rf = torch.profiler.record_function(self.name)
+            self._rec["start_ns"] = time.time_ns()
+            self._rf.__enter__()
+        self._t0 = _clock()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        dt = _clock() - self._t0
+        counts = counters._counts
+        counts[self.name] += 1.0
+        counts[self.name + ".s"] += dt * 1e-9
+        rec = self._rec
+        if rec is not None:
+            self._rf.__exit__(exc_type, exc, tb)
+            rec["end_ns"] = time.time_ns()
+            rec["attrs"] = self.attrs
+            if rec["parent"] is None:
+                rec["counts"] = {c: counters.get(c) - b for c, b in
+                                 zip(ROOT_COUNTERS, self._base)}
+            _OPEN.stack.pop()
+            _RECORDS.append(rec)
+        return False
+
+
+def spans(clear: bool = False) -> list:
+    """The records of the spans that ended while a profiler recorded,
+    oldest first (the last 65536 kept); ``clear`` empties the buffer."""
+    out = list(_RECORDS)
+    if clear:
+        _RECORDS.clear()
+    return out

@@ -70,6 +70,7 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from graphlearning_tpu_torch import config
+from graphlearning_tpu_torch import observability as _obs
 from graphlearning_tpu_torch.core.sparse import SparseGraph
 from graphlearning_tpu_torch.ops import band_spmm as _bs
 from graphlearning_tpu_torch.ops.gather import GatherAccel
@@ -904,10 +905,18 @@ def maybe_build(W, cache_obj=None, attr="_accel_cache", device=None,
         W._gltt_accel_cache[gkey] = value
         return use(value)
 
+    def build(choose, *args):
+        """``choose(*args)``, a cache miss's choice and build, in an
+        ``accel.build`` span that names the route taken."""
+        with _obs.span("accel.build") as span:
+            acc = choose(*args)
+            span.set(route=path_name(acc))
+        return acc
+
     def use(value):
         if isinstance(value, _Disabled):
             if gather and value.gather_reason:
-                return fallback(value.gather_reason)
+                return build(fallback, value.gather_reason)
             return None
         if not gather and isinstance(value, GatherAccel):
             return None
@@ -938,18 +947,21 @@ def maybe_build(W, cache_obj=None, attr="_accel_cache", device=None,
             setattr(cache_obj, attr, cached)
         return use(cached)
 
-    if _band_hostile(W):
-        return fallback("the graph is band-hostile (p95 RCM bandwidth > "
-                        "n/4)")
-    try:
-        acc = AccelSpMM(W, device=dev, **kw)
-    except BandPlanUnavailable as e:
-        return fallback(str(e))
-    if _hybrid_estimate(acc) > 0.7 * W.nnz * _GATHER_NS:
-        return fallback("the band cost model predicts no gain")
-    log.info("band path: %s plan, n_pad=%d, %d residual edges",
-             path_name(acc), acc.n_pad, acc.n_resid)
-    return keep(acc)
+    def choose():
+        if _band_hostile(W):
+            return fallback("the graph is band-hostile (p95 RCM bandwidth "
+                            "> n/4)")
+        try:
+            acc = AccelSpMM(W, device=dev, **kw)
+        except BandPlanUnavailable as e:
+            return fallback(str(e))
+        if _hybrid_estimate(acc) > 0.7 * W.nnz * _GATHER_NS:
+            return fallback("the band cost model predicts no gain")
+        log.info("band path: %s plan, n_pad=%d, %d residual edges",
+                 path_name(acc), acc.n_pad, acc.n_resid)
+        return keep(acc)
+
+    return build(choose)
 
 
 def _band_hostile(W) -> bool:

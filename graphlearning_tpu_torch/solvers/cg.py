@@ -15,6 +15,10 @@ is a ``lax.while_loop``; here the loop is Python with one convergence check
 * The batched forms (:func:`conjgrad_batched`,
   :func:`constrained_solve_batched`) solve several trials at once, each to
   its own stop, as the JAX package's ``jax.vmap`` of these solvers does.
+* Tracing (:mod:`observability`): a solve is a ``cg.solve`` span (its
+  ``steps``, ``columns`` and ``trials``), each host read that waits on the
+  device a ``cg.wait`` span; ``counters["cg.steps"]`` counts the loop's
+  iterations (one product each), ``counters["host_reads"]`` the reads.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from graphlearning_tpu_torch import observability as _obs
 
 
 def _safe_div(num, den):
@@ -37,11 +43,23 @@ def _sum(t, reduce):
     return t if reduce is None else reduce(t)
 
 
+def _read(t, to_host):
+    """``to_host(t)``: a host read that waits on the device (``cg.wait``)."""
+    with _obs.span("cg.wait"):
+        out = to_host(t)
+    _obs.counters.add("host_reads")
+    return out
+
+
+def _numpy(t):
+    return t.cpu().numpy()
+
+
 def _norm(r, reduce):
     """``||r||_F``, over every rank's rows with ``reduce``."""
     if reduce is None:
-        return float(torch.linalg.norm(r))
-    return float(torch.sqrt(reduce(torch.sum(r * r))))
+        return _read(torch.linalg.norm(r), float)
+    return _read(torch.sqrt(reduce(torch.sum(r * r))), float)
 
 
 def conjgrad(A: Callable, b, x0=None, max_iter: int = 1000,
@@ -57,31 +75,35 @@ def conjgrad(A: Callable, b, x0=None, max_iter: int = 1000,
     if M is None:
         M = lambda r: r
 
-    r = b - A(x)
-    z = M(r)
-    p = z
-    rz = _sum(torch.sum(r * z, dim=0), reduce)
-
-    # Clamp the tolerance to what the dtype can reach: f64-sized tolerances
-    # would otherwise run f32 to max_iter.  The clamp uses the system scale
-    # ||b||, not the warm-start residual, so a good x0 never tightens it.
-    eps = torch.finfo(b.dtype).eps
-    tol = max(float(tol), 50.0 * eps * (_norm(b, reduce) + 1.0))
-
-    it = 0
-    while it < max_iter and _norm(r, reduce) > tol:
-        Ap = A(p)
-        pAp = _sum(torch.sum(p * Ap, dim=0), reduce)
-        alpha = _safe_div(rz, pAp)
-        x = x + alpha[None, :] * p
-        r = r - alpha[None, :] * Ap
+    with _obs.span("cg.solve", columns=b.shape[1], trials=1) as sp:
+        r = b - A(x)
         z = M(r)
-        rz_new = _sum(torch.sum(r * z, dim=0), reduce)
-        beta = _safe_div(rz_new, rz)
-        p = z + beta[None, :] * p
-        rz = rz_new
-        it += 1
-    res = _norm(r, reduce)
+        p = z
+        rz = _sum(torch.sum(r * z, dim=0), reduce)
+
+        # Clamp the tolerance to what the dtype can reach: f64-sized
+        # tolerances would otherwise run f32 to max_iter.  The clamp uses
+        # the system scale ||b||, not the warm-start residual, so a good x0
+        # never tightens it.
+        eps = torch.finfo(b.dtype).eps
+        tol = max(float(tol), 50.0 * eps * (_norm(b, reduce) + 1.0))
+
+        it = 0
+        while it < max_iter and _norm(r, reduce) > tol:
+            Ap = A(p)
+            pAp = _sum(torch.sum(p * Ap, dim=0), reduce)
+            alpha = _safe_div(rz, pAp)
+            x = x + alpha[None, :] * p
+            r = r - alpha[None, :] * Ap
+            z = M(r)
+            rz_new = _sum(torch.sum(r * z, dim=0), reduce)
+            beta = _safe_div(rz_new, rz)
+            p = z + beta[None, :] * p
+            rz = rz_new
+            it += 1
+        res = _norm(r, reduce)
+        _obs.counters.add("cg.steps", it)
+        sp.set(steps=it)
     if was_1d:
         x = x[:, 0]
     return x, it, res
@@ -159,33 +181,39 @@ def conjgrad_batched(A: Callable, b, max_iter: int = 1000, tol: float = 1e-10,
 
     b = b.contiguous()
     x = torch.zeros_like(b)
-    r = b - A_stack(x)
-    z = M(r)
-    p = z
-    rz = torch.sum(r * z, dim=1)
-    eps = torch.finfo(b.dtype).eps
-    tols = torch.clamp(50.0 * eps * (norms(b) + 1.0), min=float(tol))
+    with _obs.span("cg.solve", columns=T * m, trials=T) as sp:
+        r = b - A_stack(x)
+        z = M(r)
+        p = z
+        rz = torch.sum(r * z, dim=1)
+        eps = torch.finfo(b.dtype).eps
+        tols = torch.clamp(50.0 * eps * (norms(b) + 1.0), min=float(tol))
 
-    iters = np.zeros(T, dtype=np.int64)
-    while True:
-        active = (norms(r) > tols).cpu().numpy() & (iters < max_iter)
-        if not active.any():
-            break
-        on = torch.as_tensor(active, device=b.device)[:, None, None]
-        Ap = A_stack(p)
-        pAp = torch.sum(p * Ap, dim=1)
-        alpha = _safe_div(rz, pAp)[:, None, :]
-        x = torch.where(on, x + alpha * p, x)
-        r_new = r - alpha * Ap
-        z_new = M(r_new)
-        rz_new = torch.sum(r_new * z_new, dim=1)
-        beta = _safe_div(rz_new, rz)[:, None, :]
-        p = torch.where(on, z_new + beta * p, p)
-        r = torch.where(on, r_new, r)
-        z = torch.where(on, z_new, z)
-        rz = torch.where(on[:, 0], rz_new, rz)
-        iters += active
-    return x, iters, norms(r).cpu().numpy()
+        iters = np.zeros(T, dtype=np.int64)
+        steps = 0
+        while True:
+            active = _read(norms(r) > tols, _numpy) & (iters < max_iter)
+            if not active.any():
+                break
+            on = torch.as_tensor(active, device=b.device)[:, None, None]
+            Ap = A_stack(p)
+            pAp = torch.sum(p * Ap, dim=1)
+            alpha = _safe_div(rz, pAp)[:, None, :]
+            x = torch.where(on, x + alpha * p, x)
+            r_new = r - alpha * Ap
+            z_new = M(r_new)
+            rz_new = torch.sum(r_new * z_new, dim=1)
+            beta = _safe_div(rz_new, rz)[:, None, :]
+            p = torch.where(on, z_new + beta * p, p)
+            r = torch.where(on, r_new, r)
+            z = torch.where(on, z_new, z)
+            rz = torch.where(on[:, 0], rz_new, rz)
+            iters += active
+            steps += 1
+        res = _read(norms(r), _numpy)
+        _obs.counters.add("cg.steps", steps)
+        sp.set(steps=steps)
+    return x, iters, res
 
 
 def constrained_solve_batched(L: Callable, Ldiag, bdy_masks, bdy_values,

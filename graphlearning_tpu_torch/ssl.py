@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from graphlearning_tpu_torch import config, utils
+from graphlearning_tpu_torch import observability as _obs
 from graphlearning_tpu_torch.core import graphclass as _graphmod
 from graphlearning_tpu_torch.core.sparse import SparseGraph
 from graphlearning_tpu_torch.ops import accel as _accel
@@ -260,10 +261,18 @@ class ssl:
 
     def fit_predict(self, train_ind, train_labels, all_labels=None,
                     checkpoint_path=None, checkpoint_every=1):
-        self.fit(train_ind, train_labels, all_labels=all_labels,
-                 checkpoint_path=checkpoint_path,
-                 checkpoint_every=checkpoint_every)
-        return self.predict()
+        with self._span("ssl.fit_predict", train_labels):
+            self.fit(train_ind, train_labels, all_labels=all_labels,
+                     checkpoint_path=checkpoint_path,
+                     checkpoint_every=checkpoint_every)
+            return self.predict()
+
+    def _span(self, name, train_labels, trials=1):
+        """The fit API's span of an entry point (:mod:`observability`)."""
+        return _obs.span(name, model=type(self).__name__,
+                         n=None if self.graph is None
+                         else self.graph.num_nodes,
+                         classes=len(np.unique(train_labels)), trials=trials)
 
     def warmup(self, num_classes=2, num_labels=None, seed=0):
         """One throwaway fit on a random balanced train set (``num_labels``,
@@ -290,13 +299,16 @@ class ssl:
         labels = np.asarray(labels)
         trainsets = [np.asarray(t) for t in trainsets]
         sizes = {len(t) for t in trainsets}
-        if (len(sizes) == 1 and self.class_priors is None
-                and not self.onevsrest and hasattr(self, "_fit_batched")
-                and self._dist is None):
-            preds = self._fit_batched(np.stack(trainsets), labels)
-            self.fitted = True
-            return [np.asarray(p) for p in preds]
-        return [self.fit_predict(t, labels[t]) for t in trainsets]
+        with self._span("ssl.fit_predict_batched",
+                        labels[np.concatenate(trainsets)] if trainsets
+                        else [], len(trainsets)):
+            if (len(sizes) == 1 and self.class_priors is None
+                    and not self.onevsrest and hasattr(self, "_fit_batched")
+                    and self._dist is None):
+                preds = self._fit_batched(np.stack(trainsets), labels)
+                self.fitted = True
+                return [np.asarray(p) for p in preds]
+            return [self.fit_predict(t, labels[t]) for t in trainsets]
 
     def _predict_batched(self, trainsets, labels):
         """The trials' predicted labels from the model's
@@ -307,8 +319,9 @@ class ssl:
         self.iters = np.zeros(len(trainsets), dtype=np.int64)
         for idx, u, iters in self._solve_batched(trainsets, labels):
             self.iters[idx] = iters
-            for i, ui in zip(idx, torch.argmax(u, dim=2).cpu().numpy()):
-                preds[i] = classes[ui]
+            with _obs.span("ssl.labels"):
+                for i, ui in zip(idx, _as_numpy(torch.argmax(u, dim=2))):
+                    preds[i] = classes[ui]
         return preds
 
     def volume_label_projection(self):
@@ -353,21 +366,23 @@ class ssl:
         train_ind = np.asarray(train_ind)
         train_labels = np.asarray(train_labels)
         self.fitted = True
-        if self.onevsrest:
-            unique_labels = np.unique(train_labels)
-            if hasattr(self, "_fit_onevsrest"):
-                # all C one-vs-rest problems in one batched solve
-                u = self._fit_onevsrest(train_ind, train_labels,
-                                        unique_labels)
+        with self._span("ssl.fit", train_labels):
+            if self.onevsrest:
+                unique_labels = np.unique(train_labels)
+                if hasattr(self, "_fit_onevsrest"):
+                    # all C one-vs-rest problems in one batched solve
+                    u = self._fit_onevsrest(train_ind, train_labels,
+                                            unique_labels)
+                else:
+                    u = np.stack([_as_numpy(self._fit(train_ind,
+                                                      train_labels == l))
+                                  for l in unique_labels], axis=1)
             else:
-                u = np.stack([_as_numpy(self._fit(train_ind,
-                                                  train_labels == l))
-                              for l in unique_labels], axis=1)
-        else:
-            u = self._fit(train_ind, train_labels, all_labels=all_labels)
-        self.prob = _as_numpy(u)
-        if self.class_priors is not None:
-            self.volume_label_projection()
+                u = self._fit(train_ind, train_labels, all_labels=all_labels)
+            with _obs.span("ssl.labels"):
+                self.prob = _as_numpy(u)
+            if self.class_priors is not None:
+                self.volume_label_projection()
         return self.prob
 
     def _fit(self, train_ind, train_labels, all_labels=None):
@@ -509,7 +524,12 @@ class ssl:
 
 
 def _as_numpy(u):
-    return u.cpu().numpy() if torch.is_tensor(u) else np.asarray(u)
+    """``u`` on the host; a tensor's copy counts in
+    ``counters["host_reads"]``."""
+    if not torch.is_tensor(u):
+        return np.asarray(u)
+    _obs.counters.add("host_reads")
+    return u.cpu().numpy()
 
 
 def _rounds_gap(model, all_labels):
@@ -653,16 +673,17 @@ class laplace(ssl):
         dtype = config.float_dtype(dev)
         n = G.num_nodes
         k = len(np.unique(train_labels))
-        F = utils.labels_to_onehot(train_labels, k)
-        mask = np.zeros(n, dtype=bool)
-        mask[train_ind] = True
-        bdy = np.zeros((n, k))
-        bdy[train_ind] = F
-        tau = np.broadcast_to(np.atleast_1d(self.tau), (n,)).astype(float)
-        as_t = lambda a: torch.as_tensor(a, device=dev).to(dtype)
-        tau_t, bdy_t = as_t(tau), as_t(bdy)
-        mask_t = torch.as_tensor(mask, device=dev)
-        u0 = self._warm_start(n, k, dev, dtype)
+        with _obs.span("ssl.sources", group=1):
+            F = utils.labels_to_onehot(train_labels, k)
+            mask = np.zeros(n, dtype=bool)
+            mask[train_ind] = True
+            bdy = np.zeros((n, k))
+            bdy[train_ind] = F
+            tau = np.broadcast_to(np.atleast_1d(self.tau), (n,)).astype(float)
+            as_t = lambda a: torch.as_tensor(a, device=dev).to(dtype)
+            tau_t, bdy_t = as_t(tau), as_t(bdy)
+            mask_t = torch.as_tensor(mask, device=dev)
+            u0 = self._warm_start(n, k, dev, dtype)
 
         if self._dist is not None:
             from graphlearning_tpu_torch.parallel import execute as _exec
@@ -726,17 +747,18 @@ class laplace(ssl):
 
         Ldiag = (tau_t + diag) ** order
         for idx in _batch_groups(len(trainsets), G.sparse, k, dtype):
-            masks = np.zeros((len(idx), n), dtype=bool)
-            bdy = np.zeros((len(idx), n, k))
-            for t, i in enumerate(idx):
-                ti = np.asarray(trainsets[i])
-                masks[t, ti] = True
-                bdy[t, ti, remap[labels[ti]]] = 1.0
+            with _obs.span("ssl.sources", group=len(idx)):
+                masks = np.zeros((len(idx), n), dtype=bool)
+                bdy = np.zeros((len(idx), n, k))
+                for t, i in enumerate(idx):
+                    ti = np.asarray(trainsets[i])
+                    masks[t, ti] = True
+                    bdy[t, ti, remap[labels[ti]]] = 1.0
+                masks = torch.as_tensor(masks, device=dev)
+                bdy = torch.as_tensor(bdy, device=dev).to(dtype)
             with config.exact_matmul():          # d = trials x classes
                 u, iters, _ = _cg.constrained_solve_batched(
-                    L, Ldiag, torch.as_tensor(masks, device=dev),
-                    torch.as_tensor(bdy, device=dev).to(dtype),
-                    tol=self.tol, max_iter=10**5)
+                    L, Ldiag, masks, bdy, tol=self.tol, max_iter=10**5)
             if self.mean_shift:
                 u = u - torch.mean(u, dim=1, keepdim=True)
             yield idx, u, iters
@@ -925,13 +947,14 @@ class poisson(ssl):
             return X - s[:, None] * _ops.spmm(g, s[:, None] * X)
 
         for idx in _batch_groups(len(trainsets), g, k, dtype):
-            sources = np.zeros((len(idx), n, k))
-            for t, i in enumerate(idx):
-                ti = np.asarray(trainsets[i])
-                onehot = np.zeros((len(ti), k))
-                onehot[np.arange(len(ti)), remap[labels[ti]]] = 1.0
-                sources[t, ti] = onehot - onehot.mean(0)
-            b = torch.as_tensor(sources, device=dev).to(dtype)
+            with _obs.span("ssl.sources", group=len(idx)):
+                sources = np.zeros((len(idx), n, k))
+                for t, i in enumerate(idx):
+                    ti = np.asarray(trainsets[i])
+                    onehot = np.zeros((len(ti), k))
+                    onehot[np.arange(len(ti)), remap[labels[ti]]] = 1.0
+                    sources[t, ti] = onehot - onehot.mean(0)
+                b = torch.as_tensor(sources, device=dev).to(dtype)
             with config.exact_matmul():          # d = trials x classes
                 v, iters, _ = _cg.conjgrad_batched(
                     Lnorm, s[None, :, None] * b, tol=self.tol,

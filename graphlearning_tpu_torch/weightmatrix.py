@@ -25,6 +25,7 @@ import scipy.sparse as sparse
 import torch
 
 from graphlearning_tpu_torch import config, utils
+from graphlearning_tpu_torch import observability as _obs
 from graphlearning_tpu_torch.core.sparse import SparseGraph, segment_reduce
 
 knn_dir = os.path.abspath(os.path.join(os.getcwd(), "knn_data"))
@@ -270,46 +271,50 @@ def knn(data, k, kernel="gaussian", eta=None, symmetrize=True, metric="raw",
     place of a search.  Low-dimensional (<= 3) point coordinates ride along as
     ``W._glt_points`` for the space-filling-curve ordering of
     ``ops.accel.AccelSpMM``."""
-    dev = config.device(device)
-    k = k + 1                                   # self counted in knn data
-    if knn_data is not None:
-        knn_ind, knn_dist = knn_data
-    elif isinstance(data, str):
-        knn_ind, knn_dist = load_knn_data(data, metric=metric)
-    else:
-        knn_ind, knn_dist = knnsearch(data, k, similarity=similarity,
-                                      device=dev)
-    n = knn_ind.shape[0]
-    k = min(knn_ind.shape[1], k)
-    knn_ind = np.asarray(knn_ind)[:, :k]
-    knn_dist = np.asarray(knn_dist)[:, :k]
-
-    if eta is None:
-        weights = _knn_weights_device(
-            torch.as_tensor(knn_ind.astype(np.int64), device=dev),
-            torch.as_tensor(knn_dist, device=dev).to(config.float_dtype(dev)),
-            kernel).cpu().numpy()
-    else:
-        D = knn_dist * knn_dist
-        eps = D[:, k - 1]
-        weights = eta(D / np.maximum(eps[:, None], 1e-30))
-
-    self_ind = np.repeat(np.arange(n), k)
-    W = sparse.coo_matrix((weights.flatten(), (self_ind, knn_ind.flatten())),
-                          shape=(n, n)).tocsr()
-    if symmetrize:
-        if kernel in ("distance", "uniform", "singular"):
-            W = utils.sparse_max(W, W.T.tocsr())
-        elif kernel == "symgaussian":
-            WT = W.T.tocsr()
-            W = W + WT.multiply(WT > W) - W.multiply(WT > W)
+    with _obs.span("knn.build") as span:
+        dev = config.device(device)
+        k = k + 1                               # self counted in knn data
+        if knn_data is not None:
+            knn_ind, knn_dist = knn_data
+        elif isinstance(data, str):
+            knn_ind, knn_dist = load_knn_data(data, metric=metric)
         else:
-            W = (W + W.T) / 2
-    W = sparse.csr_matrix(W)
-    W.setdiag(0)
-    W.eliminate_zeros()
-    if np.ndim(data) == 2 and np.shape(data)[1] <= 3:
-        W._glt_points = np.asarray(data)
+            knn_ind, knn_dist = knnsearch(data, k, similarity=similarity,
+                                          device=dev)
+        n = knn_ind.shape[0]
+        k = min(knn_ind.shape[1], k)
+        knn_ind = np.asarray(knn_ind)[:, :k]
+        knn_dist = np.asarray(knn_dist)[:, :k]
+
+        if eta is None:
+            weights = _knn_weights_device(
+                torch.as_tensor(knn_ind.astype(np.int64), device=dev),
+                torch.as_tensor(knn_dist, device=dev).to(
+                    config.float_dtype(dev)),
+                kernel).cpu().numpy()
+        else:
+            D = knn_dist * knn_dist
+            eps = D[:, k - 1]
+            weights = eta(D / np.maximum(eps[:, None], 1e-30))
+
+        self_ind = np.repeat(np.arange(n), k)
+        W = sparse.coo_matrix(
+            (weights.flatten(), (self_ind, knn_ind.flatten())),
+            shape=(n, n)).tocsr()
+        if symmetrize:
+            if kernel in ("distance", "uniform", "singular"):
+                W = utils.sparse_max(W, W.T.tocsr())
+            elif kernel == "symgaussian":
+                WT = W.T.tocsr()
+                W = W + WT.multiply(WT > W) - W.multiply(WT > W)
+            else:
+                W = (W + W.T) / 2
+        W = sparse.csr_matrix(W)
+        W.setdiag(0)
+        W.eliminate_zeros()
+        if np.ndim(data) == 2 and np.shape(data)[1] <= 3:
+            W._glt_points = np.asarray(data)
+        span.set(n=n, nnz=int(W.nnz))
     return W
 
 
