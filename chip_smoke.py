@@ -14,6 +14,13 @@ Phases (any failure exits non-zero before the result line):
    (min-plus, Hopf-Lax, reciprocal, with and without the argmin) and K9
    (C in {2, 10}, f32 and bf16) on the unpacked tiles' live chunks, and
    K4 where the rectangular band fits the budget;
+2b. the plain ELL product (``graphops.plain_ell_spmm``, no TPU
+   counterpart) on the moons graph of phase 3 at d=2 and on the
+   ten-cluster graph (n=70000, 20-d, k=10; its ELL padded to the largest
+   degree) at d=30 and d=10, against its twin (the gather of every slot
+   and one batched product), with the multiply-and-sum torch form as its
+   library call; its launches are counted on the main path, in phase 3's
+   plain fits and phase 4e's Poisson trials, each at least one a CG step;
 3. fits on two moons (n=65536, noise 0.1, k=10, 5 labels per class):
    Laplace, Poisson (CG) and Poisson (gradient descent) through the public
    entry points on the packed band path (K1 + K2), Laplace again on the
@@ -218,6 +225,8 @@ REPLACES = {
     "band_minplus": "graphlearning_tpu/ops/pallas_spmm.py:384",
     "band_tiles_spmm_packed_rowq": "graphlearning_tpu/ops/pallas_spmm.py:1324",
     "band_tiles_spmm_packed_i8": "graphlearning_tpu/ops/pallas_spmm.py:1204",
+    "plain_ell_spmm": "none: graphlearning_tpu/ops/graphops.py spmm, "
+                      "XLA's gather and product",
 }
 CU_FILE = {
     "materialize_band_tiles": SOURCE + "band_tiles_build.cu",
@@ -231,6 +240,7 @@ CU_FILE = {
     "band_minplus": SOURCE + "band_rect_minplus.cu",
     "band_tiles_spmm_packed_rowq": SOURCE + "band_tiles_spmm.cu",
     "band_tiles_spmm_packed_i8": SOURCE + "band_tiles_spmm.cu",
+    "plain_ell_spmm": SOURCE + "plain_ell_spmm.cu",
 }
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # of max|ref|, per band dtype
 # Iteration caps of the Lipschitz and p-eikonal fits: each fit fails the
@@ -1117,6 +1127,57 @@ def kernel_phase(torch, accel, bs):
     return entries
 
 
+def plain_ell_entry(torch, graphops, label, g, X):
+    """The plain ELL kernel against its twin, within TOL of max|ref|, one
+    launch a product.  The bound counts the real slots' values and
+    columns, the row pointers, X and ``out`` once.  The entry's launches
+    are the main path's, counted in the plain fits and the Poisson
+    trials (``fit_phase``, ``harness_ten``)."""
+    run = lambda: graphops.plain_ell_spmm(g.cols, g.vals, g.deg, X)
+    plain = lambda: graphops._plain_ell_spmm_twin(g.cols, g.vals, X)
+    n0 = graphops.plain_ell_spmm.launches
+    out = run()
+    torch.cuda.synchronize()
+    if graphops.plain_ell_spmm.launches != n0 + 1:
+        raise SmokeFailure(f"plain_ell_spmm[{label}]: not one launch a "
+                           "product")
+    err = compare(label, out, plain(), TOL["float32"])
+    nnz, d = g.nnz, X.shape[1]
+    nbytes = 8 * nnz + 4 * (g.n + 1) + 2 * g.n * d * 4
+    b_ms, b_by = bound(nbytes, 2 * nnz * d, "float32")
+    library = lambda: torch.sum(g.vals[:, :, None] * X[g.cols], dim=1)
+    return report({
+        "name": "plain_ell_spmm", "variant": label, "max_abs_err": err,
+        **timings(torch, run, plain, library),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library": "torch multiply and sum over the gather of every slot",
+        "shapes": {"ell": [g.n, g.k], "nnz": nnz, "X": list(X.shape),
+                   "dtype": "float32"}})
+
+
+def plain_ell_phase(torch, gl):
+    """Phase 2b: the plain ELL kernel on the moons graph at the fits'
+    d=2, and on the ten-cluster graph at the batched trials' d=30 and
+    d=10."""
+    from graphlearning_tpu_torch.ops import graphops
+
+    say("== the plain ELL product (graphops.plain_ell_spmm)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    moons, _ = two_moons(65536, 0.1, seed=0)
+    ten, _ = ten_points(70000)
+    entries = []
+    for tag, pts, widths in (("moons", moons, (2,)),
+                             ("ten", ten, (30, 10))):
+        g = gl.graph(gl.weightmatrix.knn(pts, 10)).sparse
+        for d in widths:
+            X = torch.randn((g.n, d), generator=gen, device="cuda")
+            entries.append(plain_ell_entry(torch, graphops, f"{tag}/d={d}",
+                                           g, X))
+        del g
+        torch.cuda.empty_cache()
+    return entries
+
+
 def fitter(torch, gl, labels, ti):
     """``fit(label, make) -> (pred, accuracy, model)``: one timed
     ``fit_predict``, printed."""
@@ -1136,6 +1197,8 @@ def fitter(torch, gl, labels, ti):
 
 
 def fit_phase(torch, gl, accel, bs):
+    from graphlearning_tpu_torch.ops import graphops
+
     say("== fits on two moons (n=65536, noise 0.1, k=10, 5 labels/class)")
     X, labels = two_moons(65536, 0.1, seed=0)
     t0 = time.perf_counter()
@@ -1168,10 +1231,21 @@ def fit_phase(torch, gl, accel, bs):
         tiles_pred, _, tiles_m = fit("tiles/laplace", models["laplace"])
     launches_b = bs.launches()
     say(f"  launches on the unpacked fallback path: {launches_b}")
+    # path C, the plain ELL: the kernel (plain_ell_spmm) at least once a
+    # CG step of the Laplace and Poisson fits
+    graphops.plain_ell_spmm.launches = 0
     with env("GLT_NO_ACCEL", "1"):
         plain_fits = {name: fit(f"plain/{name}", make)
                       for name, make in models.items()}
     plain = {name: r[:2] for name, r in plain_fits.items()}
+    launches_c = graphops.plain_ell_spmm.launches
+    steps_c = sum(plain_fits[name][2].iters
+                  for name in ("laplace", "poisson_cg"))
+    say(f"  plain ELL kernel launches on the plain path: {launches_c} "
+        f"(CG steps {steps_c})")
+    if launches_c < steps_c:
+        raise SmokeFailure(f"the plain fits launched the plain ELL kernel "
+                           f"{launches_c} times in {steps_c} CG steps")
 
     if launches_a["materialize_band_tiles"] < 1 \
             or launches_a["band_tiles_spmm_packed"] < 1:
@@ -1226,8 +1300,7 @@ def fit_phase(torch, gl, accel, bs):
         acc_u.plan, Xd, lambda: torch.sparse.mm(csr, Xd)))
 
     # the whole matvec of a CG iteration (band kernel + residual gather)
-    # beside the plain ELL gather of the same permuted graph
-    from graphlearning_tpu_torch.ops import graphops
+    # beside the plain ELL product of the same permuted graph
     for a, tag in ((acc, "packed band (K2)"), (acc_u, "unpacked band (K3)")):
         Xa = torch.randn((a.n_pad, 2), generator=gen, device="cuda")
         ms = time_ms(torch, lambda a=a, Xa=Xa: a.spmm(Xa))
@@ -1242,7 +1315,8 @@ def fit_phase(torch, gl, accel, bs):
     launches = {"materialize_band_tiles":
                 launches_a["materialize_band_tiles"],
                 "band_tiles_spmm_packed": launches_a["band_tiles_spmm_packed"],
-                "band_tiles_spmm": launches_b["band_tiles_spmm"]}
+                "band_tiles_spmm": launches_b["band_tiles_spmm"],
+                "plain_ell_spmm": launches_c}
     return entries, launches, (W, X, labels, ti,
                                {name: pred for name, (pred, _) in plain.items()})
 
@@ -2143,8 +2217,11 @@ def harness_ten(torch, gl, root):
     dataset, kNN and train-set files, ``ssl_trials`` of Laplace and
     Poisson learning over the trials (batched by rate), their statistics
     and table, one trial a rate against its sequential fit on the plain
-    path, and sparse label propagation twice."""
+    path, and sparse label propagation twice.  Returns the plain ELL
+    kernel's launches in Poisson's ``ssl_trials``, at least one a CG step
+    of each batch (the batches' products run on the plain ELL)."""
     from graphlearning_tpu_torch import bench
+    from graphlearning_tpu_torch.ops import graphops
 
     pts, y = bench.ten_cluster_points(70000)
     data, lab = timed(torch, "datasets.save / load", lambda: (
@@ -2174,19 +2251,29 @@ def harness_ten(torch, gl, root):
     models = []
     for name in ("laplace", "poisson"):
         m = getattr(gl.ssl, name)(W)
-        preds, batched = {}, m.fit_predict_batched
+        preds, batched, steps = {}, m.fit_predict_batched, []
 
-        def record(ts, labels, batched=batched, preds=preds):
+        def record(ts, labels, batched=batched, preds=preds, steps=steps):
             out = batched(ts, labels)
             preds.update({np.asarray(t).tobytes(): p
                           for t, p in zip(ts, out)})
+            steps.append(int(np.max(m.iters)))
             say(f"  {name}: {len(ts)} trials of {len(ts[0])} labels in one "
                 f"batch, CG steps {np.asarray(m.iters).tolist()}")
             return out
 
         m.fit_predict_batched = record
+        graphops.plain_ell_spmm.launches = 0
         rows = timed(torch, f"{name}.ssl_trials ({len(trials)} trials)",
                      lambda: m.ssl_trials(trials, lab, tag="smoke_"))
+        if name == "poisson":
+            launches = graphops.plain_ell_spmm.launches
+            say(f"  poisson.ssl_trials: {launches} plain ELL kernel "
+                f"launches, the batches' CG steps {sum(steps)}")
+            if launches < sum(steps):
+                raise SmokeFailure(f"poisson.ssl_trials launched the plain "
+                                   f"ELL kernel {launches} times in "
+                                   f"{sum(steps)} CG steps")
         if rows is None or rows.shape != (len(trials), 2):
             raise SmokeFailure(f"{name}.ssl_trials: rows {rows}")
         num_train, mean, std, num = m.trials_statistics(tag="smoke_")
@@ -2233,6 +2320,7 @@ def harness_ten(torch, gl, root):
     check_target("ten/sparse_label_propagation (bit-equal in two runs)",
                  gl.ssl.ssl_accuracy(pred, lab, ti),
                  TRIALS_REFERENCE["sparse_label_propagation"])
+    return launches
 
 
 def harness_moons(torch, gl, bs, W, labels, ti):
@@ -2302,14 +2390,15 @@ def harness_moons(torch, gl, bs, W, labels, ti):
 
 def trials_phase(torch, gl, bs, W, labels, ti):
     """Phase 4e: the experiment harness (datasets, stored kNN data, train
-    set files, batched ``ssl_trials``) and label propagation."""
+    set files, batched ``ssl_trials``) and label propagation.  Returns
+    :func:`harness_ten`'s count of plain ELL kernel launches."""
     import tempfile
 
     t0 = time.perf_counter()
     say("== phase 4e: the experiment harness on the ten-cluster input "
         "(n=70000, 20-d, k=10)")
     with tempfile.TemporaryDirectory() as root, store_dirs(gl, root):
-        harness_ten(torch, gl, root)
+        launches = harness_ten(torch, gl, root)
         say("== phase 4e on the moons band (n=65536)")
         harness_moons(torch, gl, bs, W, labels, ti)
     say(f"== dynamic label propagation (two moons, n={FP_N})")
@@ -2322,6 +2411,7 @@ def trials_phase(torch, gl, bs, W, labels, ti):
                  gl.ssl.ssl_accuracy(pred, yf, tif),
                  TRIALS_REFERENCE["dynamic_label_propagation"])
     say(f"== phase 4e: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def window_coo(torch, acc):
@@ -4625,6 +4715,7 @@ def main():
 
     t0 = time.perf_counter()
     entries = kernel_phase(torch, accel, bs)
+    entries += plain_ell_phase(torch, gl)
     fit_entries, launches, (W, X, labels, ti, plain_pred) = fit_phase(
         torch, gl, accel, bs)
     dist_entries, dist_launches = distance_phase(torch, gl, accel, bs, W,
@@ -4633,7 +4724,8 @@ def main():
     mbo_entries, _ = mbo_phase(torch, gl, accel, bs, W, X, labels, ti)
     eig_entries, _ = eig_phase(torch, gl, accel, bs, W, labels)
     p10b_entries, _ = p10b_phase(torch, gl, accel, bs, W, labels, ti)
-    trials_phase(torch, gl, bs, W, labels, ti)
+    # the plain ELL kernel's launches: the plain fits' and the trials'
+    launches["plain_ell_spmm"] += trials_phase(torch, gl, bs, W, labels, ti)
     al_phase(torch, gl, bs, W, labels, ti)
     embed_phase(torch, gl, bs, W, labels, ti)
     shard_entries = dist_phase(torch, gl, bs, W, labels, ti)

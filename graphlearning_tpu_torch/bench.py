@@ -420,10 +420,10 @@ def _cg_tol_kw():
             else "tol")
 
 
-def ten_cluster_points(n: int):
+def ten_cluster_points(n: int, seed: int = 0):
     """``(points, labels)``: ``n`` points of a 20-d mixture of ten unit
-    gaussians, seeded."""
-    rs = np.random.RandomState(0)
+    gaussians, drawn from ``seed``."""
+    rs = np.random.RandomState(seed)
     centers = rs.randn(10, 20)
     labels = rs.randint(0, 10, n)
     return centers[labels] + rs.randn(n, 20), labels

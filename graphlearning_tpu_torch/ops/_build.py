@@ -52,6 +52,8 @@ SIGNATURES = {
         "glt_rect_minplus":
             [_P, _I, _I, _I, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I,
              _P]},
+    "plain_ell_spmm": {
+        "glt_plain_ell_spmm": [_P, _P, _P, _I, _L, _P, _L, _I, _P, _P]},
 }
 
 _loaded: dict = {}

@@ -1,10 +1,12 @@
-"""Neighborhood aggregation over the padded-ELL graph, in plain torch.
+"""Neighborhood aggregation over the padded-ELL graph.
 
 Counterpart of ``graphlearning_tpu/ops/graphops.py:30-225``.  Every op is a
-gather plus a reduction over the fixed ``k`` axis.  This is the path for
-graphs the band kernels do not take, and the CPU path.  The graph calculus
-at the end (gradient, divergence, neighbor min/max, infinity Laplacian)
-serves the distance and Lipschitz solvers.
+gather plus a reduction over the fixed ``k`` axis, in plain torch, but for
+the float32 product on CUDA: :func:`plain_ell_spmm`, a CUDA kernel
+(``csrc/plain_ell_spmm.cu``) that reads each row's real slots alone.  This
+is the path for graphs the band kernels do not take, and the CPU path.
+The graph calculus at the end (gradient, divergence, neighbor min/max,
+infinity Laplacian) serves the distance and Lipschitz solvers.
 
 Operator hooks, as in the JAX package: a graph-like object with
 ``spmm_``, ``neighbor_take_``, ``deg_`` or ``diag_`` (the sharded graphs
@@ -18,7 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from graphlearning_tpu_torch import observability as _obs
 from graphlearning_tpu_torch.core.sparse import BucketedELL, SparseGraph
+from graphlearning_tpu_torch.ops import _build
+from graphlearning_tpu_torch.ops import band_spmm as _bs
 
 
 def _as_2d(X):
@@ -27,33 +32,77 @@ def _as_2d(X):
     return X, False
 
 
-# Widest X that CUDA sums by a multiply and a reduction over k; wider X,
-# and X on the CPU, go through one batched product, the JAX package's form
-# (on the CPU its sums follow the JAX package's, which the parity tests
-# hold to 1e-10).  On an H100 (the n=65536, k=19 moons ELL, ``graph_ms``)
-# the sum took 0.028 / 0.034 / 0.134 / 0.865 ms at d = 1 / 2 / 10 / 16
-# against the product's 0.071 / 0.112 / 0.191 / 0.903, the same at d =
-# 24, and 0.957 / 0.656 / 1.961 ms at d = 32 / 57 / 171 against 0.911 /
-# 0.480 / 1.410 (``tools/plain_spmm_time.py``).
-_SUM_DMAX = 16
-
-
 def spmm(g: SparseGraph, X):
-    """``W @ X``: gather neighbor rows, weight, reduce over k.  Padding
-    slots have ``vals == 0`` and a valid column, so no mask is needed.
-    A ``g`` with ``spmm_`` computes the product itself."""
+    """``W @ X`` over the ELL's slots, by :func:`plain_ell_spmm`.  A ``g``
+    with ``spmm_`` computes the product itself."""
     X2, was_1d = _as_2d(X)
     custom = getattr(g, "spmm_", None)
     if custom is not None:
         out = custom(X2)
-        return out[:, 0] if was_1d else out
-    gathered = X2[g.cols]                                # (n, k, d)
-    vals = g.vals.to(X2.dtype)
-    if X2.is_cuda and X2.shape[1] <= _SUM_DMAX:
-        out = torch.sum(vals[:, :, None] * gathered, dim=1)
     else:
-        out = torch.einsum("nk,nkd->nd", vals, gathered)
+        out = plain_ell_spmm(g.cols, g.vals, g.deg, X2)
     return out[:, 0] if was_1d else out
+
+
+def _plain_ell_spmm_twin(cols, vals, X):
+    """The plain twin of :func:`plain_ell_spmm`: ``X[cols]``, every slot of
+    the ``(n, k, d)`` gather, and one batched product over k.  Padding
+    slots have ``vals == 0`` and a valid column, so it needs no mask; on
+    the CPU its sums follow the JAX package's."""
+    return torch.einsum("nk,nkd->nd", vals.to(X.dtype), X[cols])
+
+
+def plain_ell_spmm(cols, vals, deg, X):
+    """``out[i] = sum_{j < deg[i]} vals[i, j] X[cols[i, j]]``: the product
+    of an ELL whose rows hold their ``deg[i]`` real slots first.  ``cols``
+    (n, k) and ``deg`` (n,) int32, ``vals`` (n, k), ``X`` (rows, d), all on
+    one device; ``X`` needs a row for every column of a real slot.
+
+    A float32 ``X`` on CUDA takes one launch of ``csrc/plain_ell_spmm.cu``
+    (counted as ``spmm.ell_kernel`` in ``observability.counters``, and in
+    ``plain_ell_spmm.launches``), which replaces no TPU kernel (the JAX
+    package leaves this product to XLA): bound by bytes, it reads each
+    real slot once and materialises nothing, with X's rows through L2.  A
+    sub-group of lanes owns a row, a lane a column of X; the sub-group's
+    width follows ``d``.  Each output sums its slots in slot order by
+    float32 FFMA, with no atomics, so the result is the same in every run.
+    ``X`` may be strided by rows; ``out`` is (n, d) float32.  Any other
+    ``X`` (the CPU, other dtypes) takes :func:`_plain_ell_spmm_twin`
+    (``spmm.ell_torch``)."""
+    if (_bs._dispatch_device("plain_ell_spmm", cols, vals, deg, X) == "cpu"
+            or X.dtype != torch.float32):
+        _obs.counters.add("spmm.ell_torch")
+        return _plain_ell_spmm_twin(cols, vals, X)
+    _obs.counters.add("spmm.ell_kernel")
+    if vals.dtype != torch.float32:
+        vals = vals.float()
+    # one condition, its message formatted only on failure: the check runs
+    # once a product, on the host's side of a CG step
+    if not (cols.dtype == torch.int32 and deg.dtype == torch.int32
+            and cols.dim() == 2 and vals.shape == cols.shape
+            and deg.dim() == 1 and deg.shape[0] == cols.shape[0]
+            and X.dim() == 2 and cols.is_contiguous()
+            and vals.is_contiguous() and deg.is_contiguous()):
+        got = [(tuple(t.shape), t.dtype, t.is_contiguous())
+               for t in (cols, vals, deg, X)]
+        raise ValueError(
+            f"plain_ell_spmm: the kernel takes contiguous cols (n, k) and "
+            f"deg (n,) int32, vals (n, k) and X (rows, d), not {got}")
+    if X.shape[1] > 1 and X.stride(1) != 1:
+        X = X.contiguous()
+    n, k = cols.shape
+    out = torch.empty((n, X.shape[1]), dtype=torch.float32, device=X.device)
+    rc = _build.load("plain_ell_spmm").glt_plain_ell_spmm(
+        cols.data_ptr(), vals.data_ptr(), deg.data_ptr(), k, n,
+        X.data_ptr(), X.stride(0), X.shape[1], out.data_ptr(),
+        torch.cuda.current_stream(X.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"plain_ell_spmm: CUDA error {rc}")
+    plain_ell_spmm.launches += 1
+    return out
+
+
+plain_ell_spmm.launches = 0
 
 
 def neighbor_take(g: SparseGraph, x, slot=None):

@@ -128,9 +128,11 @@ def _poisson_accel(acc, s, b, tol, x0=None):
 
 results_dir = os.path.abspath(os.path.join(os.getcwd(), "results"))
 
-# The largest plain ELL gather a batched fit makes on the device, in bytes:
-# ``ops.graphops.spmm`` gathers ``(n, k, d)`` at ``d`` = trials x classes,
-# so the trials of ``fit_predict_batched`` go in groups that keep it there.
+# The largest plain ELL gather a batched fit makes, in bytes: the torch
+# form of ``ops.graphops.spmm`` gathers ``(n, k, d)`` at ``d`` = trials x
+# classes, so the trials of ``fit_predict_batched`` go in groups that keep
+# it there.  The float32 kernel on CUDA builds no such gather; the groups
+# are sized by it all the same.
 _BATCH_BYTES = 1 << 30
 
 

@@ -1768,3 +1768,194 @@ def test_cuda_packs_load_across_devices(cuda_device, tmp_path):
     on_card = gl.aot.load_spectral_pack(W, path, device=cuda_device)()
     on_cpu = gl.aot.load_spectral_pack(W, path, device="cpu")()
     assert gl.clustering.clustering_accuracy(on_card, on_cpu) > 95.0
+
+
+# -- the plain ELL product (csrc/plain_ell_spmm.cu) --------------------------
+
+# d of the plain ELL cases: each sub-group width (1-16), a warp a row at
+# and below 32, and 2 to 4 columns a lane in one or more column blocks
+PLAIN_ELL_D = [1, 2, 3, 10, 16, 17, 20, 30, 33, 57, 171]
+
+
+def _skewed_ell(n=6000, k=125, seed=0):
+    """ELL arrays of skewed degrees (mean about 16): rows of degree 0, rows
+    at the full ``k``, padding slots whose column is the row itself."""
+    rs = np.random.RandomState(seed)
+    deg = np.minimum(rs.geometric(1 / 16, size=n), k)
+    deg[rs.rand(n) < 0.02] = 0
+    deg[[0, 7, n - 1]] = 0
+    deg[[1, 8, n - 2]] = k
+    real = np.arange(k)[None, :] < deg[:, None]
+    cols = np.repeat(np.arange(n, dtype=np.int32)[:, None], k, axis=1)
+    vals = np.zeros((n, k), np.float32)
+    cols[real] = rs.randint(0, n, size=int(real.sum()))
+    vals[real] = rs.rand(int(real.sum())) + 0.1
+    return cols, vals, deg.astype(np.int32)
+
+
+def _moons_ell(n=65536):
+    """The ELL of a two-moons kNN graph (k=10, symmetrised), as the fits'
+    plain route holds it."""
+    rs = np.random.RandomState(0)
+    t = np.linspace(0, np.pi, n // 2)
+    pts = np.vstack([np.stack([np.cos(t), np.sin(t)], 1),
+                     np.stack([1 - np.cos(t), 1 - np.sin(t) - 0.5], 1)])
+    pts = pts[rs.permutation(n)] + rs.normal(scale=0.1, size=(n, 2))
+    dist, ind = cKDTree(pts).query(pts, k=11)
+    w = np.exp(-4 * dist[:, 1:] ** 2 / dist[:, -1:] ** 2)
+    W = sp.csr_matrix((w.ravel(), (np.repeat(np.arange(n), 10),
+                                   ind[:, 1:].ravel())), shape=(n, n))
+    cols, vals, deg = SparseGraph.ell_from_scipy(((W + W.T) / 2).tocsr())
+    return cols, vals.astype(np.float32), deg
+
+
+@pytest.fixture(scope="module", params=["skewed", "moons"])
+def plain_ell(request):
+    return _skewed_ell() if request.param == "skewed" else _moons_ell()
+
+
+def _real_slots_f64(cols, vals, deg, X):
+    """The float64 gather-and-sum over each row's real slots, on the host."""
+    real = np.arange(cols.shape[1])[None, :] < deg[:, None]
+    rows = np.repeat(np.arange(cols.shape[0]), deg)
+    W = sp.csr_matrix((vals[real].astype(np.float64), (rows, cols[real])),
+                      shape=(cols.shape[0], X.shape[0]))
+    return W @ X.astype(np.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", PLAIN_ELL_D)
+def test_cuda_plain_ell_spmm_matches_twin(plain_ell, cuda_device, d):
+    """The kernel against the float64 sum over the real slots, within TOL
+    of max|ref|; one launch a product; the same bits in a second call, with
+    NaN in every padding value (the kernel reads the real slots alone), and
+    from an X strided by rows or stored by columns."""
+    from graphlearning_tpu_torch.ops import graphops
+
+    cols, vals, deg = plain_ell
+    dev = cuda_device
+    X = np.random.RandomState(d).randn(cols.shape[0], d).astype(np.float32)
+    c, v, dg = (torch.as_tensor(a, device=dev) for a in (cols, vals, deg))
+    Xd = torch.as_tensor(X, device=dev)
+    n0 = graphops.plain_ell_spmm.launches
+    out = graphops.plain_ell_spmm(c, v, dg, Xd)
+    assert graphops.plain_ell_spmm.launches == n0 + 1
+    ref = torch.as_tensor(_real_slots_f64(cols, vals, deg, X))
+    _close(out.cpu().double(), ref, torch.float32)
+    assert torch.equal(graphops.plain_ell_spmm(c, v, dg, Xd), out)
+    v_nan = v.clone()
+    v_nan[torch.arange(v.shape[1], device=dev)[None, :] >= dg[:, None]] = \
+        float("nan")
+    assert torch.equal(graphops.plain_ell_spmm(c, v_nan, dg, Xd), out)
+    wide = torch.zeros((Xd.shape[0], d + 3), device=dev)
+    wide[:, 1:d + 1] = Xd
+    by_cols = Xd.t().contiguous().t()
+    for Xs in (wide[:, 1:d + 1], by_cols):
+        assert not Xs.is_contiguous() or d == 1
+        assert torch.equal(graphops.plain_ell_spmm(c, v, dg, Xs), out)
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_takes_the_kernel_for_float32(cuda_device):
+    """``graphops.spmm`` on the card: a float32 X (2-D, 1-D, and through
+    ``laplacian_matvec``) goes to the kernel, one launch and one
+    ``spmm.ell_kernel`` a product; a float64 X keeps the torch form
+    (``spmm.ell_torch``).  Both within TOL of the float64 product."""
+    from graphlearning_tpu_torch.observability import counters
+    from graphlearning_tpu_torch.ops import graphops
+
+    cols, vals, deg = _skewed_ell(n=3000, k=60, seed=1)
+    dev = cuda_device
+    g = SparseGraph.from_ell_np(cols, vals, deg, dtype=torch.float32,
+                                device=dev)
+    X = np.random.RandomState(0).randn(g.n, 30)
+    ref = torch.as_tensor(_real_slots_f64(cols, vals, deg, X))
+
+    def counts():
+        return (counters.get("spmm.ell_kernel"),
+                counters.get("spmm.ell_torch"),
+                graphops.plain_ell_spmm.launches)
+
+    for Xd, kernel in ((torch.as_tensor(X, dtype=torch.float32, device=dev),
+                        True),
+                       (torch.as_tensor(X, device=dev), False)):
+        before = counts()
+        out = graphops.spmm(g, Xd)
+        out1 = graphops.spmm(g, Xd[:, 4])
+        graphops.laplacian_matvec(g, Xd)
+        delta = tuple(a - b for a, b in zip(counts(), before))
+        assert delta == ((3.0, 0.0, 3) if kernel else (0.0, 3.0, 0))
+        _close(out.cpu().double(), ref, torch.float32)
+        _close(out1.cpu().double(), ref[:, 4], torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hub", [False, True])
+def test_cuda_world_size_one_nccl_ell_route_takes_the_plain_ell_kernel(
+        cuda_device, tmp_path, monkeypatch, hub):
+    """A Laplace fit on the sharded ELL rows ("gspmd"; with a hub node,
+    the capped ELL and its spill, "bucketed") in a one-rank NCCL group:
+    the local rows' product is the plain ELL kernel, at least once a CG
+    step, and the fit gives the plain single-device fit's predictions on
+    >= 0.99 of the nodes."""
+    import torch.distributed as dist
+
+    import graphlearning_tpu_torch as gl
+    from graphlearning_tpu_torch.ops import graphops
+
+    W = _knn_csr(16384, 10, seed=9)
+    if hub:
+        pts, others = W._glt_points, np.arange(1, W.shape[0])
+        nb = np.random.RandomState(1).choice(others, 600, replace=False)
+        H = sp.csr_matrix((np.full(600, 0.05), (np.zeros(600, int), nb)),
+                          shape=W.shape)
+        W = (W + H + H.T).tocsr()
+        W._glt_points = pts
+    y = (W._glt_points[:, 0] > 0.5).astype(int)
+    ti = gl.trainsets.generate(y, rate=5, seed=0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        n0 = graphops.plain_ell_spmm.launches
+        m = gl.ssl.laplace(W, device=cuda_device).distribute(
+            gl.GLTConfig(sharded_kernel="gspmd"))
+        pred = m.fit_predict(ti, y[ti])
+        torch.cuda.synchronize()
+        assert m._dist.route == ("bucketed" if hub else "gspmd")
+        assert graphops.plain_ell_spmm.launches - n0 >= m.iters
+    finally:
+        dist.destroy_process_group()
+    monkeypatch.setenv("GLT_NO_ACCEL", "1")
+    ref_pred = gl.ssl.laplace(W, device=cuda_device).fit_predict(ti, y[ti])
+    assert np.mean(pred == ref_pred) >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_plain_ell_spmm_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    """int64 indices, a strided ELL, a wrong ``deg`` and tensors on two
+    devices are refused before any launch; float64 values are cast for the
+    kernel, and a float64 X takes the twin (``spmm.ell_torch``)."""
+    from graphlearning_tpu_torch.observability import counters
+    from graphlearning_tpu_torch.ops import graphops
+
+    cols, vals, deg = (torch.as_tensor(a, device=cuda_device)
+                       for a in _skewed_ell(n=256, k=40, seed=2))
+    X = torch.randn((256, 5), device=cuda_device)
+    n0 = graphops.plain_ell_spmm.launches
+    bad = [(cols.long(), vals, deg, X), (cols, vals, deg.long(), X),
+           (cols.t().contiguous().t(), vals, deg, X),
+           (cols, vals, deg[:-1], X), (cols, vals, deg, X.cpu())]
+    for args in bad:
+        with pytest.raises(ValueError):
+            graphops.plain_ell_spmm(*args)
+    assert graphops.plain_ell_spmm.launches == n0
+    out = graphops.plain_ell_spmm(cols, vals, deg, X)
+    assert torch.equal(graphops.plain_ell_spmm(cols, vals.double(), deg, X),
+                       out)
+    assert graphops.plain_ell_spmm.launches == n0 + 2
+    t0 = counters.get("spmm.ell_torch")
+    out64 = graphops.plain_ell_spmm(cols, vals, deg, X.double())
+    assert counters.get("spmm.ell_torch") == t0 + 1
+    assert graphops.plain_ell_spmm.launches == n0 + 2
+    _close(out64.cpu(), out.cpu().double(), torch.float32)

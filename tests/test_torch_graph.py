@@ -85,6 +85,89 @@ def test_graphops_match_jax(graphs):
         tops.laplacian_matvec(tg, Xt, "bogus")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("form", ["2d", "1d", "spmm_t"])
+def test_spmm_keeps_its_torch_form_off_cuda(graphs, dtype, form):
+    """Off CUDA (and for float64 anywhere) ``spmm`` takes its torch form,
+    the gather of every slot and one batched product: each product counts
+    ``spmm.ell_torch``, none ``spmm.ell_kernel``, the kernel's wrapper
+    launches nothing, and the result is the JAX package's."""
+    from graphlearning_tpu_torch.observability import counters
+
+    jg, _ = graphs
+    cols, vals, deg = tgl.SparseGraph.ell_from_scipy(jg.to_scipy())
+    tg = tgl.SparseGraph.from_ell_np(cols, vals, deg, dtype=dtype,
+                                     device="cpu")
+    X = np.random.RandomState(1).randn(jg.n, 3)
+    if form == "1d":
+        X = X[:, 0]
+    op_j, op_t = ((jops.spmm_t, tops.spmm_t) if form == "spmm_t"
+                  else (jops.spmm, tops.spmm))
+    before = (counters.get("spmm.ell_torch"), counters.get("spmm.ell_kernel"),
+              tops.plain_ell_spmm.launches)
+    out = op_t(tg, torch.as_tensor(X, dtype=dtype))
+    assert (counters.get("spmm.ell_torch") - before[0],
+            counters.get("spmm.ell_kernel") - before[1],
+            tops.plain_ell_spmm.launches - before[2]) == (1.0, 0.0, 0)
+    assert out.dtype == dtype and out.shape == X.shape
+    ref = np.asarray(op_j(jg, jnp.asarray(X)))
+    tol = TOL if dtype == torch.float64 else dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), ref, **tol)
+
+
+def _left_packed_graphs(W):
+    """The ELL graphs whose product ``spmm`` takes, each with the real
+    slots of a row first: from scipy, from a kNN result, the capped main
+    ELL of a hub graph, a graph padded with empty rows, the transpose."""
+    from graphlearning_tpu_torch.core.sparse import BucketedELL
+    from graphlearning_tpu_torch.parallel.shard import pad_graph_to
+
+    g = tgl.SparseGraph.from_scipy(W, device="cpu")
+    rs = np.random.RandomState(2)
+    knn = tgl.SparseGraph.from_knn(rs.randint(0, 50, (50, 6)),
+                                   rs.rand(50, 6) + 0.1, device="cpu")
+    hub = BucketedELL.from_scipy(W, kcap=4, device="cpu").main
+    return {"scipy": g, "knn": knn, "hub_main": hub,
+            "padded": pad_graph_to(g, 64), "transpose": g.transpose()}
+
+
+@pytest.mark.parametrize("kind", ["scipy", "knn", "hub_main", "padded",
+                                  "transpose"])
+def test_ell_graphs_hold_their_real_slots_first(W_diag, kind):
+    """What the CUDA kernel of ``spmm`` (``plain_ell_spmm``) reads: the
+    first ``deg[i]`` slots of row ``i`` alone.  So every ELL it is given
+    holds all of a row's weight there, with zeros in the padding slots, and
+    its product over the real slots is the gather of every slot's."""
+    g = _left_packed_graphs(W_diag)[kind]
+    real = g.mask()
+    assert bool((torch.where(real, 0.0, g.vals) == 0).all())
+    assert bool((g.deg <= g.k).all()) and g.deg.dtype == torch.int32
+    assert g.cols.dtype == torch.int32
+    X = torch.as_tensor(np.random.RandomState(3).randn(g.n, 5))
+    masked = torch.einsum("nk,nkd->nd", torch.where(real, g.vals, 0.0),
+                          X[g.cols])
+    torch.testing.assert_close(tops._plain_ell_spmm_twin(g.cols, g.vals, X),
+                               masked, rtol=0, atol=1e-12)
+
+
+def test_plain_ell_spmm_on_cpu_tensors_is_its_plain_twin(graphs):
+    """The product's one dispatch point takes its twin for CPU tensors,
+    counts ``spmm.ell_torch``, launches nothing, and gives ``W @ X``;
+    tensors on two devices are refused."""
+    from graphlearning_tpu_torch.observability import counters
+
+    jg, tg = graphs
+    X = torch.as_tensor(np.random.RandomState(4).randn(tg.n, 7))
+    n0, t0 = tops.plain_ell_spmm.launches, counters.get("spmm.ell_torch")
+    out = tops.plain_ell_spmm(tg.cols, tg.vals, tg.deg, X)
+    assert tops.plain_ell_spmm.launches == n0
+    assert counters.get("spmm.ell_torch") == t0 + 1
+    np.testing.assert_allclose(out.numpy(), jg.to_scipy() @ X.numpy(),
+                               **TOL)
+    with pytest.raises(ValueError):
+        tops.plain_ell_spmm(tg.cols, tg.vals, tg.deg, X.to("meta"))
+
+
 def test_conjgrad_and_constrained_solve_match_jax(graphs):
     jg, tg = graphs
     n = jg.n
